@@ -1,0 +1,12 @@
+"""keras-ocr on PyTorch and CUDA: the port of :mod:`keras_ocr_tpu`.
+
+It imports ``torch``, ``numpy`` and the standard library only. The JAX
+package stays the reference the port is tested against.
+"""
+
+from . import detection, pipeline, recognition, tools
+from .detection import Detector
+from .pipeline import Pipeline
+from .recognition import Recognizer
+
+__all__ = ["Detector", "Pipeline", "Recognizer", "detection", "pipeline", "recognition", "tools"]

@@ -1,0 +1,227 @@
+"""The connected-component sweep kernel and its plain PyTorch versions.
+
+Counterpart of ``keras_ocr_tpu/ops/cc_pallas.py``. On the card,
+:func:`segmented_min_sweeps` launches the hand-written CUDA kernel
+``csrc/cc_sweeps.cu`` (one launch per row or column pass, batched over
+images). For tensors on the CPU it runs :func:`segmented_min_sweeps_plain`,
+the shift-doubling form of ``keras_ocr_tpu/ops/cc.py:segmented_min_sweeps``
+written in PyTorch, which computes the same values.
+
+:func:`keyed_rows_cols` is the same kernel in its keyed mode: the row then
+column passes of ``keras_ocr_tpu/ops/cc.py:label_blobs_keyed``'s sweep,
+with :func:`keyed_rows_cols_plain` (``_keyed_run_min`` twice) for the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels
+
+SOURCE = "cc_sweeps.cu"
+
+
+def _shift(arr, distance, dim, reverse, fill):
+    """Bring the element ``distance`` positions behind (ahead if reverse)."""
+    size = arr.shape[dim]
+    pad_shape = list(arr.shape)
+    pad_shape[dim] = min(distance, size)
+    pad = torch.full(pad_shape, fill, dtype=arr.dtype, device=arr.device)
+    if distance >= size:
+        return pad
+    if reverse:
+        return torch.cat([arr.narrow(dim, distance, size - distance), pad], dim)
+    return torch.cat([pad, arr.narrow(dim, 0, size - distance)], dim)
+
+
+def segmented_min_sweeps_plain(
+    values, barrier, sentinel, num_sweeps, check_convergence=False
+):
+    """Shift-doubling sweeps on (..., H, W) int32 tensors (see
+    :func:`segmented_min_sweeps`)."""
+    barrier = barrier.to(torch.int32)
+
+    def segmented_min(v, dim, reverse):
+        f = barrier
+        distance = 1
+        size = v.shape[dim]
+        while distance < size:
+            vs = _shift(v, distance, dim, reverse, sentinel)
+            fs = _shift(f, distance, dim, reverse, 1)
+            v = torch.where(f == 0, torch.minimum(v, vs), v)
+            f = torch.maximum(f, fs)
+            distance *= 2
+        return v
+
+    def run_min(lab, dim):
+        best = torch.minimum(
+            segmented_min(lab, dim, False), segmented_min(lab, dim, True)
+        )
+        return torch.where(barrier == 1, torch.full_like(best, sentinel), best)
+
+    def sweep(lab):
+        return run_min(run_min(lab, -1), -2)
+
+    out = values
+    for _ in range(num_sweeps):
+        out = sweep(out)
+    if check_convergence:
+        final = sweep(out)
+        return final, (final == out).flatten(-2).all(-1)
+    return out
+
+
+def _library():
+    lib = kernels.load(SOURCE)
+    pointer, number = ctypes.c_void_p, ctypes.c_int
+    lib.cc_sweeps.argtypes = [pointer, pointer] + [number] * 5 + [pointer, pointer]
+    lib.cc_sweeps.restype = number
+    lib.cc_keyed_rows_cols.argtypes = [pointer] * 3 + [number] * 4 + [pointer]
+    lib.cc_keyed_rows_cols.restype = number
+    lib.cc_sweeps_max_line.restype = number
+    return lib
+
+
+def _check(values, *planes):
+    """Validate (..., H, W) int32 CUDA ``values`` and same-shape planes;
+    returns the library and (batch, H, W)."""
+    if values.dtype != torch.int32:
+        raise TypeError(f"values must be int32, got {values.dtype}")
+    for plane in planes:
+        if plane.shape != values.shape or plane.device != values.device:
+            raise ValueError(
+                f"plane {tuple(plane.shape)} on {plane.device} does not "
+                f"match values {tuple(values.shape)} on {values.device}"
+            )
+    if values.dim() < 2:
+        raise ValueError(f"values must be (..., H, W), got {tuple(values.shape)}")
+    height, width = values.shape[-2:]
+    lib = _library()
+    max_line = lib.cc_sweeps_max_line()
+    if height > max_line or width > max_line:
+        raise ValueError(
+            f"({height}, {width}) maps exceed the kernel's line limit {max_line}"
+        )
+    return lib, (values.numel() // (height * width), height, width)
+
+
+def _int32_planes(shape, *planes):
+    return [p.to(torch.int32).reshape(shape).contiguous() for p in planes]
+
+
+def _launch(values, barrier, sentinel, num_sweeps, check_convergence):
+    lib, shape = _check(values, barrier)
+    out = values.reshape(shape).clone()
+    (barrier,) = _int32_planes(shape, barrier)
+    changed = (
+        torch.zeros(shape[0], dtype=torch.int32, device=values.device)
+        if check_convergence
+        else None
+    )
+    if shape[0]:
+        with torch.cuda.device(values.device):
+            rc = lib.cc_sweeps(
+                out.data_ptr(), barrier.data_ptr(), *shape, int(sentinel),
+                int(num_sweeps), changed.data_ptr() if changed is not None else None,
+                torch.cuda.current_stream(values.device).cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"cc_sweeps launch failed with CUDA error {rc}")
+        segmented_min_sweeps.launches += 1
+    out = out.reshape(values.shape)
+    if check_convergence:
+        return out, (changed == 0).reshape(values.shape[:-2])
+    return out
+
+
+def segmented_min_sweeps(values, barrier, sentinel, num_sweeps, check_convergence=False):
+    """Propagate per-component minima of ``values`` across a barrier mask.
+
+    Port of ``keras_ocr_tpu/ops/cc.py:segmented_min_sweeps``, batched: every
+    leading dimension is an independent image.
+
+    Args:
+        values: (..., H, W) int32; barrier positions must hold ``sentinel``.
+        barrier: (..., H, W) 0/1 (1 = background / propagation barrier).
+        sentinel: value acting as +inf.
+        num_sweeps: number of row+column propagation sweeps.
+        check_convergence: run one extra sweep and report, per image,
+            whether it changed nothing (the fixpoint proof).
+
+    Returns:
+        (..., H, W) int32; with ``check_convergence`` a tuple of (values
+        after the extra sweep, (...) bool ``converged``).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (and
+    count the launch in ``segmented_min_sweeps.launches``) or raise.
+    """
+    if values.device.type == "cpu":
+        return segmented_min_sweeps_plain(
+            values, barrier, sentinel, num_sweeps, check_convergence
+        )
+    if values.device.type != "cuda":
+        raise ValueError(f"no sweep kernel for device {values.device}")
+    return _launch(values, barrier, sentinel, num_sweeps, check_convergence)
+
+
+segmented_min_sweeps.launches = 0
+
+
+def _keyed_run_min(values, key, fg, sentinel, dim):
+    """Bidirectional min over maximal same-key foreground runs along dim."""
+
+    def one_direction(reverse):
+        prev_fg = _shift(fg.to(torch.int32), 1, dim, reverse, 0)
+        prev_key = _shift(key, 1, dim, reverse, -1)
+        head = ((~fg) | (prev_fg == 0) | (prev_key != key)).to(torch.int32)
+        v, f = values, head
+        distance = 1
+        size = values.shape[dim]
+        while distance < size:
+            vs = _shift(v, distance, dim, reverse, sentinel)
+            fs = _shift(f, distance, dim, reverse, 1)
+            v = torch.where(f == 0, torch.minimum(v, vs), v)
+            f = f | fs
+            distance *= 2
+        return v
+
+    best = torch.minimum(one_direction(False), one_direction(True))
+    return torch.where(fg, best, torch.full_like(best, sentinel))
+
+
+def keyed_rows_cols_plain(values, key, fg, sentinel):
+    """Shift-doubling keyed run minimum along rows, then columns."""
+    values = _keyed_run_min(values, key, fg, sentinel, -1)
+    return _keyed_run_min(values, key, fg, sentinel, -2)
+
+
+def keyed_rows_cols(values, key, fg, sentinel):
+    """Keyed run minimum of (..., H, W) int32 ``values`` along the rows,
+    then along the columns: a run is a maximal stretch of ``fg`` cells
+    with equal int32 ``key``; cells outside ``fg`` get ``sentinel``.
+
+    CPU tensors take :func:`keyed_rows_cols_plain`; CUDA tensors launch the
+    kernel's keyed mode (counted in ``keyed_rows_cols.launches``) or raise.
+    """
+    if values.device.type == "cpu":
+        return keyed_rows_cols_plain(values, key, fg, sentinel)
+    if values.device.type != "cuda":
+        raise ValueError(f"no keyed kernel for device {values.device}")
+    lib, shape = _check(values, key, fg)
+    out = values.reshape(shape).clone()
+    key, barrier = _int32_planes(shape, key, ~fg)
+    if shape[0]:
+        with torch.cuda.device(values.device):
+            rc = lib.cc_keyed_rows_cols(
+                out.data_ptr(), barrier.data_ptr(), key.data_ptr(), *shape,
+                int(sentinel), torch.cuda.current_stream(values.device).cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"cc_keyed_rows_cols launch failed with CUDA error {rc}")
+        keyed_rows_cols.launches += 1
+    return out.reshape(values.shape)
+
+
+keyed_rows_cols.launches = 0

@@ -1,0 +1,431 @@
+"""End-to-end OCR pipeline of the port: detection -> crop -> recognition.
+
+Counterpart of ``keras_ocr_tpu/pipeline/__init__.py:Pipeline``. The device
+program (:meth:`Pipeline._device_pipeline`) runs the 2x upscale and
+normalisation, CRAFT, ``get_boxes``, word compaction, grayscale and the
+perspective crops, the CRNN and the greedy CTC decode on the pipeline's
+device, and returns one packed ``(B, words, 8+1+T+2)`` float32 tensor with
+the JAX layout: 8 box coordinates, the slot's validity, T decoded labels,
+the total thresholded components, and a flag bitmask (+1 labeling
+converged, +2 a multi-blob component wants contours[0] refinement, +4 a
+crop overflowed the warp window). PyTorch launches asynchronously; the
+host waits for the device only when it fetches that tensor, and the
+escalation ladders relaunch the program on the flags it reads.
+
+Not ported yet: the contours[0] refinement (flag 2 is reported, counted in
+``last_run_stats["refine_pending"]`` and warned about, not escalated), the
+non-uniform-scale resize path, the two-stage ``recognition_kwargs`` path,
+meshes and export.
+"""
+
+from __future__ import annotations
+
+import threading
+import typing
+import warnings
+
+import numpy as np
+import torch
+
+from .. import detection as detection_mod
+from .. import tools
+from ..detection import Detector
+from ..ops import ctc as ctc_ops
+from ..ops import postprocess as postprocess_ops
+from ..ops.image import compute_input, resize_bilinear, rgb_to_grayscale
+from ..ops.warp import WINDOW_LADDER, warp_boxes_batch, window_overflow
+from ..recognition import Recognizer
+
+
+def _new_run_stats():
+    return {
+        "escalations": 0,
+        "truncated_images": 0,
+        "component_escalations": 0,
+        "sweep_escalations": 0,
+        "refine_escalations": 0,
+        "refine_pending": 0,
+        "warp_escalations": 0,
+    }
+
+
+class Pipeline:
+    """A detector and a recognizer fused into one device program.
+
+    Args:
+        detector / recognizer: default to seeded random-weight models.
+        scale: the scale factor applied to input images.
+        max_size: the maximum single-side dimension of scaled images.
+        max_words: cap on recognized words per image.
+        size_bucket: pad image sides up to multiples of this.
+        pad_to: optional (height, width) every batch is padded to.
+        word_buckets: increasing word-capacity ladder ending at
+            ``max_words`` (default ``(16, max_words)``).
+    """
+
+    def __init__(
+        self,
+        detector: typing.Optional[Detector] = None,
+        recognizer: typing.Optional[Recognizer] = None,
+        scale: int = 2,
+        max_size: int = 2048,
+        max_words: int = 64,
+        size_bucket: int = 32,
+        pad_to: typing.Optional[typing.Tuple[int, int]] = None,
+        word_buckets: typing.Optional[typing.Sequence[int]] = None,
+    ):
+        if detector is None:
+            detector = Detector()
+        if recognizer is None:
+            recognizer = Recognizer(device=detector.device)
+        if recognizer.device != detector.device:
+            raise ValueError(
+                f"detector on {detector.device} but recognizer on {recognizer.device}"
+            )
+        self.device = detector.device
+        self.scale = scale
+        self.detector = detector
+        self.recognizer = recognizer
+        self.max_size = max_size
+        self.max_words = max_words
+        if word_buckets is None:
+            word_buckets = (16, max_words) if max_words > 16 else (max_words,)
+        if word_buckets[-1] != max_words or list(word_buckets) != sorted(set(word_buckets)):
+            raise ValueError(
+                "word_buckets must be strictly increasing and end at "
+                f"max_words={max_words}; got {tuple(word_buckets)}"
+            )
+        self.word_buckets = tuple(int(b) for b in word_buckets)
+        # Sticky caps are performance memos, never correctness state: each
+        # result is judged against the caps it was launched with.
+        self._component_cap = detector.max_components
+        self._num_sweeps = detection_mod.DEFAULT_NUM_SWEEPS
+        self._bucket_start = 0
+        self._sticky_lock = threading.Lock()
+        self.last_run_stats = _new_run_stats()
+        self.size_bucket = size_bucket
+        self.pad_to = pad_to
+        # Sub-batch of the CRAFT forward: bounds the full-resolution
+        # activations of large batches.
+        self._detector_chunk = 16
+
+    @torch.inference_mode()
+    def _device_pipeline(
+        self,
+        images,  # (B, H, W, 3) uint8 on the device
+        detection_threshold,
+        text_threshold,
+        link_threshold,
+        size_threshold,
+        max_components,
+        max_words,
+        resize_to=None,
+        num_sweeps=detection_mod.DEFAULT_NUM_SWEEPS,
+        warp_level=0,
+    ):
+        images = images.to(torch.float32)
+        if resize_to is not None:
+            images = resize_bilinear(images, resize_to[0], resize_to[1])
+        x = compute_input(images)
+        heatmaps = torch.cat(
+            [self.detector.model(chunk) for chunk in torch.split(x, self._detector_chunk)]
+        )
+        boxes, mask, diag = postprocess_ops.get_boxes(
+            heatmaps,
+            detection_threshold=detection_threshold,
+            text_threshold=text_threshold,
+            link_threshold=link_threshold,
+            size_threshold=size_threshold,
+            max_components=max_components,
+            num_sweeps=num_sweeps,
+        )
+        refine_signal = diag["n_multiblob"] > 0
+        # Compact valid boxes into the first max_words slots (stable order).
+        order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)[:, :max_words]
+        boxes_c = torch.gather(boxes, 1, order[..., None, None].expand(-1, -1, 4, 2))
+        mask_c = torch.gather(mask, 1, order)
+
+        win_h, win_w = WINDOW_LADDER[warp_level]
+        warp_signal = window_overflow(boxes_c, mask_c, win_h, win_w)
+
+        height, width, channels = self.recognizer.input_shape
+        if channels == 1:
+            # Grayscale before warping, as the reference converts on host.
+            source = torch.clamp(rgb_to_grayscale(images), 0, 255)
+            crops = warp_boxes_batch(
+                source, boxes_c, target_height=height, target_width=width,
+                window_height=win_h, window_width=win_w,
+            )
+            crops = (crops / 255.0)[..., None]
+        else:
+            crops = warp_boxes_batch(
+                images, boxes_c, target_height=height, target_width=width,
+                window_height=win_h, window_width=win_w,
+            ) / 255.0
+        batch, words = crops.shape[:2]
+        probs = self.recognizer.model(crops.reshape((batch * words,) + crops.shape[2:]))
+        decoded = ctc_ops.ctc_greedy_decode(probs).reshape(batch, words, -1)
+        flags = (
+            diag["converged"].to(torch.float32)
+            + 2.0 * refine_signal.to(torch.float32)
+            + 4.0 * warp_signal.to(torch.float32)
+        )
+        per_image = torch.stack([diag["n_components"].to(torch.float32), flags], -1)
+        return torch.cat(
+            [
+                boxes_c.reshape(batch, words, 8),
+                mask_c[..., None].to(torch.float32),
+                decoded.to(torch.float32),
+                per_image[:, None, :].expand(batch, words, 2),
+            ],
+            dim=-1,
+        )
+
+    def _prepare(self, images):
+        """Host prep: read and pad to one uint8 batch, upload to the device.
+
+        Returns (device_batch, scales, num_real, resize_to). The upload goes
+        from pinned memory without blocking the host.
+        """
+        if not isinstance(images, np.ndarray):
+            images = [tools.read(image) for image in images]
+        bucket = self.size_bucket
+        scales = [
+            self.max_size / max(image.shape)
+            if max(image.shape) * self.scale > self.max_size
+            else self.scale
+            for image in images
+        ]
+        if len(set(scales)) != 1 or not float(scales[0]).is_integer():
+            raise NotImplementedError(
+                "images that need a non-integer or non-uniform scale (longest "
+                f"side x {self.scale} > max_size={self.max_size}) are not "
+                "supported yet"
+            )
+        scale = int(scales[0])
+        max_height = max(image.shape[0] for image in images)
+        max_width = max(image.shape[1] for image in images)
+        if self.pad_to is not None:
+            if self.pad_to[0] < max_height or self.pad_to[1] < max_width:
+                raise ValueError(
+                    f"pad_to {self.pad_to} smaller than batch extent "
+                    f"({max_height}, {max_width})"
+                )
+            max_height, max_width = self.pad_to
+        max_height = -(-max_height // bucket) * bucket
+        max_width = -(-max_width // bucket) * bucket
+        batch = np.array(
+            [tools.pad(image, width=max_width, height=max_height) for image in images],
+            dtype="uint8",
+        )
+        host = torch.from_numpy(batch)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        device_batch = host.to(self.device, non_blocking=True)
+        resize_to = (max_height * scale, max_width * scale)
+        return device_batch, scales, len(batch), resize_to
+
+    def _raise_sticky(self, component_cap=None, num_sweeps=None, bucket_start=None):
+        """Publish learned caps monotonically (thread-safe)."""
+        with self._sticky_lock:
+            if component_cap is not None:
+                self._component_cap = max(self._component_cap, component_cap)
+            if num_sweeps is not None:
+                self._num_sweeps = max(self._num_sweeps, num_sweeps)
+            if bucket_start is not None:
+                self._bucket_start = bucket_start
+
+    def _launch(
+        self, device_batch, detection_kwargs, bucket, resize_to, components,
+        sweeps=detection_mod.DEFAULT_NUM_SWEEPS, warp_level=0,
+    ):
+        """Enqueue the device program at one set of caps; returns the
+        packed device tensor without waiting for it."""
+        return self._device_pipeline(
+            device_batch,
+            detection_threshold=float(detection_kwargs.get("detection_threshold", 0.7)),
+            text_threshold=float(detection_kwargs.get("text_threshold", 0.4)),
+            link_threshold=float(detection_kwargs.get("link_threshold", 0.4)),
+            size_threshold=float(detection_kwargs.get("size_threshold", 10)),
+            max_components=components,
+            max_words=bucket,
+            resize_to=resize_to,
+            num_sweeps=sweeps,
+            warp_level=warp_level,
+        )
+
+    def _fetch_escalating(
+        self,
+        packed_dev,
+        device_batch,
+        detection_kwargs,
+        resize_to,
+        num_real,
+        bucket,
+        components,
+        sweeps=detection_mod.DEFAULT_NUM_SWEEPS,
+        stats=None,
+    ):
+        """Fetch a launched result; relaunch on the sweep, component,
+        word-bucket and warp ladders. ``components``/``sweeps`` are the
+        caps ``packed_dev`` was launched with."""
+        if stats is None:
+            stats = self.last_run_stats
+        remaining = list(self.word_buckets[self.word_buckets.index(bucket) + 1 :])
+
+        def fetch(packed):
+            return packed[:num_real].cpu().numpy()
+
+        def relaunch(warp_level=0):
+            return fetch(
+                self._launch(
+                    device_batch, detection_kwargs, bucket, resize_to,
+                    components, sweeps, warp_level,
+                )
+            )
+
+        packed = fetch(packed_dev)
+
+        def flag_bits(bit):
+            """Any image with ``bit`` set in its flags (bit 1 inverted:
+            set means converged)."""
+            if not len(packed):
+                return False
+            flags = packed[:, 0, -1].astype(int)
+            if bit == 1:
+                return bool(((flags & 1) == 0).any())
+            return bool((flags & bit).any())
+
+        # Convergence first: an unconverged labeling may split components
+        # and overcount ncomp, which the component check reads.
+        while flag_bits(1) and sweeps < detection_mod.MAX_SWEEPS_CEILING:
+            sweeps = min(sweeps * 2, detection_mod.MAX_SWEEPS_CEILING)
+            self._raise_sticky(num_sweeps=sweeps)
+            stats["sweep_escalations"] += 1
+            packed = relaunch()
+        if flag_bits(1):
+            warnings.warn(
+                f"component labeling did not converge within "
+                f"{detection_mod.MAX_SWEEPS_CEILING} sweeps; serpentine "
+                "components may be split.",
+                stacklevel=3,
+            )
+        while (
+            len(packed)
+            and int(packed[:, 0, -2].max()) > components
+            and components < detection_mod.MAX_COMPONENTS_CEILING
+        ):
+            components = min(components * 2, detection_mod.MAX_COMPONENTS_CEILING)
+            self._raise_sticky(component_cap=components)
+            stats["component_escalations"] += 1
+            packed = relaunch()
+        while bool((packed[..., 8] > 0.5).all(axis=1).any()) and remaining:
+            bucket = remaining.pop(0)
+            stats["escalations"] += 1
+            packed = relaunch()
+        # contours[0] refinement is not ported: report what the JAX
+        # pipeline would have escalated, and warn as it does at its top.
+        if flag_bits(2):
+            stats["refine_pending"] += int(((packed[:, 0, -1].astype(int) & 2) > 0).sum())
+            warnings.warn(
+                "contours[0] refinement incomplete at the ladder top; "
+                "multi-blob component boxes may be supersets. Use "
+                "Detector.detect(use_device_postprocess=False) for this "
+                "image.",
+                stacklevel=3,
+            )
+        # Warp-window overflow: rerun with the next window rung so crops
+        # stay exact slices; the top rung accepts the antialiased downscale.
+        warp_level = 0
+        while flag_bits(4) and warp_level < len(WINDOW_LADDER) - 1:
+            warp_level += 1
+            stats["warp_escalations"] += 1
+            packed = relaunch(warp_level)
+        saturated = int((packed[..., 8] > 0.5).all(axis=1).sum()) if len(packed) else 0
+        if saturated:
+            stats["truncated_images"] += saturated
+            warnings.warn(
+                f"{saturated} image(s) filled all max_words={self.max_words} "
+                "word slots; results may be truncated. Raise Pipeline("
+                "max_words=...) for denser scenes.",
+                stacklevel=3,
+            )
+        word_count = int((packed[..., 8] > 0.5).sum(axis=1).max()) if len(packed) else 0
+        self._raise_sticky(
+            bucket_start=next(
+                (i for i, b in enumerate(self.word_buckets) if b > word_count),
+                len(self.word_buckets) - 1,
+            )
+        )
+        return packed
+
+    def _finalize(self, packed, scales):
+        """Unpack the fetched (B, words, 8+1+T+2) array into the ragged API."""
+        boxes = packed[..., :8].reshape(packed.shape[0], packed.shape[1], 4, 2)
+        mask = packed[..., 8] > 0.5
+        decoded = packed[..., 9:-2].astype("int32")
+        results = []
+        for i, scale in enumerate(scales):
+            valid = mask[i]
+            words = ctc_ops.ctc_decode_to_strings(decoded[i][valid], self.recognizer.alphabet)
+            image_boxes = boxes[i][valid].astype("float32")
+            if scale != 1:
+                image_boxes = image_boxes / scale
+            results.append(list(zip(words, [box for box in image_boxes])))
+        return results
+
+    def _start(self, images, detection_kwargs):
+        """Prepare and launch one batch; returns what the fetch needs."""
+        device_batch, scales, num_real, resize_to = self._prepare(images)
+        bucket = self.word_buckets[self._bucket_start]
+        components = self._component_cap
+        sweeps = self._num_sweeps
+        packed_dev = self._launch(
+            device_batch, detection_kwargs, bucket, resize_to, components, sweeps
+        )
+        return packed_dev, device_batch, resize_to, num_real, scales, bucket, components, sweeps
+
+    def _finish(self, started, detection_kwargs, stats):
+        packed_dev, device_batch, resize_to, num_real, scales, bucket, components, sweeps = started
+        packed = self._fetch_escalating(
+            packed_dev, device_batch, detection_kwargs, resize_to, num_real,
+            bucket, components, sweeps, stats=stats,
+        )
+        return self._finalize(packed, scales)
+
+    def recognize(self, images, detection_kwargs: typing.Optional[dict] = None):
+        """Run the fused pipeline; returns a list of (word, box) lists."""
+        detection_kwargs = dict(detection_kwargs or {})
+        stats = _new_run_stats()
+        self.last_run_stats = stats
+        results = self._finish(self._start(images, detection_kwargs), detection_kwargs, stats)
+        self.last_run_stats = stats
+        return results
+
+    def recognize_many(
+        self,
+        images,
+        batch_size: int = 8,
+        detection_kwargs: typing.Optional[dict] = None,
+        queue_depth: int = 2,
+    ):
+        """Throughput-oriented recognize: batches of ``batch_size`` with up
+        to ``queue_depth`` device programs in flight, so the host prepares
+        and launches batch i+1 while the device runs batch i. Output is
+        identical to ``recognize`` called per batch."""
+        if queue_depth < 1:
+            raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")
+        detection_kwargs = dict(detection_kwargs or {})
+        stats = _new_run_stats()
+        self.last_run_stats = stats
+        images = list(images)
+        inflight: typing.List[tuple] = []
+        results: typing.List[list] = []
+        for start in range(0, len(images), batch_size):
+            inflight.append(self._start(images[start : start + batch_size], detection_kwargs))
+            if len(inflight) >= queue_depth:
+                results.extend(self._finish(inflight.pop(0), detection_kwargs, stats))
+        while inflight:
+            results.extend(self._finish(inflight.pop(0), detection_kwargs, stats))
+        self.last_run_stats = stats
+        return results

@@ -1,0 +1,145 @@
+"""Port parity: connected-component sweeps and labeling vs the JAX package.
+
+The port's sweep wrapper runs its plain PyTorch version for CPU tensors;
+it must equal ``keras_ocr_tpu.ops.cc.segmented_min_sweeps`` and the Pallas
+kernel (interpret mode) exactly, converged flags included. The labeling
+functions built on it must be exact too.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from keras_ocr_tpu.ops import cc as jcc
+from keras_ocr_tpu.ops.cc_pallas import segmented_min_sweeps_pallas
+from keras_ocr_tpu_torch.ops import cc, cc_cuda
+
+torch.set_num_threads(2)
+
+
+def _serpentine(height, width):
+    fg = np.zeros((height, width), bool)
+    for i, row in enumerate(range(1, height - 1, 2)):
+        fg[row, 2 : width - 2] = True
+        if row + 2 < height - 1:
+            fg[row + 1, width - 3 if i % 2 == 0 else 2] = True
+    return fg
+
+
+def _masks():
+    rng = np.random.RandomState(0)
+    masks = [rng.rand(96, 160) < density for density in (0.4, 0.6, 0.8)]
+    return masks + [_serpentine(96, 160)]
+
+
+def _label_inputs(fg):
+    sentinel = fg.size
+    idx = np.arange(sentinel, dtype=np.int32).reshape(fg.shape)
+    return np.where(fg, idx, sentinel).astype(np.int32), (~fg).astype(np.int32), sentinel
+
+
+@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("sweeps", [1, 8])
+def test_sweeps_match_jax_and_pallas(case, sweeps):
+    fg = _masks()[case]
+    values, barrier, sentinel = _label_inputs(fg)
+    ref, ref_conv = jcc.segmented_min_sweeps(
+        jnp.asarray(values), jnp.asarray(barrier), sentinel, sweeps, check_convergence=True
+    )
+    out, conv = cc.segmented_min_sweeps(
+        torch.from_numpy(values), torch.from_numpy(barrier), sentinel, sweeps,
+        check_convergence=True,
+    )
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    assert bool(conv) == bool(ref_conv)
+    pallas = segmented_min_sweeps_pallas(
+        jnp.asarray(values), jnp.asarray(barrier), sentinel, sweeps, interpret=True
+    )
+    plain = cc.segmented_min_sweeps(
+        torch.from_numpy(values), torch.from_numpy(barrier), sentinel, sweeps
+    )
+    np.testing.assert_array_equal(plain.numpy(), np.asarray(pallas))
+
+
+def test_sweeps_batched_equal_per_image():
+    """A (B, H, W) batch equals its images swept one by one, flags per image."""
+    masks = np.stack(_masks())
+    values, barrier, sentinel = _label_inputs(masks[0])
+    values = np.where(masks, np.arange(sentinel).reshape(96, 160), sentinel).astype(np.int32)
+    barrier = (~masks).astype(np.int32)
+    out, conv = cc.segmented_min_sweeps(
+        torch.from_numpy(values), torch.from_numpy(barrier), sentinel, 8, True
+    )
+    assert conv.shape == (4,)
+    for i in range(4):
+        one, one_conv = cc.segmented_min_sweeps(
+            torch.from_numpy(values[i]), torch.from_numpy(barrier[i]), sentinel, 8, True
+        )
+        assert torch.equal(out[i], one) and bool(conv[i]) == bool(one_conv)
+    assert not bool(conv[3])  # the serpentine needs more than 8 sweeps
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    values, barrier, sentinel = _label_inputs(_masks()[0])
+    before = cc_cuda.segmented_min_sweeps.launches
+    cc_cuda.segmented_min_sweeps(torch.from_numpy(values), torch.from_numpy(barrier), sentinel, 2)
+    assert cc_cuda.segmented_min_sweeps.launches == before
+    with pytest.raises(ValueError):
+        cc_cuda.segmented_min_sweeps(
+            torch.from_numpy(values).to("meta"), torch.from_numpy(barrier).to("meta"),
+            sentinel, 2,
+        )
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_label_and_compact_match_jax(case):
+    fg = _masks()[case]
+    for sweeps in (2, 8):
+        ref, ref_conv = jcc.label_components(
+            jnp.asarray(fg), num_sweeps=sweeps, check_convergence=True
+        )
+        out, conv = cc.label_components(
+            torch.from_numpy(fg), num_sweeps=sweeps, check_convergence=True
+        )
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+        assert bool(conv) == bool(ref_conv)
+        for cap in (4, 64):
+            rc, rn, rconv = jcc.compact_labels(
+                ref, cap, num_sweeps=sweeps, check_convergence=True
+            )
+            oc, on, oconv = cc.compact_labels(
+                out, cap, num_sweeps=sweeps, check_convergence=True
+            )
+            np.testing.assert_array_equal(oc.numpy(), np.asarray(rc))
+            assert int(on) == int(rn)
+            assert bool(oconv) == bool(rconv)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_brushfire_and_keyed_blobs_match_jax(seed):
+    rng = np.random.RandomState(seed)
+    height, width = 48, 80
+    seed_mask = rng.rand(height, width) < 0.05
+    comp = rng.randint(0, 6, size=(height, width)).astype(np.int32)
+    grow_a = rng.randint(0, 4, size=(height, width)).astype(np.float32)
+    grow_b = rng.randint(0, 4, size=(height, width)).astype(np.float32)
+    ref_cover, ref_comp = jcc.brushfire_dilate(
+        jnp.asarray(seed_mask), jnp.asarray(comp), jnp.asarray(grow_a), jnp.asarray(grow_b)
+    )
+    cover, cover_comp = cc.brushfire_dilate(
+        torch.from_numpy(seed_mask), torch.from_numpy(comp),
+        torch.from_numpy(grow_a), torch.from_numpy(grow_b),
+    )
+    np.testing.assert_array_equal(cover.numpy(), np.asarray(ref_cover))
+    np.testing.assert_array_equal(cover_comp.numpy(), np.asarray(ref_comp))
+    for sweeps in (1, 8):
+        ref, ref_conv = jcc.label_blobs_keyed(
+            ref_cover, ref_comp, num_sweeps=sweeps, check_convergence=True
+        )
+        out, conv = cc.label_blobs_keyed(
+            cover, cover_comp, num_sweeps=sweeps, check_convergence=True
+        )
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+        assert bool(conv) == bool(ref_conv)

@@ -1,0 +1,125 @@
+"""Port parity for the whole slice: the golden pipeline in both packages.
+
+The committed golden artifact (trained slim CRAFT + CRNN) runs through the
+JAX ``Pipeline`` and the port's ``Pipeline`` on the same scenes: the words
+must be equal, every box matched at IoU > 0.9, and the escalation ladders
+must take the same steps. Then the port's own ``run_golden_check`` must
+pass on all 12 scenes. Random weights are not used here: their heatmaps
+sit on threshold knife edges.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from keras_ocr_tpu import evaluation
+from keras_ocr_tpu.utils import golden as jgolden
+from keras_ocr_tpu_torch.utils import golden
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(ROOT, "tests", "fixtures", "golden_offline")
+SCENES = ["scene_00.png", "scene_01.png", "scene_02.png", "scene_03.png"]
+META_SLIM = {
+    "height": 31, "width": 200, "color": False, "filters": (8, 8, 8, 8, 8, 8, 8),
+    "rnn_units": (8, 8), "dropout": 0.25, "rnn_steps_to_discard": 2, "pool_size": 2,
+    "stn": False,
+}
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    jax_pipeline, _ = jgolden.load_golden_pipeline(GOLDEN)
+    port_pipeline, _ = golden.load_golden_pipeline(GOLDEN, device="cpu")
+    return jax_pipeline, port_pipeline
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_golden_scene_matches_jax_pipeline(pipelines, scene):
+    from keras_ocr_tpu import tools as jtools
+
+    jax_pipeline, port_pipeline = pipelines
+    image = jtools.read(os.path.join(GOLDEN, scene))
+    ref = jax_pipeline.recognize([image])[0]
+    out = port_pipeline.recognize([image])[0]
+    assert [word for word, _ in out] == [word for word, _ in ref]
+    for (_, box), (_, ref_box) in zip(out, ref):
+        assert box.shape == (4, 2) and box.dtype == np.float32
+        assert evaluation.iou_score(box, ref_box) > 0.9
+    common = set(jax_pipeline.last_run_stats) & set(port_pipeline.last_run_stats)
+    assert {k: port_pipeline.last_run_stats[k] for k in common} == {
+        k: jax_pipeline.last_run_stats[k] for k in common
+    }
+
+
+def test_port_golden_check_passes_on_all_scenes():
+    result = golden.run_golden_check(GOLDEN, device="cpu")
+    assert result["n_scenes"] == 12 and result["n_words"] >= 20
+    assert result["fraction"] >= 0.85, result
+    assert result["pass"]
+    # Three scenes hold a word wider than the first warp window.
+    assert result["run_stats"]["warp_escalations"] == 3
+
+
+def test_recognize_many_equals_recognize(pipelines):
+    _, port_pipeline = pipelines
+    from keras_ocr_tpu_torch import tools
+
+    images = [tools.read(os.path.join(GOLDEN, scene)) for scene in SCENES[:3]]
+    single = [port_pipeline.recognize([image])[0] for image in images]
+    for queue_depth in (1, 2):
+        many = port_pipeline.recognize_many(images, batch_size=2, queue_depth=queue_depth)
+        assert [[w for w, _ in r] for r in many] == [[w for w, _ in r] for r in single]
+        for got, want in zip(many, single):
+            for (_, box), (_, ref_box) in zip(got, want):
+                np.testing.assert_allclose(box, ref_box, atol=1e-3)
+
+
+def test_unported_options_raise():
+    from keras_ocr_tpu_torch import Detector, Pipeline, Recognizer
+
+    with pytest.raises(ValueError):
+        Detector(weights="clovaai_general", width=0.5, device="cpu")
+    with pytest.raises(NotImplementedError):
+        Detector(weights="clovaai_general", device="cpu")
+    with pytest.raises(NotImplementedError):
+        Recognizer(weights="kurapan", device="cpu")
+    pipeline = Pipeline(
+        detector=Detector(width=0.25, device="cpu"),
+        recognizer=Recognizer(build_params=dict(META_SLIM), device="cpu"),
+        max_size=64,
+    )
+    with pytest.raises(NotImplementedError):  # 48 x 2 > max_size: non-uniform path
+        pipeline.recognize([np.zeros((48, 40, 3), np.uint8)])
+
+
+def test_port_runs_with_jax_blocked():
+    """The port and its pipeline import and run with jax, flax and the JAX
+    package unimportable (as on a machine without JAX)."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'keras_ocr_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "import keras_ocr_tpu_torch\n"
+        "from keras_ocr_tpu_torch.pipeline import Pipeline\n"
+        "from keras_ocr_tpu_torch.utils import golden\n"
+        "pipeline, meta = golden.load_golden_pipeline(sys.argv[1], device='cpu')\n"
+        "words = [w for w, _ in pipeline.recognize([sys.argv[1] + '/scene_00.png'])[0]]\n"
+        "assert words, words\n"
+        "assert not any(m.startswith(('jax', 'flax', 'keras_ocr_tpu.')) "
+        "for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('words', words)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code, GOLDEN],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "words" in proc.stdout
