@@ -4,13 +4,17 @@ Phases, each printing one line; any failure exits non-zero:
 
 1. environment: the card (name, power limit), torch and CUDA versions, TF32
    off for convolutions and matrix products;
-2. build: the CUDA sweep kernel from ``keras_ocr_tpu_torch/csrc``;
+2. build: both CUDA sources of ``keras_ocr_tpu_torch/csrc`` (the sweep
+   kernel and the conv kernel), started together, each with its time;
 3. kernel vs plain: both entries of the sweep kernel (the label sweeps and
    the keyed row/column runs of the blob census) against their plain
    PyTorch versions on the card, on seeded masks (densities 0.3-0.8 plus a
    serpentine that needs more than 8 sweeps) at (4, 256, 320) and
    (8, 480, 640); maps and converged flags must be exactly equal; median
-   times of 20 runs;
+   times of 20 runs. Then the conv kernel: ``conv_chain`` on the 12 conv
+   chains of a full-width CRAFT at 960x1280, batch 1, and
+   ``conv3x3_bias_act`` at C3 and at an odd size, against ``F.conv2d``
+   (cuDNN, TF32 off) within 1e-4 * max(1, max|plain|), median of 20 each;
 4. golden: the committed trained slim pipeline
    (``tests/fixtures/golden_offline``) must read at least the artifact's
    ``pass_fraction`` of its expected words;
@@ -19,22 +23,35 @@ Phases, each printing one line; any failure exits non-zero:
    on the golden scenes padded to 640x480, through ``recognize`` and
    ``recognize_many(batch_size=8)``; the output must be well formed with
    finite boxes, the device program must enqueue without a host
-   synchronisation, and the pipeline phases must have launched both kernel
-   entries.
+   synchronisation, and the pipeline phases must have launched both sweep
+   kernel entries;
+6. golden, folded: the same artifact through ``Detector(fold_bn=True)``,
+   its standard checkpoint folded on load, must pass too, with both conv
+   wrappers launched;
+7. full width, folded: the full-width detector with seeded BatchNorm
+   statistics, folded into ``Detector(fold_bn=True)``; its heatmaps must
+   agree with the unfolded cuDNN graph within 1e-3 * max(1, max|ref|);
+   ``recognize`` and ``recognize_many`` of both graphs, the folded device
+   program under sync debug mode "error", and the CRAFT forward of both
+   graphs at batch 1 and 8.
 
-The second-to-last line is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``. There is no CPU path.
+Phases 4-5 (the default path) and 6-7 (the folded path) each count their
+kernel launches from zero. The second-to-last line is the kernel table as
+JSON; the last line is ``{"ok": true, "device": {...}}``. There is no CPU
+path.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,6 +59,27 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT = os.path.join(ROOT, "tests", "fixtures", "golden_offline")
 SHAPES = ((4, 256, 320), (8, 480, 640))
+# The 12 conv chains of a full-width CRAFT forward of one 960x1280 input
+# (640x480 at scale 2): (name, H, W, Cin, ((k, Cout, relu), ...), pool, tap).
+CRAFT_CHAINS = (
+    ("C1 slice1_0,3", 960, 1280, 3, ((3, 64, True), (3, 64, True)), True, False),
+    ("C2 slice1_7,10", 480, 640, 64, ((3, 128, True), (3, 128, True)), True, True),
+    ("C3 slice2_14,17", 240, 320, 128, ((3, 256, True), (3, 256, True)), False, False),
+    ("C4 slice3_20", 240, 320, 256, ((3, 256, True),), True, False),
+    ("C5 slice3_24,27", 120, 160, 256, ((3, 512, True), (3, 512, True)), False, False),
+    ("C6 slice4_30", 120, 160, 512, ((3, 512, True),), True, False),
+    ("C7 slice4_34,37", 60, 80, 512, ((3, 512, True), (3, 512, False)), False, False),
+    ("upconv1", 60, 80, 1536, ((1, 512, True), (3, 256, True)), False, False),
+    ("upconv2", 120, 160, 768, ((1, 256, True), (3, 128, True)), False, False),
+    ("upconv3", 240, 320, 384, ((1, 128, True), (3, 64, True)), False, False),
+    ("upconv4", 480, 640, 192, ((1, 64, True), (3, 32, True)), False, False),
+    ("cls", 480, 640, 32, ((3, 32, True), (3, 32, True), (3, 16, True), (1, 16, True),
+                           (1, 2, False)), False, False),
+)
+# conv3x3_bias_act alone: C3's first layer and an odd size with Cin 3.
+CONV3X3_SHAPES = ((1, 240, 320, 128, 256), (2, 13, 37, 3, 16))
+CONV_BAR = 1e-4
+HEATMAP_BAR = 1e-3
 
 
 def card_line() -> str:
@@ -162,13 +200,165 @@ def check_results(results, count):
                 raise AssertionError(f"malformed result ({word!r}, {box})")
 
 
+def seeded_chain(gen, batch, height, width, cin, plan):
+    """A seeded NHWC input and HWIO convs scaled by 1/sqrt(K), so the
+    activations stay O(1) through the chain."""
+    x = torch.randn((batch, height, width, cin), generator=gen, device="cuda")
+    convs = []
+    for k, cout, relu in plan:
+        w = torch.randn((k, k, cin, cout), generator=gen, device="cuda") / math.sqrt(k * k * cin)
+        b = 0.1 * torch.randn((cout,), generator=gen, device="cuda")
+        convs.append((w, b, relu))
+        cin = cout
+    return x, convs
+
+
+def conv_flop(batch, height, width, cin, plan):
+    total = 0
+    for k, cout, _ in plan:
+        total += 2 * batch * height * width * k * k * cin * cout
+        cin = cout
+    return total
+
+
+def check_close(what, out, ref, bar):
+    """max|out - ref|, which must be <= bar * max(1, max|ref|)."""
+    if out.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {tuple(out.shape)} vs {tuple(ref.shape)}")
+    err = float((out - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    if not err <= bar * scale:
+        raise AssertionError(f"{what}: max |diff| {err} above {bar} * {scale}")
+    return err
+
+
+def conv_phase(conv_cuda):
+    """Both conv wrappers against their plain versions (cuDNN) at the CRAFT
+    shapes; returns, per kernel, the largest difference and (kernel ms,
+    plain ms): the sum over the 12 chains for ``conv_chain``, C3's first
+    layer for ``conv3x3_bias_act``."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    report = {"conv_chain": [0.0, [0.0, 0.0]], "conv3x3_bias_act": [0.0, None]}
+    total_flop = 0
+    for name, height, width, cin, plan, pool, tap in CRAFT_CHAINS:
+        x, convs = seeded_chain(gen, 1, height, width, cin, plan)
+
+        def kernel():
+            return conv_cuda.conv_chain(x, convs, pool=pool, tap_prepool=tap)
+
+        def plain():
+            return conv_cuda.conv_chain_plain(x, convs, pool=pool, tap_prepool=tap)
+
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        pairs = list(zip(out, ref, ("output", "tap"))) if tap else [(out, ref, "output")]
+        err = max(check_close(f"conv_chain {name} {what}", o, r, CONV_BAR) for o, r, what in pairs)
+        report["conv_chain"][0] = max(report["conv_chain"][0], err)
+        ms, plain_ms = cuda_median_ms(kernel), cuda_median_ms(plain)
+        report["conv_chain"][1][0] += ms
+        report["conv_chain"][1][1] += plain_ms
+        flop = conv_flop(1, height, width, cin, plan)
+        total_flop += flop
+        print(f"kernel vs plain: conv_chain {name} (1, {height}, {width}, {cin}) "
+              f"{[p[:2] for p in plan]}{' pool' if pool else ''}{' tap' if tap else ''}: "
+              f"max |diff| {err:.3e}; {flop / 1e9:.2f} GFLOP, kernel {ms:.4f} ms "
+              f"({flop / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms "
+              f"({flop / plain_ms / 1e9:.2f} TFLOP/s) (median of 20)")
+    ms, plain_ms = report["conv_chain"][1]
+    print(f"kernel vs plain: conv_chain, the 12 chains of one 960x1280 CRAFT forward: "
+          f"{total_flop / 1e9:.2f} GFLOP, kernel {ms:.4f} ms ({total_flop / ms / 1e9:.2f} "
+          f"TFLOP/s), plain {plain_ms:.4f} ms ({total_flop / plain_ms / 1e9:.2f} TFLOP/s)")
+    for batch, height, width, cin, cout in CONV3X3_SHAPES:
+        x, ((w, b, _),) = seeded_chain(gen, batch, height, width, cin, ((3, cout, True),))
+        for relu in (True, False):
+            out = conv_cuda.conv3x3_bias_act(x, w, b, relu=relu)
+            ref = conv_cuda.conv3x3_bias_act_plain(x, w, b, relu=relu)
+            torch.cuda.synchronize()
+            err = check_close(f"conv3x3_bias_act {(batch, height, width, cin, cout)}",
+                              out, ref, CONV_BAR)
+            report["conv3x3_bias_act"][0] = max(report["conv3x3_bias_act"][0], err)
+        ms = cuda_median_ms(lambda: conv_cuda.conv3x3_bias_act(x, w, b))
+        plain_ms = cuda_median_ms(lambda: conv_cuda.conv3x3_bias_act_plain(x, w, b))
+        if report["conv3x3_bias_act"][1] is None:
+            report["conv3x3_bias_act"][1] = (ms, plain_ms)
+        flop = conv_flop(batch, height, width, cin, ((3, cout, True),))
+        print(f"kernel vs plain: conv3x3_bias_act {(batch, height, width, cin)} -> {cout}: "
+              f"max |diff| {err:.3e}; {flop / 1e9:.3f} GFLOP, kernel {ms:.4f} ms "
+              f"({flop / ms / 1e9:.2f} TFLOP/s), "
+              f"plain {plain_ms:.4f} ms ({flop / plain_ms / 1e9:.2f} TFLOP/s) (median of 20)")
+    return report
+
+
+def enqueue_without_sync(pipeline, scenes):
+    """Enqueue the device program of a batch under sync debug mode
+    "error": any host synchronisation raises."""
+    device_batch, _, _, resize_to = pipeline._prepare(scenes)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the debug mode's "prototype" notice
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pipeline._launch(
+                device_batch, {}, pipeline.word_buckets[0], resize_to,
+                pipeline._component_cap, pipeline._num_sweeps,
+            )
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def time_pipeline(pipeline, scenes, repeats=10):
+    """(recognize p50 ms over ``repeats`` images, recognize_many images/s
+    on 32 images at batch 8), checking every result."""
+    latencies = []
+    for image in scenes[:repeats]:
+        start = time.perf_counter()
+        results = pipeline.recognize([image])
+        latencies.append((time.perf_counter() - start) * 1e3)
+        check_results(results, 1)
+    many = (scenes * 3)[:32]
+    check_results(pipeline.recognize_many(many, batch_size=8), len(many))
+    start = time.perf_counter()
+    results = pipeline.recognize_many(many, batch_size=8)
+    images_per_s = len(many) / (time.perf_counter() - start)
+    check_results(results, len(many))
+    return statistics.median(latencies), images_per_s
+
+
+def seed_batch_norm(model, seed):
+    """Non-trivial BatchNorm statistics (scale 0.5-1.5, shift and mean
+    +-0.1, variance 0.5-2), so that a fold has something to fold."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, torch.nn.BatchNorm2d):
+                n = module.num_features
+
+                def uniform(low, high):
+                    return low + (high - low) * torch.rand(n, generator=gen)
+
+                module.weight.copy_(uniform(0.5, 1.5))
+                module.bias.copy_(uniform(-0.1, 0.1))
+                module.running_mean.copy_(uniform(-0.1, 0.1))
+                module.running_var.copy_(uniform(0.5, 2.0))
+
+
+def craft_input(pipeline, scenes):
+    """The normalised CRAFT input the pipeline makes of ``scenes``."""
+    from keras_ocr_tpu_torch.ops.image import compute_input, resize_bilinear
+
+    device_batch, _, _, resize_to = pipeline._prepare(scenes)
+    return compute_input(resize_bilinear(device_batch.to(torch.float32), *resize_to))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     from keras_ocr_tpu_torch import Detector, Pipeline, Recognizer, kernels, tools
-    from keras_ocr_tpu_torch.ops import cc_cuda
+    from keras_ocr_tpu_torch.models.craft import fold_bn_state_dict
+    from keras_ocr_tpu_torch.ops import cc_cuda, conv_cuda
     from keras_ocr_tpu_torch.utils import golden
 
     card = card_line()
@@ -179,28 +369,44 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
+    def build(source):
+        start = time.perf_counter()
+        kernels.load(source)
+        return time.perf_counter() - start
+
+    sources = (cc_cuda.SOURCE, conv_cuda.SOURCE)
     start = time.perf_counter()
-    kernels.load(cc_cuda.SOURCE)
-    print(f"build: {cc_cuda.SOURCE} in {time.perf_counter() - start:.2f} s")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        build_s = list(pool.map(build, sources))
+    print("build: " + ", ".join(f"{s} in {t:.2f} s" for s, t in zip(sources, build_s))
+          + f" (together {time.perf_counter() - start:.2f} s)")
 
     report = kernel_phase(cc_cuda)
-    wrappers = {
+    report.update(conv_phase(conv_cuda))
+    sweep_wrappers = {
         "cc_sweeps": cc_cuda.segmented_min_sweeps,
         "cc_keyed_rows_cols": cc_cuda.keyed_rows_cols,
     }
-
-    # The main path, from here to the end: count its kernel launches.
-    for wrapper in wrappers.values():
-        wrapper.launches = 0
-    result = golden.run_golden_check(ARTIFACT, device=device)
+    conv_wrappers = {
+        "conv_chain": conv_cuda.conv_chain,
+        "conv3x3_bias_act": conv_cuda.conv3x3_bias_act,
+    }
+    all_wrappers = {**sweep_wrappers, **conv_wrappers}
     with open(os.path.join(ARTIFACT, "meta.json"), encoding="utf8") as f:
         pass_fraction = json.load(f)["pass_fraction"]
-    print(f"golden: fraction {result['fraction']} over {result['n_words']} words / "
-          f"{result['n_scenes']} scenes (pass >= {pass_fraction}); last_run_stats "
-          f"{result['run_stats']}")
-    if not result["pass"]:
-        raise AssertionError(f"golden check failed: {result}")
 
+    def golden_phase(label, pipeline):
+        result = golden.run_golden_check(ARTIFACT, pipeline=pipeline)
+        print(f"{label}: fraction {result['fraction']} over {result['n_words']} words / "
+              f"{result['n_scenes']} scenes (pass >= {pass_fraction}); last_run_stats "
+              f"{result['run_stats']}")
+        if not result["pass"]:
+            raise AssertionError(f"{label} check failed: {result}")
+
+    # The default path (BatchNorm unfolded, cuDNN): count its launches.
+    for wrapper in all_wrappers.values():
+        wrapper.launches = 0
+    golden_phase("golden", golden.load_golden_pipeline(ARTIFACT, device=device)[0])
     detector = Detector(width=1.0, device=device, seed=0)
     recognizer = Recognizer(device=device, seed=1)
     pipeline = Pipeline(detector=detector, recognizer=recognizer, scale=2)
@@ -214,34 +420,10 @@ def main() -> int:
     for _ in range(2):
         check_results(pipeline.recognize([scenes[0]]), 1)
     # The device program must not make the host wait: only the fetch does.
-    device_batch, _, _, resize_to = pipeline._prepare(scenes[:8])
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # the debug mode's "prototype" notice
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            pipeline._launch(
-                device_batch, {}, pipeline.word_buckets[0], resize_to,
-                pipeline._component_cap, pipeline._num_sweeps,
-            )
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    latencies = []
-    for image in scenes[:10]:
-        start = time.perf_counter()
-        results = pipeline.recognize([image])
-        latencies.append((time.perf_counter() - start) * 1e3)
-        check_results(results, 1)
-    many = (scenes * 3)[:32]
-    check_results(pipeline.recognize_many(many, batch_size=8), len(many))
-    start = time.perf_counter()
-    results = pipeline.recognize_many(many, batch_size=8)
-    images_per_s = len(many) / (time.perf_counter() - start)
-    check_results(results, len(many))
+    enqueue_without_sync(pipeline, scenes[:8])
+    p50, images_per_s = time_pipeline(pipeline, scenes)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
-    p50 = statistics.median(latencies)
+    launches = {name: wrapper.launches for name, wrapper in sweep_wrappers.items()}
     print(f"full width ({card}): device program of 8 images enqueued with no host "
           f"synchronisation (torch.cuda sync debug mode 'error'); recognize p50 "
           f"{p50:.2f} ms (640x480, scale 2, 10 images), recognize_many {images_per_s:.2f} images/s "
@@ -250,24 +432,75 @@ def main() -> int:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path was never launched: {launches}")
 
+    # The folded path (BatchNorm folded, the conv kernel): count its launches.
+    for wrapper in all_wrappers.values():
+        wrapper.launches = 0
+    golden_folded = golden.load_golden_pipeline(ARTIFACT, device=device, fold_bn=True)[0]
+    golden_phase("golden, folded", golden_folded)
+    golden_launches = {name: w.launches for name, w in conv_wrappers.items()}
+    if min(golden_launches.values()) <= 0:
+        raise AssertionError(f"the folded golden path skipped a conv kernel: {golden_launches}")
+    seed_batch_norm(detector.model, seed=2)
+    folded = Detector(width=1.0, fold_bn=True, device=device)
+    folded.model.load_state_dict(fold_bn_state_dict(detector.model.state_dict()))
+    folded_pipeline = Pipeline(detector=folded, recognizer=recognizer, scale=2)
+    with torch.inference_mode():
+        x = craft_input(pipeline, scenes[:2])
+        ref = detector.model(x)
+        err = check_close("folded heatmaps", folded.model(x), ref, HEATMAP_BAR)
+    print(f"full width, folded: heatmaps of 2 scenes (960x1280 input) within {err:.3e} "
+          f"of the unfolded cuDNN graph (max|ref| {float(ref.abs().max()):.3e}; bar "
+          f"{HEATMAP_BAR} * max(1, max|ref|))")
+    enqueue_without_sync(folded_pipeline, scenes[:8])
+    times = {}
+    for label, pipe in (("unfolded", pipeline), ("folded", folded_pipeline)):
+        check_results(pipe.recognize([scenes[0]]), 1)
+        times[label] = time_pipeline(pipe, scenes)
+    launches.update({name: w.launches for name, w in conv_wrappers.items()})
+    print(f"full width, folded ({card}): device program of 8 images enqueued with no "
+          f"host synchronisation; recognize p50 {times['folded'][0]:.2f} ms folded vs "
+          f"{times['unfolded'][0]:.2f} ms unfolded, recognize_many "
+          f"{times['folded'][1]:.2f} vs {times['unfolded'][1]:.2f} images/s (seeded BN "
+          f"statistics); launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path was never launched: {launches}")
+
+    forward_ms = {}
+    with torch.inference_mode():
+        for batch, runs in ((1, 20), (8, 5)):
+            x = torch.randn((batch, 960, 1280, 3), generator=torch.Generator(
+                device="cuda").manual_seed(batch), device="cuda")
+            for label, model in (("unfolded", detector.model), ("folded", folded.model)):
+                forward_ms[label, batch] = cuda_median_ms(lambda: model(x), runs=runs)
+    print(f"CRAFT forward ({card}), 960x1280: batch 1 unfolded (cuDNN) "
+          f"{forward_ms['unfolded', 1]:.3f} ms, folded (conv kernel) "
+          f"{forward_ms['folded', 1]:.3f} ms; batch 8 {forward_ms['unfolded', 8]:.3f} ms "
+          f"vs {forward_ms['folded', 8]:.3f} ms (median of 20 / 5)")
+
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",
         # An XLA loop in the JAX package, not a Pallas kernel.
         "cc_keyed_rows_cols": "keras_ocr_tpu/ops/cc.py:210",
+        "conv_chain": "keras_ocr_tpu/ops/conv_pallas.py:141",
+        "conv3x3_bias_act": "keras_ocr_tpu/ops/conv_pallas.py:302",
+    }
+    sources = {
+        "cc_sweeps": cc_cuda.SOURCE, "cc_keyed_rows_cols": cc_cuda.SOURCE,
+        "conv_chain": conv_cuda.SOURCE, "conv3x3_bias_act": conv_cuda.SOURCE,
     }
     print(card)
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
-            "source": "keras_ocr_tpu_torch/csrc/cc_sweeps.cu",
+            "source": f"keras_ocr_tpu_torch/csrc/{sources[name]}",
             "replaces": replaces[name],
             "launches": launches[name],
             "max_abs_err": report[name][0],
             "ms": report[name][1][0],
             "plain_ms": report[name][1][1],
         }
-        for name in wrappers
+        for name in all_wrappers
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

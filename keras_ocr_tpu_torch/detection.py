@@ -13,6 +13,7 @@ import torch
 
 from . import weights as weights_lib
 from .models import CRAFT, init_parameters
+from .models.craft import fold_bn_state_dict
 
 # Ceiling of the component-cap escalation: the staircase tables are
 # O(H x cap), so this bounds memory on noise-saturated heatmaps.
@@ -37,7 +38,8 @@ class Detector:
         width: channel multiplier (1.0 = the reference graph).
         max_components: starting cap of the component escalation.
         fold_bn: build the inference graph with BatchNorm folded into the
-            convolutions (its weights must come BN-folded).
+            convolutions; on the card its convs run through the CUDA
+            chain kernel (:mod:`keras_ocr_tpu_torch.ops.conv_cuda`).
         device: where the model runs (default: the first GPU, else CPU).
         seed: seed of the random initialisation.
     """
@@ -66,7 +68,11 @@ class Detector:
         self.model = model.to(self.device).eval()
 
     def load_variables(self, variables: dict) -> "Detector":
-        """Load a JAX-package CRAFT variable tree (numpy leaves)."""
+        """Load a JAX-package CRAFT variable tree (numpy leaves). With
+        ``fold_bn`` a standard tree is folded on load, as the JAX
+        ``Detector`` folds the weights it loads; a folded tree loads as is."""
         state = weights_lib.craft_state_dict(variables)
+        if self.fold_bn:
+            state = fold_bn_state_dict(state)
         self.model.load_state_dict(state)
         return self

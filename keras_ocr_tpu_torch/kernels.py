@@ -27,6 +27,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_source_locks: dict = {}
 _loaded: dict = {}
 
 
@@ -58,8 +59,11 @@ def library_path(source_name: str) -> str:
 
 
 def load(source_name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<source_name>``; cached per process."""
+    """Build (if needed) and load ``csrc/<source_name>``; cached per process.
+    Different sources build concurrently when loaded from several threads."""
     with _lock:
+        source_lock = _source_locks.setdefault(source_name, threading.Lock())
+    with source_lock:
         lib = _loaded.get(source_name)
         if lib is not None:
             return lib

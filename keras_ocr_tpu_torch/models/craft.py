@@ -7,10 +7,15 @@ taps. ``s1``/``s2``/``s3`` are the post-ReLU outputs of ``slice1_10`` /
 conv and a 1x1 conv; the U-decoder resizes with half-pixel bilinear
 sampling between stages; the cls head ends in two raw (no sigmoid) maps.
 
-Inputs and outputs are NHWC like the JAX module; the convolutions run
-NCHW inside. Module names follow the Flax tree, so a parameter's
-``state_dict`` key is its Flax path joined with dots
-(:mod:`keras_ocr_tpu_torch.weights`).
+Inputs and outputs are NHWC like the JAX module. The standard graph runs
+its convolutions NCHW inside (cuDNN). The BN-folded graph
+(``fold_bn=True``, inference only) stays NHWC and runs every conv but the
+s5 head as :func:`keras_ocr_tpu_torch.ops.conv_cuda.conv_chain` calls:
+the hand-written CUDA kernel on the card, ``F.conv2d`` on the CPU.
+Module names follow the Flax tree, so a parameter's ``state_dict`` key is
+its Flax path joined with dots (:mod:`keras_ocr_tpu_torch.weights`); the
+folded graph keeps the same ``conv`` keys and has no ``bn`` ones
+(:func:`fold_bn_state_dict`).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops import conv_cuda
 from ..ops.image import resize_bilinear
 
 # (slice name, reference layer index of the conv, filters, pool after block)
@@ -39,6 +45,37 @@ VGG_BLOCKS: typing.Tuple[typing.Tuple[str, int, int, bool], ...] = (
     ("slice4", 37, 512, False),  # ends at BN (pre-ReLU) = s4 tap
 )
 _TAPS = {("slice1", 10): "s1", ("slice2", 17): "s2", ("slice3", 27): "s3"}
+
+
+def _chain_conv(conv: nn.Conv2d, relu: bool):
+    """(HWIO weight, bias, relu) of one layer of a :func:`conv_chain`. The
+    OIHW -> HWIO copies move about 40 MB per full-width forward, against
+    its 819 GFLOP of convolutions."""
+    return conv.weight.detach().permute(2, 3, 1, 0).contiguous(), conv.bias.detach(), relu
+
+
+def fold_bn_state_dict(state: dict, eps: float = 1e-5) -> dict:
+    """Fold every ConvBN pair's BatchNorm into its conv.
+
+    Counterpart of ``keras_ocr_tpu/models/craft.py:fold_bn_variables`` on a
+    ``CRAFT`` state_dict: for each ``<p>.bn.*`` group, with
+    ``inv = gamma / sqrt(var + eps)``, ``<p>.conv.weight`` is scaled by
+    ``inv`` along its output channels (OIHW) and ``<p>.conv.bias`` becomes
+    ``(bias - mean) * inv + beta``; the ``bn`` keys are dropped. The result
+    loads into ``CRAFT(fold_bn=True)``.
+    """
+    folded = {k: v for k, v in state.items() if ".bn." not in k}
+    for key in state:
+        if not key.endswith(".bn.weight"):
+            continue
+        prefix = key[: -len(".bn.weight")]
+        inv = state[key] / torch.sqrt(state[f"{prefix}.bn.running_var"] + eps)
+        weight = state[f"{prefix}.conv.weight"]
+        folded[f"{prefix}.conv.weight"] = weight * inv.reshape(-1, 1, 1, 1)
+        folded[f"{prefix}.conv.bias"] = (
+            state[f"{prefix}.conv.bias"] - state[f"{prefix}.bn.running_mean"]
+        ) * inv + state[f"{prefix}.bn.bias"]
+    return folded
 
 
 def _scaled(filters: int, width: float) -> int:
@@ -63,6 +100,9 @@ class ConvBN(nn.Module):
         if self.bn is not None:
             x = self.bn(x)
         return F.relu(x) if self.relu else x
+
+    def chain_conv(self):
+        return _chain_conv(self.conv, self.relu)
 
 
 class VGG16BN(nn.Module):
@@ -96,6 +136,25 @@ class VGG16BN(nn.Module):
         taps["s4"] = x
         return taps["s1"], taps["s2"], taps["s3"], taps["s4"]
 
+    def forward_folded(self, x):
+        """The BN-folded backbone on NHWC ``x``: one conv chain up to each
+        pool or tap (seven chains at CRAFT's layout)."""
+        taps, blocks = {}, []
+        for (slice_name, idx, _, pool), name in zip(VGG_BLOCKS, self.order):
+            blocks.append(getattr(self, name))
+            tap = _TAPS.get((slice_name, idx))
+            if not (pool or tap or name == self.order[-1]):
+                continue
+            convs = [block.chain_conv() for block in blocks]
+            blocks = []
+            x = conv_cuda.conv_chain(x, convs, pool=pool, tap_prepool=bool(tap and pool))
+            if tap and pool:
+                x, taps[tap] = x
+            elif tap:
+                taps[tap] = x
+        taps["s4"] = x
+        return taps["s1"], taps["s2"], taps["s3"], taps["s4"]
+
 
 class UpConv(nn.Module):
     """1x1 conv-BN-ReLU + 3x3 conv-BN-ReLU decoder block (``filters // 2``
@@ -108,6 +167,9 @@ class UpConv(nn.Module):
 
     def forward(self, x):
         return self.block1(self.block0(x))
+
+    def forward_folded(self, x):
+        return conv_cuda.conv_chain(x, [self.block0.chain_conv(), self.block1.chain_conv()])
 
 
 class CRAFT(nn.Module):
@@ -134,6 +196,8 @@ class CRAFT(nn.Module):
         self.conv_cls_8 = nn.Conv2d(16, 2, 1)
 
     def forward(self, x):
+        if self.fold_bn:
+            return self._forward_folded(x)
         # contiguous(): from a permuted NHWC tensor cuDNN runs every conv in
         # its channels-last fp32 kernels (CRAFT at batch 8 x 960x1280
         # measured 903 ms instead of 235 ms on an H100).
@@ -155,3 +219,23 @@ class CRAFT(nn.Module):
         y = F.relu(self.conv_cls_6(y))
         y = self.conv_cls_8(y)
         return y.permute(0, 2, 3, 1)
+
+    def _forward_folded(self, x):
+        """Inference graph with BatchNorm folded: NHWC throughout, 12 conv
+        chains; the s5 head (a dilated conv neither kernel takes) stays
+        cuDNN on a contiguous NCHW copy."""
+        x = x.to(torch.float32).contiguous()
+        s1, s2, s3, s4 = self.basenet.forward_folded(x)
+        s5 = F.max_pool2d(s4.permute(0, 3, 1, 2).contiguous(), 3, 1, padding=1)
+        s5 = self.slice5_2(self.slice5_1(s5)).permute(0, 2, 3, 1).contiguous()
+
+        def resize_to(y, skip):
+            return resize_bilinear(y, skip.shape[1], skip.shape[2])
+
+        y = self.upconv1.forward_folded(torch.cat([s5, s4], -1))
+        y = self.upconv2.forward_folded(torch.cat([resize_to(y, s3), s3], -1))
+        y = self.upconv3.forward_folded(torch.cat([resize_to(y, s2), s2], -1))
+        y = self.upconv4.forward_folded(torch.cat([resize_to(y, s1), s1], -1))
+        head = [(self.conv_cls_0, True), (self.conv_cls_2, True), (self.conv_cls_4, True),
+                (self.conv_cls_6, True), (self.conv_cls_8, False)]
+        return conv_cuda.conv_chain(y, [_chain_conv(conv, relu) for conv, relu in head])

@@ -1,0 +1,211 @@
+"""The conv kernels of the BN-folded CRAFT graph and their plain versions.
+
+Counterpart of ``keras_ocr_tpu/ops/conv_pallas.py``, with the same NHWC
+signatures (images ``(H, W, Cin)`` or batches ``(B, H, W, Cin)``, kernels
+HWIO, convs as ``(w, b, relu)`` with BatchNorm already folded in). On the
+card both wrappers launch the hand-written CUDA implicit GEMM of
+``csrc/conv_chain.cu``, one launch per layer; for tensors on the CPU they
+run :func:`conv3x3_bias_act_plain` and :func:`conv_chain_plain`, built from
+``F.conv2d``, ``F.relu`` and ``F.max_pool2d``. Inference only: the kernels
+have no backward.
+
+Launch counts: ``conv3x3_bias_act.launches`` counts every launch of a 3x3
+layer that is not a pooled last layer (from either wrapper);
+``conv_chain.launches`` counts each call of :func:`conv_chain` that
+launched, its 1x1 layers and pooled last layers included.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch.nn import functional as F
+
+from .. import kernels
+
+SOURCE = "conv_chain.cu"
+
+
+def _to_nchw(x):
+    # contiguous(): cuDNN runs a permuted NHWC tensor in its slow
+    # channels-last fp32 kernels.
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def _to_nhwc(x):
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def _batched(x):
+    """(B, H, W, C) view of an image or a batch, and whether to squeeze."""
+    if x.dim() == 3:
+        return x.unsqueeze(0), True
+    if x.dim() == 4:
+        return x, False
+    raise ValueError(f"expected (H, W, C) or (B, H, W, C), got {tuple(x.shape)}")
+
+
+def _plain_layer(x_nchw, w, b, relu):
+    y = F.conv2d(x_nchw, w.permute(3, 2, 0, 1).contiguous(), b, padding=w.shape[0] // 2)
+    return F.relu(y) if relu else y
+
+
+def conv3x3_bias_act_plain(x, w, b, relu=True):
+    """3x3 SAME conv + bias (+ReLU) of NHWC ``x`` with HWIO ``w``."""
+    x4, squeeze = _batched(x)
+    y = _to_nhwc(_plain_layer(_to_nchw(x4), w, b, relu))
+    return y[0] if squeeze else y
+
+
+def conv_chain_plain(x, convs, pool=False, tap_prepool=False):
+    """The chain of :func:`conv_chain` with ``F.conv2d``; the pool floors
+    odd sizes like ``F.max_pool2d(2, 2)``."""
+    x4, squeeze = _batched(x)
+    y = _to_nchw(x4)
+    for w, b, relu in convs:
+        y = _plain_layer(y, w, b, relu)
+    tap = _to_nhwc(y)
+    main = _to_nhwc(F.max_pool2d(y, 2, 2)) if pool else tap
+    if squeeze:
+        main, tap = main[0], tap[0]
+    return (main, tap) if tap_prepool else main
+
+
+def _library():
+    lib = kernels.load(SOURCE)
+    pointer, number = ctypes.c_void_p, ctypes.c_int
+    lib.conv_layer.argtypes = [pointer] * 5 + [number] * 8 + [pointer]
+    lib.conv_layer.restype = number
+    return lib
+
+
+def _aligned(t):
+    """Contiguous, with the 16-byte alignment the kernel's vector loads
+    assume (a view into a larger tensor may start anywhere)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check(x, convs):
+    """Validate a (B, H, W, Cin) CUDA input and its HWIO convs."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no conv kernel for device {x.device}")
+    if not convs:
+        raise ValueError("a chain needs at least one conv")
+    cin = x.shape[-1]
+    for w, b, _ in convs:
+        for name, t in (("input", x), ("weight", w), ("bias", b)):
+            if t.dtype != torch.float32:
+                raise TypeError(f"the conv kernel takes float32; {name} is {t.dtype}")
+            if t.device != x.device:
+                raise ValueError(f"{name} on {t.device}, input on {x.device}")
+        k = w.shape[0]
+        if w.dim() != 4 or k not in (1, 3) or w.shape[1] != k or w.shape[2] != cin:
+            raise ValueError(f"kernel {tuple(w.shape)} is not (k, k, {cin}, Cout), k in (1, 3)")
+        if b.shape != (w.shape[3],):
+            raise ValueError(f"bias {tuple(b.shape)} does not match kernel {tuple(w.shape)}")
+        cin = w.shape[3]
+
+
+def _layer(x, w, b, relu, pool=False, tap=False):
+    """Launch one layer on (B, H, W, Cin) CUDA ``x``; returns (out, tap or
+    None, whether a kernel was launched)."""
+    batch, height, width, cin = x.shape
+    k, cout = w.shape[0], w.shape[3]
+    x = _aligned(x)
+    wmat = _aligned(w.reshape(k * k * cin, cout))
+    b = _aligned(b)
+    out_hw = (height // 2, width // 2) if pool else (height, width)
+    out = torch.empty((batch, *out_hw, cout), dtype=torch.float32, device=x.device)
+    tap_out = (
+        torch.empty((batch, height, width, cout), dtype=torch.float32, device=x.device)
+        if tap else None
+    )
+    if (tap_out if tap else out).numel() == 0:
+        return out, tap_out, False
+    with torch.cuda.device(x.device):
+        rc = _library().conv_layer(
+            x.data_ptr(), wmat.data_ptr(), b.data_ptr(), out.data_ptr(),
+            tap_out.data_ptr() if tap else None, batch, height, width, cin, cout,
+            k, int(bool(relu)), int(pool), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"conv_layer launch failed with CUDA error {rc}")
+    return out, tap_out, True
+
+
+def conv3x3_bias_act(x, w, b, relu=True):
+    """Fused 3x3 SAME stride-1 conv + bias (+ReLU) on NHWC float32 images.
+
+    Port of ``keras_ocr_tpu/ops/conv_pallas.py:conv3x3_bias_act`` (no
+    ``tile_h``, no ``interpret``).
+
+    Args:
+        x: (H, W, Cin) or (B, H, W, Cin).
+        w: (3, 3, Cin, Cout) HWIO kernel (BatchNorm folded in).
+        b: (Cout,) bias.
+
+    Returns:
+        (H, W, Cout) or (B, H, W, Cout). CPU tensors take
+        :func:`conv3x3_bias_act_plain`; CUDA tensors launch the kernel
+        (counted in ``conv3x3_bias_act.launches``) or raise.
+    """
+    if x.device.type == "cpu":
+        return conv3x3_bias_act_plain(x, w, b, relu)
+    x4, squeeze = _batched(x)
+    _check(x4, [(w, b, relu)])
+    if w.shape[0] != 3:
+        raise ValueError(f"conv3x3_bias_act takes a 3x3 kernel, got {tuple(w.shape)}")
+    out, _, launched = _layer(x4, w, b, relu)
+    conv3x3_bias_act.launches += launched
+    return out[0] if squeeze else out
+
+
+conv3x3_bias_act.launches = 0
+
+
+def conv_chain(x, convs, pool=False, tap_prepool=False):
+    """Chain of 1x1 / 3x3 SAME convs + bias (+ReLU each), optionally ending
+    in a 2x2 stride-2 max-pool.
+
+    Port of ``keras_ocr_tpu/ops/conv_pallas.py:conv_chain`` (no ``tile_h``,
+    no ``interpret``). Odd sizes are floored by the pool, like
+    ``F.max_pool2d(2, 2)``, where the TPU kernel requires even ones.
+
+    Args:
+        x: (H, W, Cin) or (B, H, W, Cin) float32 NHWC.
+        convs: sequence of (w, b, relu), w of shape (k, k, Cin, Cout) HWIO
+            with k in {1, 3}, b of shape (Cout,); BatchNorm folded in.
+        pool: end with a 2x2 stride-2 VALID max-pool.
+        tap_prepool: also return the last conv's pre-pool activation.
+
+    Returns:
+        The (pooled) output; with ``tap_prepool`` a tuple (output, prepool).
+        CPU tensors take :func:`conv_chain_plain`. CUDA tensors launch one
+        kernel per layer, intermediates through device memory: 3x3 layers
+        as :func:`conv3x3_bias_act`, 1x1 layers in the kernel's 1x1 mode,
+        a pooled last layer in its pooled epilogue (with the tap); or raise.
+    """
+    if x.device.type == "cpu":
+        return conv_chain_plain(x, convs, pool, tap_prepool)
+    x4, squeeze = _batched(x)
+    _check(x4, convs)
+    y, tap, launched = x4, None, False
+    for i, (w, b, relu) in enumerate(convs):
+        if pool and i == len(convs) - 1:
+            y, tap, ran = _layer(y, w, b, relu, pool=True, tap=tap_prepool)
+        else:
+            y, _, ran = _layer(y, w, b, relu)
+            if w.shape[0] == 3:
+                conv3x3_bias_act.launches += ran
+        launched |= ran
+    conv_chain.launches += launched
+    if tap_prepool and not pool:
+        tap = y
+    if squeeze:
+        y, tap = y[0], tap[0] if tap is not None else None
+    return (y, tap) if tap_prepool else y
+
+
+conv_chain.launches = 0

@@ -30,13 +30,16 @@ def _read_json(artifact_dir, name):
         return json.load(f)
 
 
-def load_golden_pipeline(artifact_dir: str, device=None):
-    """(pipeline, meta) rebuilt from the committed artifact files."""
+def load_golden_pipeline(artifact_dir: str, device=None, fold_bn: bool = False):
+    """(pipeline, meta) rebuilt from the committed artifact files;
+    ``fold_bn`` builds the BN-folded detector (the checkpoint is folded on
+    load)."""
     meta = _read_json(artifact_dir, META_NAME)
     detector = Detector(
         weights=None,
         width=meta["detector_width"],
         max_components=meta["max_components"],
+        fold_bn=fold_bn,
         device=device,
     ).load_variables(weights_lib.read_npz(os.path.join(artifact_dir, DETECTOR_NAME)))
     recognizer = Recognizer(

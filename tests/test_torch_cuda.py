@@ -1,6 +1,8 @@
-"""The port's CUDA sweep kernel on the card (marked ``cuda``): both entries,
-the label sweeps and the keyed row/column runs, against their plain
-versions.
+"""The port's CUDA kernels on the card (marked ``cuda``): both entries of
+the sweep kernel (the label sweeps and the keyed row/column runs) and both
+conv wrappers (``conv_chain``, ``conv3x3_bias_act``), against their plain
+versions; the BN-folded CRAFT through the conv kernel against the unfolded
+graph.
 
 Skipped where no CUDA device is present. On a machine with a card and no
 JAX, run with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -11,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from keras_ocr_tpu_torch.ops import cc, cc_cuda
+from keras_ocr_tpu_torch.models import CRAFT, init_parameters
+from keras_ocr_tpu_torch.models.craft import fold_bn_state_dict
+from keras_ocr_tpu_torch.ops import cc, cc_cuda, conv_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +90,117 @@ def test_kernel_rejects_what_it_cannot_take(device):
         )
     with pytest.raises(ValueError):
         cc_cuda.segmented_min_sweeps(values.to(device), barrier, sentinel, 1)
+
+
+@pytest.fixture
+def full_fp32():
+    """cuDNN and matmul in full fp32 (the conv bars assume TF32 off)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _chain(batch, height, width, cin, plan, seed):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(batch, height, width, cin).astype(np.float32))
+    convs = []
+    for k, cout, relu in plan:
+        w = (rng.randn(k, k, cin, cout) / np.sqrt(k * k * cin)).astype(np.float32)
+        b = (0.1 * rng.randn(cout)).astype(np.float32)
+        convs.append((torch.from_numpy(w), torch.from_numpy(b), relu))
+        cin = cout
+    return x, convs
+
+
+def _assert_close(out, ref):
+    assert out.device.type == "cuda" and out.shape == ref.shape
+    bar = 1e-4 * max(1.0, float(ref.abs().max()))
+    assert float((out.cpu() - ref).abs().max()) <= bar
+
+
+# Awkward shapes: Cin 3, Cout 2, odd H and W (floored pool, full tap), B = 3,
+# channel counts that are not multiples of 4, more than one column tile.
+CHAIN_CASES = [
+    (3, 13, 37, 3, [(3, 16, True), (3, 16, True)], True, True),
+    (3, 17, 9, 5, [(3, 6, True), (1, 7, True), (3, 2, False)], False, False),
+    (2, 11, 15, 16, [(1, 32, True), (3, 130, True)], True, False),
+    (1, 24, 40, 32, [(3, 32, True), (3, 32, True), (3, 16, True), (1, 16, True),
+                     (1, 2, False)], False, False),
+    (2, 9, 13, 8, [(3, 8, False)], True, True),
+    (1, 5, 8, 4, [(1, 4, True)], True, True),
+]
+
+
+@pytest.mark.parametrize("batch,height,width,cin,plan,pool,tap", CHAIN_CASES)
+def test_conv_chain_kernel_equals_plain(device, full_fp32, batch, height, width, cin,
+                                        plan, pool, tap):
+    x, convs = _chain(batch, height, width, cin, plan, seed=height * width)
+    ref = conv_cuda.conv_chain_plain(x, convs, pool=pool, tap_prepool=tap)
+    on_card = [(w.to(device), b.to(device), relu) for w, b, relu in convs]
+    chains, convs3 = conv_cuda.conv_chain.launches, conv_cuda.conv3x3_bias_act.launches
+    out = conv_cuda.conv_chain(x.to(device), on_card, pool=pool, tap_prepool=tap)
+    torch.cuda.synchronize()
+    assert conv_cuda.conv_chain.launches == chains + 1
+    unpooled_3x3 = sum(w.shape[0] == 3 for w, _, _ in convs[: len(convs) - pool])
+    assert conv_cuda.conv3x3_bias_act.launches == convs3 + unpooled_3x3
+    for got, want in zip(out, ref) if tap else [(out, ref)]:
+        _assert_close(got, want)
+
+
+@pytest.mark.parametrize("shape", [(3, 13, 37, 3, 16), (1, 24, 40, 8, 2), (2, 6, 260, 5, 131)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv3x3_kernel_equals_plain(device, full_fp32, shape, relu):
+    batch, height, width, cin, cout = shape
+    x, ((w, b, _),) = _chain(batch, height, width, cin, [(3, cout, relu)], seed=cout)
+    ref = conv_cuda.conv3x3_bias_act_plain(x, w, b, relu=relu)
+    before = conv_cuda.conv3x3_bias_act.launches
+    out = conv_cuda.conv3x3_bias_act(x.to(device), w.to(device), b.to(device), relu=relu)
+    torch.cuda.synchronize()
+    assert conv_cuda.conv3x3_bias_act.launches == before + 1
+    _assert_close(out, ref)
+    single = conv_cuda.conv3x3_bias_act(x[0].to(device), w.to(device), b.to(device), relu=relu)
+    _assert_close(single, ref[0])
+
+
+def test_conv_kernels_reject_what_they_cannot_take(device):
+    x, ((w, b, relu),) = _chain(1, 8, 8, 4, [(3, 8, True)], seed=0)
+    x, w, b = x.to(device), w.to(device), b.to(device)
+    for dtype in (torch.float64, torch.bfloat16):
+        with pytest.raises(TypeError):
+            conv_cuda.conv3x3_bias_act(x.to(dtype), w.to(dtype), b.to(dtype))
+        with pytest.raises(TypeError):
+            conv_cuda.conv_chain(x.to(dtype), [(w.to(dtype), b.to(dtype), relu)])
+    with pytest.raises(ValueError):
+        conv_cuda.conv3x3_bias_act(x, w.cpu(), b)
+    with pytest.raises(ValueError):
+        conv_cuda.conv_chain(x, [(w.cpu(), b, relu)])
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 72, 104)])
+def test_folded_craft_on_card_matches_unfolded(device, full_fp32, shape):
+    """The BN-folded graph (conv kernel) against the standard one (cuDNN),
+    with non-trivial BatchNorm statistics; (1, 72, 104) reaches the odd
+    pool at slice4_30."""
+    model = init_parameters(CRAFT(width=0.25), seed=0)
+    rng = np.random.RandomState(1)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, torch.nn.BatchNorm2d):
+                n = module.num_features
+                module.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, n)))
+                module.bias.copy_(torch.from_numpy(rng.uniform(-0.1, 0.1, n)))
+                module.running_mean.copy_(torch.from_numpy(rng.uniform(-0.1, 0.1, n)))
+                module.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, n)))
+    folded = CRAFT(width=0.25, fold_bn=True)
+    folded.load_state_dict(fold_bn_state_dict(model.state_dict()))
+    model, folded = model.to(device).eval(), folded.to(device).eval()
+    x = torch.from_numpy(rng.randn(*shape, 3).astype(np.float32)).to(device)
+    chains = conv_cuda.conv_chain.launches
+    with torch.inference_mode():
+        out, ref = folded(x), model(x)
+    torch.cuda.synchronize()
+    assert conv_cuda.conv_chain.launches == chains + 12
+    assert out.shape == ref.shape == (shape[0], shape[1] // 2, shape[2] // 2, 2)
+    bar = 1e-4 * max(1.0, float(ref.abs().max()))
+    assert float((out - ref).abs().max()) <= bar

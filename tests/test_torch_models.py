@@ -2,8 +2,10 @@
 
 Weights come from the JAX package (its random init, or the golden
 artifact's trained checkpoints) through the port's weight bridge. CRAFT is
-held to 1e-4 in float32, the CRNN's softmax to 1e-5, both at the golden
-artifact's slim shapes and at the production shapes.
+held to 1e-4 in float32 (standard and BN-folded graphs), the CRNN's
+softmax to 1e-5, both at the golden artifact's slim shapes and at the
+production shapes; the port's BatchNorm fold to 1e-6 against the JAX
+package's.
 """
 
 import json
@@ -19,7 +21,10 @@ from keras_ocr_tpu.detection import Detector as JaxDetector
 from keras_ocr_tpu.recognition import Recognizer as JaxRecognizer
 from keras_ocr_tpu.train.checkpoint import restore_npz
 from keras_ocr_tpu_torch import weights
+from keras_ocr_tpu_torch.detection import Detector
 from keras_ocr_tpu_torch.models import CRAFT, CRNN, init_parameters
+from keras_ocr_tpu_torch.models.craft import fold_bn_state_dict
+from keras_ocr_tpu_torch.weights import read_npz
 
 torch.set_num_threads(2)
 
@@ -59,9 +64,11 @@ def test_craft_slim_matches_flax(source, shape):
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
 
 
-def test_craft_folded_bn_matches_flax():
+@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 72, 104)])
+def test_craft_folded_bn_matches_flax(shape):
     """``fold_bn=True``: the JAX package's BN-folded variables run through
-    the port's BN-free graph."""
+    the port's BN-free graph (its conv chains; on the CPU their plain
+    versions). (1, 72, 104) floors an odd 9x13 map at the slice4_30 pool."""
     from keras_ocr_tpu.models.craft import fold_bn_variables
 
     detector = JaxDetector(weights=None, width=0.25, max_components=32, fold_bn=True)
@@ -70,11 +77,40 @@ def test_craft_folded_bn_matches_flax():
     )
     model = CRAFT(width=0.25, fold_bn=True).eval()
     model.load_state_dict(weights.craft_state_dict(variables))
-    x = np.random.RandomState(2).randn(1, 64, 96, 3).astype(np.float32)
+    x = np.random.RandomState(2).randn(*shape, 3).astype(np.float32)
     ref = np.asarray(detector.model.apply(variables, jnp.asarray(x), train=False))
     with torch.no_grad():
         out = model(torch.from_numpy(x)).numpy()
+    assert out.shape == ref.shape == (shape[0], shape[1] // 2, shape[2] // 2, 2)
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
+
+
+def test_fold_bn_state_dict_matches_flax():
+    """The port's fold of a standard state_dict equals the JAX package's
+    ``fold_bn_variables`` of the same tree."""
+    from keras_ocr_tpu.models.craft import fold_bn_variables
+
+    tree = restore_npz(os.path.join(GOLDEN, "detector_slim.npz"))
+    folded = fold_bn_state_dict(weights.craft_state_dict(tree))
+    ref = weights.craft_state_dict(_numpy_tree(fold_bn_variables(tree)))
+    assert set(folded) == set(ref) == set(CRAFT(width=0.25, fold_bn=True).state_dict())
+    for key in ref:
+        np.testing.assert_allclose(folded[key].numpy(), ref[key].numpy(), rtol=0, atol=1e-6)
+
+
+def test_folded_detector_loads_standard_and_folded_trees():
+    """``Detector(fold_bn=True).load_variables`` folds a standard tree on
+    load, as the JAX ``Detector`` does, and loads a folded tree as is."""
+    from keras_ocr_tpu.models.craft import fold_bn_variables
+
+    standard = read_npz(os.path.join(GOLDEN, "detector_slim.npz"))
+    folded_tree = _numpy_tree(fold_bn_variables(restore_npz(os.path.join(GOLDEN, "detector_slim.npz"))))
+    a = Detector(width=0.25, fold_bn=True, device="cpu").load_variables(standard)
+    b = Detector(width=0.25, fold_bn=True, device="cpu").load_variables(folded_tree)
+    state_a, state_b = a.model.state_dict(), b.model.state_dict()
+    assert set(state_a) == set(state_b)
+    for key in state_a:
+        np.testing.assert_allclose(state_a[key].numpy(), state_b[key].numpy(), rtol=0, atol=1e-6)
 
 
 def _perturb_stn(variables, seed):

@@ -3,9 +3,11 @@
 The committed golden artifact (trained slim CRAFT + CRNN) runs through the
 JAX ``Pipeline`` and the port's ``Pipeline`` on the same scenes: the words
 must be equal, every box matched at IoU > 0.9, and the escalation ladders
-must take the same steps. Then the port's own ``run_golden_check`` must
-pass on all 12 scenes. Random weights are not used here: their heatmaps
-sit on threshold knife edges.
+must take the same steps. The same holds for the BN-folded detector
+(JAX ``fold_bn_variables``; the port folds the standard checkpoint on
+load). Then the port's own ``run_golden_check`` must pass on all 12
+scenes. Random weights are not used here: their heatmaps sit on threshold
+knife edges.
 """
 
 import os
@@ -39,11 +41,33 @@ def pipelines():
     return jax_pipeline, port_pipeline
 
 
-@pytest.mark.parametrize("scene", SCENES)
-def test_golden_scene_matches_jax_pipeline(pipelines, scene):
+@pytest.fixture(scope="module")
+def folded_pipelines(pipelines):
+    """The JAX pipeline with ``Detector(fold_bn=True)`` on the folded
+    checkpoint, and the port's folded golden pipeline."""
+    from keras_ocr_tpu.detection import Detector as JaxDetector
+    from keras_ocr_tpu.models.craft import fold_bn_variables
+    from keras_ocr_tpu.pipeline import Pipeline as JaxPipeline
+    from keras_ocr_tpu.train.checkpoint import restore_npz
+
+    jax_pipeline, _ = pipelines
+    meta = golden._read_json(GOLDEN, golden.META_NAME)
+    detector = JaxDetector(
+        weights=None, width=meta["detector_width"], max_components=meta["max_components"],
+        fold_bn=True,
+    )
+    detector.variables = fold_bn_variables(restore_npz(os.path.join(GOLDEN, golden.DETECTOR_NAME)))
+    jax_folded = JaxPipeline(
+        detector=detector, recognizer=jax_pipeline.recognizer, scale=meta["scale"],
+        pad_to=tuple(meta["pad_to"]), max_words=meta["max_words"],
+    )
+    port_folded, _ = golden.load_golden_pipeline(GOLDEN, device="cpu", fold_bn=True)
+    return jax_folded, port_folded
+
+
+def _assert_same_reading(jax_pipeline, port_pipeline, scene):
     from keras_ocr_tpu import tools as jtools
 
-    jax_pipeline, port_pipeline = pipelines
     image = jtools.read(os.path.join(GOLDEN, scene))
     ref = jax_pipeline.recognize([image])[0]
     out = port_pipeline.recognize([image])[0]
@@ -55,6 +79,16 @@ def test_golden_scene_matches_jax_pipeline(pipelines, scene):
     assert {k: port_pipeline.last_run_stats[k] for k in common} == {
         k: jax_pipeline.last_run_stats[k] for k in common
     }
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_golden_scene_matches_jax_pipeline(pipelines, scene):
+    _assert_same_reading(*pipelines, scene)
+
+
+@pytest.mark.parametrize("scene", SCENES[:2])
+def test_folded_golden_scene_matches_jax_pipeline(folded_pipelines, scene):
+    _assert_same_reading(*folded_pipelines, scene)
 
 
 def test_port_golden_check_passes_on_all_scenes():
