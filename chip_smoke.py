@@ -14,7 +14,9 @@ Phases, each printing one line; any failure exits non-zero:
    times of 20 runs. Then the conv kernel: ``conv_chain`` on the 12 conv
    chains of a full-width CRAFT at 960x1280, batch 1, and
    ``conv3x3_bias_act`` at C3 and at an odd size, against ``F.conv2d``
-   (cuDNN, TF32 off) within 1e-4 * max(1, max|plain|), median of 20 each;
+   (cuDNN, TF32 off) within 1e-4 * max(1, max|plain|), median of 20 each,
+   with each chain's rate as a share of the kernel's 3xTF32 ceiling and
+   the Cout tile each layer took;
 4. golden: the committed trained slim pipeline
    (``tests/fixtures/golden_offline``) must read at least the artifact's
    ``pass_fraction`` of its expected words;
@@ -79,6 +81,9 @@ CRAFT_CHAINS = (
 # conv3x3_bias_act alone: C3's first layer and an odd size with Cin 3.
 CONV3X3_SHAPES = ((1, 240, 320, 128, 256), (2, 13, 37, 3, 16))
 CONV_BAR = 1e-4
+# The conv kernel takes three TF32 tensor-core products per multiply-add:
+# its ceiling is a third of the H100's 495 TFLOP/s dense TF32.
+CEILING_TFLOPS = 495 / 3
 HEATMAP_BAR = 1e-3
 
 
@@ -221,15 +226,16 @@ def conv_flop(batch, height, width, cin, plan):
     return total
 
 
-def check_close(what, out, ref, bar):
-    """max|out - ref|, which must be <= bar * max(1, max|ref|)."""
+def check_close(what, out, ref, bar, relative=False):
+    """max|out - ref|, which must be <= bar * max(1, max|ref|); with
+    ``relative``, also that difference over max(1, max|ref|)."""
     if out.shape != ref.shape:
         raise AssertionError(f"{what}: shape {tuple(out.shape)} vs {tuple(ref.shape)}")
     err = float((out - ref).abs().max())
     scale = max(1.0, float(ref.abs().max()))
     if not err <= bar * scale:
         raise AssertionError(f"{what}: max |diff| {err} above {bar} * {scale}")
-    return err
+    return (err, err / scale) if relative else err
 
 
 def conv_phase(conv_cuda):
@@ -252,22 +258,29 @@ def conv_phase(conv_cuda):
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         pairs = list(zip(out, ref, ("output", "tap"))) if tap else [(out, ref, "output")]
-        err = max(check_close(f"conv_chain {name} {what}", o, r, CONV_BAR) for o, r, what in pairs)
+        errs = [check_close(f"conv_chain {name} {what}", o, r, CONV_BAR, relative=True)
+                for o, r, what in pairs]
+        err, rel = max(e for e, _ in errs), max(r for _, r in errs)
         report["conv_chain"][0] = max(report["conv_chain"][0], err)
         ms, plain_ms = cuda_median_ms(kernel), cuda_median_ms(plain)
         report["conv_chain"][1][0] += ms
         report["conv_chain"][1][1] += plain_ms
         flop = conv_flop(1, height, width, cin, plan)
         total_flop += flop
+        tflops = flop / ms / 1e9
         print(f"kernel vs plain: conv_chain {name} (1, {height}, {width}, {cin}) "
               f"{[p[:2] for p in plan]}{' pool' if pool else ''}{' tap' if tap else ''}: "
-              f"max |diff| {err:.3e}; {flop / 1e9:.2f} GFLOP, kernel {ms:.4f} ms "
-              f"({flop / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms "
+              f"max |diff| {err:.3e} ({rel:.2e} of max(1, max|plain|)); {flop / 1e9:.2f} "
+              f"GFLOP, kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s, "
+              f"{100 * tflops / CEILING_TFLOPS:.1f}% of the 3xTF32 ceiling; Cout tiles "
+              f"{[conv_cuda.tile_n(p[1]) for p in plan]}), plain {plain_ms:.4f} ms "
               f"({flop / plain_ms / 1e9:.2f} TFLOP/s) (median of 20)")
     ms, plain_ms = report["conv_chain"][1]
     print(f"kernel vs plain: conv_chain, the 12 chains of one 960x1280 CRAFT forward: "
           f"{total_flop / 1e9:.2f} GFLOP, kernel {ms:.4f} ms ({total_flop / ms / 1e9:.2f} "
-          f"TFLOP/s), plain {plain_ms:.4f} ms ({total_flop / plain_ms / 1e9:.2f} TFLOP/s)")
+          f"TFLOP/s, {100 * total_flop / ms / 1e9 / CEILING_TFLOPS:.1f}% of the "
+          f"{CEILING_TFLOPS:.0f} TFLOP/s 3xTF32 ceiling), plain {plain_ms:.4f} ms "
+          f"({total_flop / plain_ms / 1e9:.2f} TFLOP/s)")
     for batch, height, width, cin, cout in CONV3X3_SHAPES:
         x, ((w, b, _),) = seeded_chain(gen, batch, height, width, cin, ((3, cout, True),))
         for relu in (True, False):

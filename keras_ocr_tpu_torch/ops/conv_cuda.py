@@ -3,11 +3,17 @@
 Counterpart of ``keras_ocr_tpu/ops/conv_pallas.py``, with the same NHWC
 signatures (images ``(H, W, Cin)`` or batches ``(B, H, W, Cin)``, kernels
 HWIO, convs as ``(w, b, relu)`` with BatchNorm already folded in). On the
-card both wrappers launch the hand-written CUDA implicit GEMM of
-``csrc/conv_chain.cu``, one launch per layer; for tensors on the CPU they
-run :func:`conv3x3_bias_act_plain` and :func:`conv_chain_plain`, built from
+card both wrappers launch the hand-written tensor-core implicit GEMM of
+``csrc/conv_chain.cu`` (3xTF32 ``wgmma`` fed by TMA: fp32 in, out and
+sums), one launch per layer; for tensors on the CPU they run
+:func:`conv3x3_bias_act_plain` and :func:`conv_chain_plain`, built from
 ``F.conv2d``, ``F.relu`` and ``F.max_pool2d``. Inference only: the kernels
 have no backward.
+
+The operands the kernel takes are made here, in plain PyTorch:
+:func:`pad_channels` (TMA needs 16-byte strides, so Cin a multiple of 4),
+:func:`kmajor_weights` (the tf32 ``wgmma`` reads both operands K-major) and
+:func:`tf32_split` (the hi and lo parts of the 3xTF32 product).
 
 Launch counts: ``conv3x3_bias_act.launches`` counts every launch of a 3x3
 layer that is not a pooled last layer (from either wrapper);
@@ -25,6 +31,7 @@ from torch.nn import functional as F
 from .. import kernels
 
 SOURCE = "conv_chain.cu"
+_ENCODE_ERROR = 10000  # conv_layer returns this + the CUresult of a failed encode
 
 
 def _to_nchw(x):
@@ -72,17 +79,57 @@ def conv_chain_plain(x, convs, pool=False, tap_prepool=False):
     return (main, tap) if tap_prepool else main
 
 
+def pad_channels(x, channels):
+    """``x`` with its last dimension zero-padded to ``channels``."""
+    extra = channels - x.shape[-1]
+    return F.pad(x, (0, extra)) if extra else x
+
+
+def kmajor_weights(w, cin_pad):
+    """HWIO ``(k, k, Cin, Cout)`` as the kernel's K-major ``(Cout, k*k,
+    cin_pad)``, zero past Cin: row n is ``w.reshape(k*k*Cin, Cout)[:, n]``
+    tap by tap."""
+    k, _, cin, cout = w.shape
+    return pad_channels(w.permute(3, 0, 1, 2).reshape(cout, k * k, cin), cin_pad).contiguous()
+
+
+def tf32_round(x):
+    """float32 rounded to TF32 (10 mantissa bits; nearest, ties away from
+    zero), as ``cvt.rna.tf32.f32`` rounds on the card."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x):
+    """(hi, lo), both TF32, with hi + lo = x to about 2**-22 relative."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def split_weights(w, cin_pad):
+    """The kernel's weight operand: ``(2, Cout, k*k, cin_pad)``, the hi and
+    lo parts of :func:`kmajor_weights`."""
+    return torch.stack(tf32_split(kmajor_weights(w, cin_pad)))
+
+
 def _library():
     lib = kernels.load(SOURCE)
     pointer, number = ctypes.c_void_p, ctypes.c_int
     lib.conv_layer.argtypes = [pointer] * 5 + [number] * 8 + [pointer]
     lib.conv_layer.restype = number
+    lib.conv_tile_n.argtypes = [number]
+    lib.conv_tile_n.restype = number
     return lib
 
 
+def tile_n(cout):
+    """The Cout tile (``wgmma`` N) the kernel takes for ``cout`` channels."""
+    return _library().conv_tile_n(cout)
+
+
 def _aligned(t):
-    """Contiguous, with the 16-byte alignment the kernel's vector loads
-    assume (a view into a larger tensor may start anywhere)."""
+    """Contiguous, with the 16-byte alignment TMA needs (a view into a
+    larger tensor may start anywhere)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -113,8 +160,9 @@ def _layer(x, w, b, relu, pool=False, tap=False):
     None, whether a kernel was launched)."""
     batch, height, width, cin = x.shape
     k, cout = w.shape[0], w.shape[3]
-    x = _aligned(x)
-    wmat = _aligned(w.reshape(k * k * cin, cout))
+    cin_pad = -(-cin // 4) * 4
+    x = _aligned(pad_channels(x, cin_pad))
+    wsplit = _aligned(split_weights(w, cin_pad))
     b = _aligned(b)
     out_hw = (height // 2, width // 2) if pool else (height, width)
     out = torch.empty((batch, *out_hw, cout), dtype=torch.float32, device=x.device)
@@ -126,10 +174,13 @@ def _layer(x, w, b, relu, pool=False, tap=False):
         return out, tap_out, False
     with torch.cuda.device(x.device):
         rc = _library().conv_layer(
-            x.data_ptr(), wmat.data_ptr(), b.data_ptr(), out.data_ptr(),
-            tap_out.data_ptr() if tap else None, batch, height, width, cin, cout,
+            x.data_ptr(), wsplit.data_ptr(), b.data_ptr(), out.data_ptr(),
+            tap_out.data_ptr() if tap else None, batch, height, width, cin_pad, cout,
             k, int(bool(relu)), int(pool), torch.cuda.current_stream(x.device).cuda_stream,
         )
+    if rc >= _ENCODE_ERROR:
+        raise RuntimeError(f"conv_layer: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{rc - _ENCODE_ERROR}")
     if rc != 0:
         raise RuntimeError(f"conv_layer launch failed with CUDA error {rc}")
     return out, tap_out, True

@@ -120,7 +120,10 @@ def _assert_close(out, ref):
 
 
 # Awkward shapes: Cin 3, Cout 2, odd H and W (floored pool, full tap), B = 3,
-# channel counts that are not multiples of 4, more than one column tile.
+# channel counts that are not multiples of 4, more than one column tile;
+# the golden slim widths (16-128) and CRAFT's deepest K (1536 in a 1x1,
+# 4608 in a 3x3) at small spatial sizes; a batch-2 pooled chain at an odd
+# size with the tap.
 CHAIN_CASES = [
     (3, 13, 37, 3, [(3, 16, True), (3, 16, True)], True, True),
     (3, 17, 9, 5, [(3, 6, True), (1, 7, True), (3, 2, False)], False, False),
@@ -129,6 +132,15 @@ CHAIN_CASES = [
                      (1, 2, False)], False, False),
     (2, 9, 13, 8, [(3, 8, False)], True, True),
     (1, 5, 8, 4, [(1, 4, True)], True, True),
+    (1, 48, 64, 3, [(3, 16, True), (3, 16, True)], True, False),
+    (1, 24, 32, 16, [(3, 32, True), (3, 32, True)], True, True),
+    (1, 12, 16, 32, [(3, 64, True), (3, 64, True)], False, False),
+    (1, 12, 16, 64, [(3, 64, True)], True, False),
+    (1, 6, 8, 128, [(3, 128, True), (3, 128, False)], False, False),
+    (1, 6, 8, 384, [(1, 64, True), (3, 32, True)], False, False),
+    (1, 8, 10, 1536, [(1, 512, True)], False, False),
+    (1, 8, 10, 512, [(3, 512, True)], False, False),
+    (2, 15, 21, 8, [(3, 32, True), (3, 64, True)], True, True),
 ]
 
 
@@ -161,6 +173,24 @@ def test_conv3x3_kernel_equals_plain(device, full_fp32, shape, relu):
     _assert_close(out, ref)
     single = conv_cuda.conv3x3_bias_act(x[0].to(device), w.to(device), b.to(device), relu=relu)
     _assert_close(single, ref[0])
+
+
+def test_conv_chain_takes_views(device, full_fp32):
+    """A channel slice (non-contiguous, starting 4 bytes into the storage)
+    and an unaligned contiguous view: the wrapper copies what TMA cannot
+    take."""
+    x, convs = _chain(2, 9, 19, 8, [(3, 12, True), (1, 8, True)], seed=7)
+    on_card = [(w.to(device), b.to(device), relu) for w, b, relu in convs]
+    wide = torch.cat([torch.ones_like(x[..., :1]), x], -1).to(device)
+    view = wide[..., 1:]
+    flat = torch.cat([torch.ones(1), x.flatten()]).to(device)[1:].view(x.shape)
+    assert not view.is_contiguous() and flat.data_ptr() % 16 != 0
+    ref = conv_cuda.conv_chain_plain(x, convs, pool=True, tap_prepool=True)
+    for given in (view, flat):
+        out = conv_cuda.conv_chain(given, on_card, pool=True, tap_prepool=True)
+        torch.cuda.synchronize()
+        for got, want in zip(out, ref):
+            _assert_close(got, want)
 
 
 def test_conv_kernels_reject_what_they_cannot_take(device):
