@@ -11,12 +11,18 @@ Phases, each printing one line; any failure exits non-zero:
    PyTorch versions on the card, on seeded masks (densities 0.3-0.8 plus a
    serpentine that needs more than 8 sweeps) at (4, 256, 320) and
    (8, 480, 640); maps and converged flags must be exactly equal; median
-   times of 20 runs. Then the conv kernel: ``conv_chain`` on the 12 conv
+   times of 20 runs, with the bytes a full pass moves and the HBM bound of
+   the bytes this data needs (each image stops at its fixpoint, and a pass
+   writes only what it changes) and the share of it.
+   The same on the calls one ``get_boxes`` makes on the golden artifact's
+   own heatmaps (its first 8 scenes), recorded as the main path makes
+   them. Then the conv kernel: ``conv_chain`` on the 12 conv
    chains of a full-width CRAFT at 960x1280, batch 1, and
    ``conv3x3_bias_act`` at C3 and at an odd size, against ``F.conv2d``
    (cuDNN, TF32 off) within 1e-4 * max(1, max|plain|), median of 20 each,
    with each chain's rate as a share of the kernel's 3xTF32 ceiling and
-   the Cout tile each layer took;
+   the Cout tile each layer took, and one ``F.conv2d`` as the library
+   yardstick of ``conv3x3_bias_act``;
 4. golden: the committed trained slim pipeline
    (``tests/fixtures/golden_offline``) must read at least the artifact's
    ``pass_fraction`` of its expected words;
@@ -85,6 +91,8 @@ CONV_BAR = 1e-4
 # its ceiling is a third of the H100's 495 TFLOP/s dense TF32.
 CEILING_TFLOPS = 495 / 3
 HEATMAP_BAR = 1e-3
+# The H100 SXM's published HBM rate, TB/s: the sweep kernel's bound.
+HBM_TBS = 3.35
 
 
 def card_line() -> str:
@@ -141,28 +149,104 @@ def keyed_inputs(batch, height, width):
     return values, torch.from_numpy(key).cuda(), torch.from_numpy(fg).cuda(), sentinel
 
 
+def one_pass(plain, values, planes, rows):
+    """One row (or column) pass of the plain sweep ``plain(values, *planes)``
+    over (B, H, W) maps: one sweep of each line as a map of one row, whose
+    column pass changes nothing."""
+    if not rows:
+        values, planes = values.transpose(1, 2), [p.transpose(1, 2) for p in planes]
+    shape = values.shape
+
+    def lines(t):
+        return t.reshape(-1, 1, shape[-1])
+
+    out = plain(lines(values), *map(lines, planes)).reshape(shape)
+    return out if rows else out.transpose(1, 2)
+
+
+def changed_sectors(before, after):
+    """The 32 B sectors of int32 maps, laid out as in memory, in which
+    ``after`` differs from ``before``."""
+    diff = (before != after).flatten().to(torch.int8)
+    diff = torch.cat([diff, diff.new_zeros(-diff.numel() % 8)])
+    return int(diff.view(-1, 8).any(1).sum())
+
+
+def sweep_bytes(cc_cuda, values, barrier, sentinel, total):
+    """The bytes the passes of one ``cc_sweeps`` call of ``total`` sweeps
+    must move, and per image the sweeps it runs: all up to and including
+    the first that changes nothing. Each pass that runs reads the labels
+    (4 B/px) and the byte barrier (1 B/px); the first pass writes the whole
+    output (4 B/px), a later one only the 32 B sectors it changes (the plain
+    version, stepped one pass at a time, finds them)."""
+    values = values.reshape((-1,) + values.shape[-2:])
+    barrier = barrier.reshape(values.shape)
+    batch, cells = values.shape[0], values[0].numel()
+
+    def plain(v, b):
+        return cc_cuda.segmented_min_sweeps_plain(v, b, sentinel, 1)
+
+    ran = torch.zeros(batch, dtype=torch.int64, device=values.device)
+    running = torch.ones_like(ran, dtype=torch.bool)
+    nbytes, first = 0, True
+    for _ in range(total):
+        ran += running
+        start = values
+        for rows in (True, False):
+            swept = one_pass(plain, values, [barrier], rows)
+            written = 4 * batch * cells if first else 32 * changed_sectors(values, swept)
+            nbytes += 5 * cells * int(running.sum()) + written
+            values, first = swept, False
+        running &= (values != start).flatten(1).any(1)
+    return nbytes, ran.tolist()
+
+
+def keyed_bytes(cc_cuda, values, key, fg, sentinel):
+    """The bytes one ``cc_keyed_rows_cols`` call must move: the row pass
+    reads the labels and the key (4 B/px each) and the byte mask (1 B/px)
+    and writes the whole output (4 B/px); the column pass reads 9 B/px and
+    writes only the 32 B sectors it changes."""
+
+    def plain(v, k, f):
+        return cc_cuda.keyed_rows_cols_plain(v, k, f, sentinel)
+
+    rows = one_pass(plain, values, [key, fg], True)
+    both = cc_cuda.keyed_rows_cols_plain(values, key, fg, sentinel)
+    return 22 * values.numel() + 32 * changed_sectors(rows, both)
+
+
+def bytes_ms(nbytes):
+    """Least time to move ``nbytes`` at HBM_TBS."""
+    return nbytes / (HBM_TBS * 1e9)
+
+
+def exact(what, out, ref, conv=None, ref_conv=None):
+    """The largest |out - ref|, which must be 0, flags equal."""
+    diff = int((out.to(torch.int64) - ref).abs().max()) if out.numel() else 0
+    if diff or (conv is not None and not torch.equal(conv, ref_conv)):
+        raise AssertionError(f"{what} disagrees with its plain version: max diff "
+                             f"{diff}, converged {conv} vs {ref_conv}")
+    return diff
+
+
 def kernel_phase(cc_cuda):
     """Exact comparison and timing of the two launch entries of the sweep
-    kernel against their plain versions; returns, per kernel, the largest
-    difference and the (8, 480, 640) times."""
-    report = {"cc_sweeps": [0, None], "cc_keyed_rows_cols": [0, None]}
+    kernel against their plain versions; returns, per kernel, its JSON
+    entry at (8, 480, 640)."""
+    report = {name: {"max_abs_err": 0, "library_ms": None, "bound_by": "bytes"}
+              for name in ("cc_sweeps", "cc_keyed_rows_cols")}
     for batch, height, width in SHAPES:
         fg, values, sentinel = sweep_inputs(batch, height, width)
-        barrier = torch.from_numpy((~fg).astype(np.int32)).cuda()
+        barrier = torch.from_numpy(~fg).cuda()  # bool, as the main path passes it
         for sweeps in (1, 8):
             out, conv = cc_cuda.segmented_min_sweeps(values, barrier, sentinel, sweeps, True)
             ref, ref_conv = cc_cuda.segmented_min_sweeps_plain(
                 values, barrier, sentinel, sweeps, True
             )
             torch.cuda.synchronize()
-            diff = int((out.to(torch.int64) - ref).abs().max())
-            report["cc_sweeps"][0] = max(report["cc_sweeps"][0], diff)
-            if diff or not torch.equal(conv, ref_conv):
-                raise AssertionError(
-                    f"sweep kernel disagrees at {(batch, height, width)}, {sweeps} "
-                    f"sweeps: max diff {diff}, converged {conv.tolist()} vs "
-                    f"{ref_conv.tolist()}"
-                )
+            diff = exact(f"cc_sweeps {(batch, height, width)}, {sweeps} sweeps",
+                         out, ref, conv, ref_conv)
+            report["cc_sweeps"]["max_abs_err"] = max(report["cc_sweeps"]["max_abs_err"], diff)
         if bool(ref_conv[-1]):
             raise AssertionError("the serpentine mask converged at 8 sweeps")
         ms = cuda_median_ms(
@@ -171,29 +255,105 @@ def kernel_phase(cc_cuda):
         plain_ms = cuda_median_ms(
             lambda: cc_cuda.segmented_min_sweeps_plain(values, barrier, sentinel, 8, True)
         )
-        report["cc_sweeps"][1] = (ms, plain_ms)
+        nbytes, ran = sweep_bytes(cc_cuda, values, barrier, sentinel, 9)
+        cells = height * width
+        full_ms = bytes_ms(18 * 9 * batch * cells)
+        bound_ms = bytes_ms(nbytes)
+        report["cc_sweeps"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
         print(
             f"kernel vs plain: cc_sweeps {(batch, height, width)} exact, converged "
             f"{conv.tolist()}, 8 sweeps + check: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms (median of 20)"
+            f"{plain_ms:.4f} ms (median of 20); a full pass moves {batch * cells * 9 / 1e6:.2f} "
+            f"MB (9 B/px), 18 of them {full_ms:.4f} ms ({100 * full_ms / ms:.1f}% of the "
+            f"kernel's time); sweeps run per image {ran}; the passes run must move "
+            f"{nbytes / 1e6:.2f} MB (5 B/px read, the changed sectors written): bound "
+            f"{bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}%)"
         )
         keyed = keyed_inputs(batch, height, width)
         out = cc_cuda.keyed_rows_cols(*keyed)
         ref = cc_cuda.keyed_rows_cols_plain(*keyed)
         torch.cuda.synchronize()
-        diff = int((out.to(torch.int64) - ref).abs().max())
-        report["cc_keyed_rows_cols"][0] = max(report["cc_keyed_rows_cols"][0], diff)
-        if diff:
-            raise AssertionError(f"keyed kernel disagrees at {(batch, height, width)}: {diff}")
+        diff = exact(f"cc_keyed_rows_cols {(batch, height, width)}", out, ref)
+        report["cc_keyed_rows_cols"]["max_abs_err"] = max(
+            report["cc_keyed_rows_cols"]["max_abs_err"], diff)
         ms = cuda_median_ms(lambda: cc_cuda.keyed_rows_cols(*keyed))
         plain_ms = cuda_median_ms(lambda: cc_cuda.keyed_rows_cols_plain(*keyed))
-        report["cc_keyed_rows_cols"][1] = (ms, plain_ms)
+        full_ms = bytes_ms(2 * 13 * batch * cells)
+        nbytes = keyed_bytes(cc_cuda, *keyed)
+        bound_ms = bytes_ms(nbytes)
+        report["cc_keyed_rows_cols"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
         print(
             f"kernel vs plain: cc_keyed_rows_cols {(batch, height, width)} exact, "
             f"one row + column pass: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-            "(median of 20)"
+            f"(median of 20); a full pass moves {batch * cells * 13 / 1e6:.2f} MB (13 B/px), "
+            f"two of them {full_ms:.4f} ms ({100 * full_ms / ms:.1f}%); the call must move "
+            f"{nbytes / 1e6:.2f} MB (the column pass writes its changed sectors): bound "
+            f"{bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}%)"
         )
     return report
+
+
+def golden_traffic(cc_cuda, pipeline, scenes):
+    """The sweep-kernel calls of one ``get_boxes`` on the golden artifact's
+    own heatmaps (its first 8 scenes as one batch): each recorded as the
+    main path makes it, then held exact against its plain version and
+    timed."""
+    from keras_ocr_tpu_torch.ops import cc, postprocess
+
+    calls = {"cc_sweeps": [], "cc_keyed_rows_cols": []}
+
+    def record_sweeps(values, barrier, sentinel, num_sweeps, check_convergence=False):
+        calls["cc_sweeps"].append((values.clone(), barrier.clone(), sentinel, num_sweeps))
+        return cc_cuda.segmented_min_sweeps(
+            values, barrier, sentinel, num_sweeps, check_convergence)
+
+    def record_keyed(values, key, fg, sentinel):
+        calls["cc_keyed_rows_cols"].append((values.clone(), key.clone(), fg.clone(), sentinel))
+        return cc_cuda.keyed_rows_cols(values, key, fg, sentinel)
+
+    saved = cc.segmented_min_sweeps, cc.keyed_rows_cols
+    cc.segmented_min_sweeps, cc.keyed_rows_cols = record_sweeps, record_keyed
+    try:
+        with torch.inference_mode():
+            heatmaps = pipeline.detector.model(craft_input(pipeline, scenes))
+            postprocess.get_boxes(heatmaps, max_components=pipeline.detector.max_components)
+            torch.cuda.synchronize()
+    finally:
+        cc.segmented_min_sweeps, cc.keyed_rows_cols = saved
+    with torch.inference_mode():
+        totals = {"cc_sweeps": [0.0, 0.0, 0.0], "cc_keyed_rows_cols": [0.0, 0.0, 0.0]}
+        ran_all = []
+        for values, barrier, sentinel, sweeps in calls["cc_sweeps"]:
+            out, conv = cc_cuda.segmented_min_sweeps(values, barrier, sentinel, sweeps, True)
+            ref, ref_conv = cc_cuda.segmented_min_sweeps_plain(
+                values, barrier, sentinel, sweeps, True)
+            torch.cuda.synchronize()
+            exact("cc_sweeps on the golden masks", out, ref, conv, ref_conv)
+            nbytes, ran = sweep_bytes(cc_cuda, values, barrier, sentinel, sweeps + 1)
+            ran_all.append(ran)
+            times = totals["cc_sweeps"]
+            times[0] += cuda_median_ms(
+                lambda: cc_cuda.segmented_min_sweeps(values, barrier, sentinel, sweeps, True))
+            times[1] += cuda_median_ms(
+                lambda: cc_cuda.segmented_min_sweeps_plain(values, barrier, sentinel, sweeps, True))
+            times[2] += bytes_ms(nbytes)
+        for args in calls["cc_keyed_rows_cols"]:
+            out = cc_cuda.keyed_rows_cols(*args)
+            ref = cc_cuda.keyed_rows_cols_plain(*args)
+            torch.cuda.synchronize()
+            exact("cc_keyed_rows_cols on the golden masks", out, ref)
+            times = totals["cc_keyed_rows_cols"]
+            times[0] += cuda_median_ms(lambda: cc_cuda.keyed_rows_cols(*args))
+            times[1] += cuda_median_ms(lambda: cc_cuda.keyed_rows_cols_plain(*args))
+            times[2] += bytes_ms(keyed_bytes(cc_cuda, *args))
+    shape = tuple(calls["cc_sweeps"][0][0].shape)
+    (ms, plain_ms, bound_ms), (kms, kplain_ms, kbound_ms) = totals.values()
+    print(f"kernel vs plain on the golden masks (one get_boxes of {shape}, exact): "
+          f"cc_sweeps {len(calls['cc_sweeps'])} calls, sweeps run per image {ran_all}: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({100 * bound_ms / ms:.1f}%); cc_keyed_rows_cols {len(calls['cc_keyed_rows_cols'])} "
+          f"calls: kernel {kms:.4f} ms, plain {kplain_ms:.4f} ms, bound {kbound_ms:.4f} ms "
+          f"({100 * kbound_ms / kms:.1f}%) (sums of medians of 20)")
 
 
 def check_results(results, count):
@@ -226,6 +386,25 @@ def conv_flop(batch, height, width, cin, plan):
     return total
 
 
+def conv_bytes(batch, height, width, cin, plan, pool=False, tap=False):
+    """fp32 bytes a chain must move: each layer reads its input and
+    weights and writes its output (pooled a quarter, and the tap as well)."""
+    total = 0
+    for i, (k, cout, _) in enumerate(plan):
+        out = batch * height * width * cout
+        if pool and i == len(plan) - 1:
+            out = out // 4 + (out if tap else 0)
+        total += 4 * (batch * height * width * cin + k * k * cin * cout + cout + out)
+        cin = cout
+    return total
+
+
+def conv_bound_ms(flop, nbytes):
+    """The larger of the operations at the 3xTF32 ceiling and the bytes at
+    the HBM rate."""
+    return max(flop / (CEILING_TFLOPS * 1e9), nbytes / (HBM_TBS * 1e9))
+
+
 def check_close(what, out, ref, bar, relative=False):
     """max|out - ref|, which must be <= bar * max(1, max|ref|); with
     ``relative``, also that difference over max(1, max|ref|)."""
@@ -244,8 +423,10 @@ def conv_phase(conv_cuda):
     plain ms): the sum over the 12 chains for ``conv_chain``, C3's first
     layer for ``conv3x3_bias_act``."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    report = {"conv_chain": [0.0, [0.0, 0.0]], "conv3x3_bias_act": [0.0, None]}
-    total_flop = 0
+    report = {"conv_chain": {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                             "bound_by": "operations", "library_ms": None},
+              "conv3x3_bias_act": {"max_abs_err": 0.0, "bound_by": "operations"}}
+    total_flop = total_bytes = 0
     for name, height, width, cin, plan, pool, tap in CRAFT_CHAINS:
         x, convs = seeded_chain(gen, 1, height, width, cin, plan)
 
@@ -261,12 +442,14 @@ def conv_phase(conv_cuda):
         errs = [check_close(f"conv_chain {name} {what}", o, r, CONV_BAR, relative=True)
                 for o, r, what in pairs]
         err, rel = max(e for e, _ in errs), max(r for _, r in errs)
-        report["conv_chain"][0] = max(report["conv_chain"][0], err)
+        chain = report["conv_chain"]
+        chain["max_abs_err"] = max(chain["max_abs_err"], err)
         ms, plain_ms = cuda_median_ms(kernel), cuda_median_ms(plain)
-        report["conv_chain"][1][0] += ms
-        report["conv_chain"][1][1] += plain_ms
+        chain["ms"] += ms
+        chain["plain_ms"] += plain_ms
         flop = conv_flop(1, height, width, cin, plan)
         total_flop += flop
+        total_bytes += conv_bytes(1, height, width, cin, plan, pool, tap)
         tflops = flop / ms / 1e9
         print(f"kernel vs plain: conv_chain {name} (1, {height}, {width}, {cin}) "
               f"{[p[:2] for p in plan]}{' pool' if pool else ''}{' tap' if tap else ''}: "
@@ -275,11 +458,12 @@ def conv_phase(conv_cuda):
               f"{100 * tflops / CEILING_TFLOPS:.1f}% of the 3xTF32 ceiling; Cout tiles "
               f"{[conv_cuda.tile_n(p[1]) for p in plan]}), plain {plain_ms:.4f} ms "
               f"({flop / plain_ms / 1e9:.2f} TFLOP/s) (median of 20)")
-    ms, plain_ms = report["conv_chain"][1]
+    ms, plain_ms = report["conv_chain"]["ms"], report["conv_chain"]["plain_ms"]
+    report["conv_chain"]["bound_ms"] = conv_bound_ms(total_flop, total_bytes)
     print(f"kernel vs plain: conv_chain, the 12 chains of one 960x1280 CRAFT forward: "
-          f"{total_flop / 1e9:.2f} GFLOP, kernel {ms:.4f} ms ({total_flop / ms / 1e9:.2f} "
-          f"TFLOP/s, {100 * total_flop / ms / 1e9 / CEILING_TFLOPS:.1f}% of the "
-          f"{CEILING_TFLOPS:.0f} TFLOP/s 3xTF32 ceiling), plain {plain_ms:.4f} ms "
+          f"{total_flop / 1e9:.2f} GFLOP, {total_bytes / 1e9:.2f} GB, kernel {ms:.4f} ms "
+          f"({total_flop / ms / 1e9:.2f} TFLOP/s, {100 * total_flop / ms / 1e9 / CEILING_TFLOPS:.1f}% "
+          f"of the {CEILING_TFLOPS:.0f} TFLOP/s 3xTF32 ceiling), plain {plain_ms:.4f} ms "
           f"({total_flop / plain_ms / 1e9:.2f} TFLOP/s)")
     for batch, height, width, cin, cout in CONV3X3_SHAPES:
         x, ((w, b, _),) = seeded_chain(gen, batch, height, width, cin, ((3, cout, True),))
@@ -289,16 +473,25 @@ def conv_phase(conv_cuda):
             torch.cuda.synchronize()
             err = check_close(f"conv3x3_bias_act {(batch, height, width, cin, cout)}",
                               out, ref, CONV_BAR)
-            report["conv3x3_bias_act"][0] = max(report["conv3x3_bias_act"][0], err)
+            single = report["conv3x3_bias_act"]
+            single["max_abs_err"] = max(single["max_abs_err"], err)
         ms = cuda_median_ms(lambda: conv_cuda.conv3x3_bias_act(x, w, b))
         plain_ms = cuda_median_ms(lambda: conv_cuda.conv3x3_bias_act_plain(x, w, b))
-        if report["conv3x3_bias_act"][1] is None:
-            report["conv3x3_bias_act"][1] = (ms, plain_ms)
+        # The library call: one cuDNN convolution with its bias, NCHW, the
+        # layout change and the ReLU left out.
+        x_nchw, w_oihw = x.permute(0, 3, 1, 2).contiguous(), w.permute(3, 2, 0, 1).contiguous()
+        library_ms = cuda_median_ms(lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, b, padding=1))
         flop = conv_flop(batch, height, width, cin, ((3, cout, True),))
+        bound_ms = conv_bound_ms(flop, conv_bytes(batch, height, width, cin, ((3, cout, True),)))
+        if "ms" not in report["conv3x3_bias_act"]:
+            report["conv3x3_bias_act"].update(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms)
         print(f"kernel vs plain: conv3x3_bias_act {(batch, height, width, cin)} -> {cout}: "
               f"max |diff| {err:.3e}; {flop / 1e9:.3f} GFLOP, kernel {ms:.4f} ms "
-              f"({flop / ms / 1e9:.2f} TFLOP/s), "
-              f"plain {plain_ms:.4f} ms ({flop / plain_ms / 1e9:.2f} TFLOP/s) (median of 20)")
+              f"({flop / ms / 1e9:.2f} TFLOP/s; bound {bound_ms:.4f} ms, "
+              f"{100 * bound_ms / ms:.1f}% of it), plain {plain_ms:.4f} ms "
+              f"({flop / plain_ms / 1e9:.2f} TFLOP/s), F.conv2d with bias {library_ms:.4f} ms "
+              "(median of 20)")
     return report
 
 
@@ -395,6 +588,11 @@ def main() -> int:
           + f" (together {time.perf_counter() - start:.2f} s)")
 
     report = kernel_phase(cc_cuda)
+    with open(os.path.join(ARTIFACT, "expected.json"), encoding="utf8") as f:
+        names = [entry["image"] for entry in json.load(f)["scenes"]]
+    golden_images = [tools.read(os.path.join(ARTIFACT, name)) for name in names]
+    golden_pipeline = golden.load_golden_pipeline(ARTIFACT, device=device)[0]
+    golden_traffic(cc_cuda, golden_pipeline, golden_images[:8])
     report.update(conv_phase(conv_cuda))
     sweep_wrappers = {
         "cc_sweeps": cc_cuda.segmented_min_sweeps,
@@ -419,16 +617,11 @@ def main() -> int:
     # The default path (BatchNorm unfolded, cuDNN): count its launches.
     for wrapper in all_wrappers.values():
         wrapper.launches = 0
-    golden_phase("golden", golden.load_golden_pipeline(ARTIFACT, device=device)[0])
+    golden_phase("golden", golden_pipeline)
     detector = Detector(width=1.0, device=device, seed=0)
     recognizer = Recognizer(device=device, seed=1)
     pipeline = Pipeline(detector=detector, recognizer=recognizer, scale=2)
-    with open(os.path.join(ARTIFACT, "expected.json"), encoding="utf8") as f:
-        names = [entry["image"] for entry in json.load(f)["scenes"]]
-    scenes = [
-        tools.pad(tools.read(os.path.join(ARTIFACT, name)), width=640, height=480)
-        for name in names
-    ]
+    scenes = [tools.pad(image, width=640, height=480) for image in golden_images]
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         check_results(pipeline.recognize([scenes[0]]), 1)
@@ -509,9 +702,8 @@ def main() -> int:
             "source": f"keras_ocr_tpu_torch/csrc/{sources[name]}",
             "replaces": replaces[name],
             "launches": launches[name],
-            "max_abs_err": report[name][0],
-            "ms": report[name][1][0],
-            "plain_ms": report[name][1][1],
+            **{key: report[name][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         }
         for name in all_wrappers
     ]}))

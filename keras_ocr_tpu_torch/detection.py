@@ -25,7 +25,13 @@ DEFAULT_NUM_SWEEPS = 8
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The first GPU; raises where there is none, so that nothing runs on
+    the CPU unless the caller asks for it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device=\"cpu\" to run on the CPU"
+        )
+    return torch.device("cuda")
 
 
 class Detector:
@@ -40,7 +46,8 @@ class Detector:
         fold_bn: build the inference graph with BatchNorm folded into the
             convolutions; on the card its convs run through the CUDA
             chain kernel (:mod:`keras_ocr_tpu_torch.ops.conv_cuda`).
-        device: where the model runs (default: the first GPU, else CPU).
+        device: where the model runs (default: the first GPU; without
+            one, pass ``device="cpu"`` or the constructor raises).
         seed: seed of the random initialisation.
     """
 

@@ -39,9 +39,8 @@ def label_components(fg, num_sweeps=8, check_convergence=False):
     sentinel = height * width
     idx = _flat_index(height, width, fg.device)
     label = torch.where(fg, idx, torch.full_like(idx, sentinel))
-    barrier = (~fg).to(torch.int32)
     return segmented_min_sweeps(
-        label, barrier, sentinel, num_sweeps, check_convergence=check_convergence
+        label, ~fg, sentinel, num_sweeps, check_convergence=check_convergence
     )
 
 
@@ -68,9 +67,8 @@ def compact_labels(label, max_components, num_sweeps=8, check_convergence=False)
     seeded = torch.where(is_root, order, torch.full_like(order, sentinel))
     seeded = seeded.reshape(label.shape)
     seeded = torch.where(fg, seeded, torch.full_like(seeded, sentinel))
-    barrier = (~fg).to(torch.int32)
     result = segmented_min_sweeps(
-        seeded, barrier, sentinel, num_sweeps, check_convergence=check_convergence
+        seeded, ~fg, sentinel, num_sweeps, check_convergence=check_convergence
     )
     comp, converged = result if check_convergence else (result, None)
     comp = torch.where(

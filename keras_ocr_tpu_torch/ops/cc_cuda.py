@@ -76,11 +76,12 @@ def segmented_min_sweeps_plain(
 def _library():
     lib = kernels.load(SOURCE)
     pointer, number = ctypes.c_void_p, ctypes.c_int
-    lib.cc_sweeps.argtypes = [pointer, pointer] + [number] * 5 + [pointer, pointer]
+    lib.cc_sweeps.argtypes = [pointer] * 3 + [number] * 6 + [pointer] * 2
     lib.cc_sweeps.restype = number
-    lib.cc_keyed_rows_cols.argtypes = [pointer] * 3 + [number] * 4 + [pointer]
+    lib.cc_keyed_rows_cols.argtypes = [pointer] * 4 + [number] * 4 + [pointer]
     lib.cc_keyed_rows_cols.restype = number
     lib.cc_sweeps_max_line.restype = number
+    lib.cc_sweeps_max_batch.restype = number
     return lib
 
 
@@ -98,41 +99,53 @@ def _check(values, *planes):
     if values.dim() < 2:
         raise ValueError(f"values must be (..., H, W), got {tuple(values.shape)}")
     height, width = values.shape[-2:]
+    batch = values.numel() // (height * width) if height * width else 0
     lib = _library()
     max_line = lib.cc_sweeps_max_line()
     if height > max_line or width > max_line:
         raise ValueError(
             f"({height}, {width}) maps exceed the kernel's line limit {max_line}"
         )
-    return lib, (values.numel() // (height * width), height, width)
+    max_batch = lib.cc_sweeps_max_batch()
+    if batch > max_batch:
+        raise ValueError(f"{batch} maps exceed the kernel's batch limit {max_batch}")
+    return lib, (batch, height, width)
 
 
-def _int32_planes(shape, *planes):
-    return [p.to(torch.int32).reshape(shape).contiguous() for p in planes]
+def _byte_plane(mask, shape):
+    """A bool or integer plane as the kernel's one byte a cell, nonzero =
+    set: bool and uint8 pass as they are, other integers are converted once."""
+    if mask.dtype.is_floating_point or mask.dtype.is_complex:
+        raise TypeError(f"a barrier or mask must be bool or integer, got {mask.dtype}")
+    if mask.dtype not in (torch.bool, torch.uint8):
+        mask = mask != 0
+    return mask.reshape(shape).contiguous()
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _launch(values, barrier, sentinel, num_sweeps, check_convergence):
     lib, shape = _check(values, barrier)
-    out = values.reshape(shape).clone()
-    (barrier,) = _int32_planes(shape, barrier)
-    changed = (
-        torch.zeros(shape[0], dtype=torch.int32, device=values.device)
-        if check_convergence
-        else None
-    )
+    source = values.reshape(shape).contiguous()
+    barrier = _byte_plane(barrier, shape)
+    out = torch.empty_like(source)
+    # flags[s, b]: sweep s changed image b (see csrc/cc_sweeps.cu).
+    flags = torch.zeros((num_sweeps + 1, shape[0]), dtype=torch.int32, device=values.device)
     if shape[0]:
         with torch.cuda.device(values.device):
             rc = lib.cc_sweeps(
-                out.data_ptr(), barrier.data_ptr(), *shape, int(sentinel),
-                int(num_sweeps), changed.data_ptr() if changed is not None else None,
-                torch.cuda.current_stream(values.device).cuda_stream,
+                source.data_ptr(), out.data_ptr(), barrier.data_ptr(), *shape,
+                int(sentinel), int(num_sweeps), int(bool(check_convergence)),
+                flags.data_ptr(), _stream(values.device),
             )
         if rc != 0:
             raise RuntimeError(f"cc_sweeps launch failed with CUDA error {rc}")
         segmented_min_sweeps.launches += 1
     out = out.reshape(values.shape)
     if check_convergence:
-        return out, (changed == 0).reshape(values.shape[:-2])
+        return out, (flags[num_sweeps] == 0).reshape(values.shape[:-2])
     return out
 
 
@@ -144,7 +157,8 @@ def segmented_min_sweeps(values, barrier, sentinel, num_sweeps, check_convergenc
 
     Args:
         values: (..., H, W) int32; barrier positions must hold ``sentinel``.
-        barrier: (..., H, W) 0/1 (1 = background / propagation barrier).
+        barrier: (..., H, W) bool or integer 0/1 (1 = background /
+            propagation barrier); the kernel reads it as one byte a cell.
         sentinel: value acting as +inf.
         num_sweeps: number of row+column propagation sweeps.
         check_convergence: run one extra sweep and report, per image,
@@ -155,7 +169,9 @@ def segmented_min_sweeps(values, barrier, sentinel, num_sweeps, check_convergenc
         after the extra sweep, (...) bool ``converged``).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``segmented_min_sweeps.launches``) or raise.
+    count the launch in ``segmented_min_sweeps.launches``) or raise. On the
+    card an image stops at its fixpoint: the sweeps after one that left it
+    unchanged skip it, which changes neither the map nor the flags.
     """
     if values.device.type == "cpu":
         return segmented_min_sweeps_plain(
@@ -192,7 +208,9 @@ def _keyed_run_min(values, key, fg, sentinel, dim):
 
 
 def keyed_rows_cols_plain(values, key, fg, sentinel):
-    """Shift-doubling keyed run minimum along rows, then columns."""
+    """Shift-doubling keyed run minimum along rows, then columns; ``fg``
+    bool or integer (nonzero = foreground)."""
+    fg = fg if fg.dtype == torch.bool else fg != 0
     values = _keyed_run_min(values, key, fg, sentinel, -1)
     return _keyed_run_min(values, key, fg, sentinel, -2)
 
@@ -200,7 +218,8 @@ def keyed_rows_cols_plain(values, key, fg, sentinel):
 def keyed_rows_cols(values, key, fg, sentinel):
     """Keyed run minimum of (..., H, W) int32 ``values`` along the rows,
     then along the columns: a run is a maximal stretch of ``fg`` cells
-    with equal int32 ``key``; cells outside ``fg`` get ``sentinel``.
+    (bool or integer, nonzero = foreground) with equal int32 ``key``;
+    cells outside ``fg`` get ``sentinel``.
 
     CPU tensors take :func:`keyed_rows_cols_plain`; CUDA tensors launch the
     kernel's keyed mode (counted in ``keyed_rows_cols.launches``) or raise.
@@ -210,13 +229,15 @@ def keyed_rows_cols(values, key, fg, sentinel):
     if values.device.type != "cuda":
         raise ValueError(f"no keyed kernel for device {values.device}")
     lib, shape = _check(values, key, fg)
-    out = values.reshape(shape).clone()
-    key, barrier = _int32_planes(shape, key, ~fg)
+    source = values.reshape(shape).contiguous()
+    key = key.to(torch.int32).reshape(shape).contiguous()
+    fg = _byte_plane(fg, shape)
+    out = torch.empty_like(source)
     if shape[0]:
         with torch.cuda.device(values.device):
             rc = lib.cc_keyed_rows_cols(
-                out.data_ptr(), barrier.data_ptr(), key.data_ptr(), *shape,
-                int(sentinel), torch.cuda.current_stream(values.device).cuda_stream,
+                source.data_ptr(), out.data_ptr(), fg.data_ptr(), key.data_ptr(),
+                *shape, int(sentinel), _stream(values.device),
             )
         if rc != 0:
             raise RuntimeError(f"cc_keyed_rows_cols launch failed with CUDA error {rc}")

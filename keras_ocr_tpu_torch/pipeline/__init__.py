@@ -53,7 +53,9 @@ class Pipeline:
     """A detector and a recognizer fused into one device program.
 
     Args:
-        detector / recognizer: default to seeded random-weight models.
+        detector / recognizer: default to seeded random-weight models on
+            the first GPU (raises without one: pass models built with
+            ``device="cpu"`` to run on the CPU).
         scale: the scale factor applied to input images.
         max_size: the maximum single-side dimension of scaled images.
         max_words: cap on recognized words per image.

@@ -30,7 +30,8 @@ class Recognizer:
         alphabet: the character set (default digits + lowercase).
         build_params: CRNN build parameters (default
             :data:`~keras_ocr_tpu_torch.models.crnn.DEFAULT_BUILD_PARAMS`).
-        device: where the model runs (default: the first GPU, else CPU).
+        device: where the model runs (default: the first GPU; without
+            one, pass ``device="cpu"`` or the constructor raises).
         seed: seed of the random initialisation.
     """
 

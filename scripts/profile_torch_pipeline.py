@@ -8,9 +8,12 @@ reports for batch 1 and batch 8:
 * each stage's device time (CUDA events, median of 10 runs) and the host
   time to enqueue it (a stage whose host time exceeds its device time is
   launch-bound);
+* the device busy time of ``get_boxes`` (a launch-bound stage, so its
+  event time is its host time) and of the sweep kernel's passes in it,
+  from ``torch.profiler``;
 * the wall time of one ``Pipeline.recognize_many`` call on that batch and
-  the device's busy share over it, from ``torch.profiler``, with the top
-  kernels by device time.
+  the device's busy share over it, from ``torch.profiler``, with the sweep
+  kernel's share and the top kernels by device time.
 
 Usage (on a machine with a card): ``python3 scripts/profile_torch_pipeline.py``;
 the last line of its output is the whole result as JSON.
@@ -78,6 +81,12 @@ def stage_times(pipeline, images):
     heatmaps = record("craft", lambda: pipeline.detector.model(x))
     boxes, mask, _ = record("get_boxes", lambda: postprocess.get_boxes(
         heatmaps, max_components=pipeline._component_cap))
+    # A launch-bound stage's event time is its host time: its device work
+    # comes from the profiler.
+    kernels = device_kernels(lambda: postprocess.get_boxes(
+        heatmaps, max_components=pipeline._component_cap))
+    out["get_boxes"]["busy_ms"] = sum(ms for ms, _ in kernels.values())
+    out["get_boxes"]["sweep_kernel_ms"] = sweep_ms(kernels)
     words = pipeline.word_buckets[0]
 
     def crops_fn():
@@ -94,16 +103,16 @@ def stage_times(pipeline, images):
     return out
 
 
-def profile_call(pipeline, images):
-    """Wall ms of one recognize_many call and the profiler's view of it."""
+def device_kernels(fn):
+    """{kernel name: (device ms, launches)} of one call of ``fn``, from
+    ``torch.profiler`` (after a warm-up call)."""
     from torch.profiler import ProfilerActivity, profile
 
-    pipeline.recognize_many(images, batch_size=len(images))
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        pipeline.recognize_many(images, batch_size=len(images))
-        wall_ms = (time.perf_counter() - start) * 1e3
+        fn()
+        torch.cuda.synchronize()
     kernels = {}
     for event in prof.key_averages():
         # Device-side events only: an aten op's "self" device time repeats
@@ -113,12 +122,33 @@ def profile_call(pipeline, images):
         device_us = event.self_device_time_total
         if device_us > 0:
             kernels[event.key] = (device_us / 1e3, event.count)
+    return kernels
+
+
+def sweep_ms(kernels):
+    """(device ms, launches) of the sweep kernel's passes among ``kernels``."""
+    parts = [v for name, v in kernels.items() if "sweep_pass" in name]
+    return sum(ms for ms, _ in parts), sum(n for _, n in parts)
+
+
+def profile_call(pipeline, images):
+    """Wall ms of one recognize_many call and the profiler's view of it."""
+    wall = []
+
+    def call():
+        start = time.perf_counter()
+        pipeline.recognize_many(images, batch_size=len(images))
+        wall.append((time.perf_counter() - start) * 1e3)
+
+    kernels = device_kernels(call)
+    wall_ms = wall[-1]
     busy_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     return {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
+        "sweep_kernel_ms": sweep_ms(kernels),
         "top_kernels": [
             {"name": name[:90], "device_ms": ms, "count": count} for name, (ms, count) in top
         ],
@@ -156,8 +186,13 @@ def main() -> int:
         print(f"batch {batch} ({card}):")
         for name, t in stages.items():
             print(f"  {name:18s} device {t['device_ms']:9.3f} ms  host {t['host_ms']:9.3f} ms")
+        boxes = stages["get_boxes"]
+        print(f"  get_boxes device busy {boxes['busy_ms']:.3f} ms, of it the sweep kernel "
+              f"{boxes['sweep_kernel_ms'][0]:.3f} ms in {boxes['sweep_kernel_ms'][1]} launches")
         print(f"  one call: wall {call['wall_ms']:.2f} ms, device busy "
-              f"{call['device_busy_ms']:.2f} ms ({100 * call['device_busy_share']:.1f}%)")
+              f"{call['device_busy_ms']:.2f} ms ({100 * call['device_busy_share']:.1f}%), "
+              f"the sweep kernel {call['sweep_kernel_ms'][0]:.3f} ms in "
+              f"{call['sweep_kernel_ms'][1]} launches")
         for k in call["top_kernels"][:8]:
             print(f"    {k['device_ms']:9.3f} ms x{k['count']:5d}  {k['name']}")
     print(json.dumps(result))

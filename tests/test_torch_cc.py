@@ -93,6 +93,83 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
         )
 
 
+BARRIER_TYPES = [torch.bool, torch.uint8, torch.int32]
+
+
+@pytest.mark.parametrize("dtype", BARRIER_TYPES, ids=str)
+def test_sweeps_take_any_barrier_type(dtype):
+    """A bool, a uint8 and an int32 barrier give the same maps and flags,
+    those of the JAX package."""
+    fg = _masks()[1]
+    values, barrier, sentinel = _label_inputs(fg)
+    ref, ref_conv = jcc.segmented_min_sweeps(
+        jnp.asarray(values), jnp.asarray(barrier), sentinel, 3, check_convergence=True
+    )
+    out, conv = cc_cuda.segmented_min_sweeps(
+        torch.from_numpy(values), torch.from_numpy(~fg).to(dtype), sentinel, 3, True
+    )
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    assert bool(conv) == bool(ref_conv)
+
+
+@pytest.mark.parametrize("dtype", BARRIER_TYPES, ids=str)
+def test_keyed_rows_cols_take_any_mask_type(dtype):
+    """The keyed entry's foreground as bool, uint8 or int32 gives the map of
+    the JAX package's ``_keyed_run_min`` along the rows, then the columns."""
+    rng = np.random.RandomState(3)
+    fg = rng.rand(48, 80) < 0.6
+    key = np.where(fg, rng.randint(0, 3, size=fg.shape), -1).astype(np.int32)
+    values, _, sentinel = _label_inputs(fg)
+    jkey, jfg = jnp.asarray(key), jnp.asarray(fg)
+    ref = jcc._keyed_run_min(jnp.asarray(values), jkey, jfg, sentinel, 1)
+    ref = jcc._keyed_run_min(ref, jkey, jfg, sentinel, 0)
+    out = cc_cuda.keyed_rows_cols(
+        torch.from_numpy(values), torch.from_numpy(key), torch.from_numpy(fg).to(dtype),
+        sentinel,
+    )
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def _fixpoint_schedule(values, barrier, sentinel, num_sweeps):
+    """The card's schedule in plain PyTorch: sweeps one at a time, and each
+    image stops after its first sweep that changed nothing. ``flags[s, b]``
+    says sweep s changed image b; the last sweep is the convergence check."""
+    flags = torch.zeros((num_sweeps + 1, values.shape[0]), dtype=torch.int32)
+    out = values.clone()
+    for b in range(values.shape[0]):
+        for s in range(num_sweeps + 1):
+            if s > 0 and not flags[s - 1, b]:
+                break
+            swept = cc_cuda.segmented_min_sweeps_plain(out[b], barrier[b], sentinel, 1)
+            flags[s, b] = int(not torch.equal(swept, out[b]))
+            out[b] = swept
+    return out, flags[num_sweeps] == 0
+
+
+@pytest.mark.parametrize("sweeps", [0, 1, 8])
+def test_fixpoint_stop_matches_jax(sweeps):
+    """Stopping each image at its fixpoint gives the JAX package's maps and
+    converged flags, on images that converge at different sweeps."""
+    single = np.zeros((96, 160), bool)
+    single[40, 70] = True
+    masks = np.stack(_masks() + [np.zeros((96, 160), bool), single])
+    sentinel = masks[0].size
+    values = np.where(masks, np.arange(sentinel).reshape(96, 160), sentinel).astype(np.int32)
+    barrier = ~masks
+    out, conv = _fixpoint_schedule(
+        torch.from_numpy(values), torch.from_numpy(barrier), sentinel, sweeps
+    )
+    for b in range(len(masks)):
+        ref, ref_conv = jcc.segmented_min_sweeps(
+            jnp.asarray(values[b]), jnp.asarray(barrier[b].astype(np.int32)), sentinel,
+            sweeps, check_convergence=True,
+        )
+        np.testing.assert_array_equal(out[b].numpy(), np.asarray(ref))
+        assert bool(conv[b]) == bool(ref_conv)
+    assert bool(conv[4]) and bool(conv[5])  # the empty and one-pixel images
+    assert not bool(conv[3])  # the serpentine
+
+
 @pytest.mark.parametrize("case", range(4))
 def test_label_and_compact_match_jax(case):
     fg = _masks()[case]

@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card (marked ``cuda``): both entries of
-the sweep kernel (the label sweeps and the keyed row/column runs) and both
+the sweep kernel (the label sweeps and the keyed row/column runs; odd
+widths, tall maps, the line limit, every barrier type, images that stop
+at their fixpoint at different sweeps) and both
 conv wrappers (``conv_chain``, ``conv3x3_bias_act``), against their plain
 versions; the BN-folded CRAFT through the conv kernel against the unfolded
 graph.
@@ -71,6 +73,69 @@ def test_keyed_kernel_equals_plain(device, shape):
     assert torch.equal(labels.cpu(), cc.label_blobs_keyed(fg, key, num_sweeps=4))
 
 
+def _serpentine(height, width):
+    fg = np.zeros((height, width), bool)
+    for i, row in enumerate(range(1, height - 1, 2)):
+        fg[row, 2 : width - 2] = True
+        if row + 2 < height - 1:
+            fg[row + 1, width - 3 if i % 2 == 0 else 2] = True
+    return fg
+
+
+def _converging_at_different_sweeps(height, width, seed):
+    """Empty, one pixel, random at densities 0.3 and 0.7, and a serpentine:
+    images that reach their fixpoint at different sweeps (or not at all)."""
+    rng = np.random.RandomState(seed)
+    single = np.zeros((height, width), bool)
+    single[height // 2, width // 2] = True
+    fg = np.stack([np.zeros((height, width), bool), single, rng.rand(height, width) < 0.3,
+                   rng.rand(height, width) < 0.7, _serpentine(height, width)])
+    sentinel = height * width
+    values = np.where(fg, np.arange(sentinel).reshape(height, width), sentinel)
+    return torch.from_numpy(values.astype(np.int32)), torch.from_numpy(fg), sentinel
+
+
+# Widths that are not a multiple of the 32-column band, a map taller than
+# one 32-column band of shared memory, a row at the 4096-cell line limit,
+# and the main path's heatmap size.
+ODD_SHAPES = [(300, 7), (17, 29), (2000, 40), (5, 4096), (96, 160), (480, 640)]
+BARRIER_TYPES = [torch.bool, torch.uint8, torch.int32]
+
+
+@pytest.mark.parametrize("dtype", BARRIER_TYPES, ids=str)
+@pytest.mark.parametrize("sweeps", [0, 1, 8, 20])
+@pytest.mark.parametrize("shape", ODD_SHAPES)
+def test_kernel_stops_each_image_at_its_fixpoint(device, shape, sweeps, dtype):
+    values, fg, sentinel = _converging_at_different_sweeps(*shape, seed=sum(shape))
+    barrier = (~fg).to(dtype)
+    ref, ref_conv = cc_cuda.segmented_min_sweeps_plain(values, barrier, sentinel, sweeps, True)
+    out, conv = cc_cuda.segmented_min_sweeps(
+        values.to(device), barrier.to(device), sentinel, sweeps, True
+    )
+    plain = cc_cuda.segmented_min_sweeps_plain(values, barrier, sentinel, sweeps)
+    unchecked = cc_cuda.segmented_min_sweeps(values.to(device), barrier.to(device), sentinel, sweeps)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(conv.cpu(), ref_conv)
+    assert torch.equal(unchecked.cpu(), plain)
+    assert bool(conv[0]) and bool(conv[1])
+
+
+@pytest.mark.parametrize("dtype", BARRIER_TYPES, ids=str)
+@pytest.mark.parametrize("shape", ODD_SHAPES[:4])
+def test_keyed_kernel_equals_plain_at_odd_shapes(device, shape, dtype):
+    values, fg, sentinel = _converging_at_different_sweeps(*shape, seed=sum(shape) + 2)
+    rng = np.random.RandomState(shape[0])
+    key = torch.from_numpy(rng.randint(0, 3, size=fg.shape).astype(np.int32))
+    key = torch.where(fg, key, -1)
+    ref = cc_cuda.keyed_rows_cols_plain(values, key, fg, sentinel)
+    out = cc_cuda.keyed_rows_cols(
+        values.to(device), key.to(device), fg.to(dtype).to(device), sentinel
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), ref)
+
+
 def test_kernel_leaves_its_input_alone_and_labels_on_device(device):
     values, barrier, sentinel = _inputs(2, 64, 96, seed=0)
     dev_values = values.to(device)
@@ -90,6 +155,23 @@ def test_kernel_rejects_what_it_cannot_take(device):
         )
     with pytest.raises(ValueError):
         cc_cuda.segmented_min_sweeps(values.to(device), barrier, sentinel, 1)
+    with pytest.raises(ValueError):
+        cc_cuda.segmented_min_sweeps(values.to(device), barrier[:, :4].to(device), sentinel, 1)
+    with pytest.raises(TypeError):
+        cc_cuda.segmented_min_sweeps(
+            values.to(device), barrier.to(device, torch.float32), sentinel, 1
+        )
+    fg = (barrier == 0).to(device)
+    with pytest.raises(ValueError):
+        cc_cuda.keyed_rows_cols(values.to(device), values.to(device), fg.cpu(), sentinel)
+    with pytest.raises(ValueError):
+        cc_cuda.keyed_rows_cols(values.to(device), values.to(device), fg[:, 1:], sentinel)
+    # Images ride on the grid's y dimension: at most 65535 of them.
+    many = torch.zeros((65536, 1, 1), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="batch limit 65535"):
+        cc_cuda.segmented_min_sweeps(many, many == 0, 0, 1)
+    with pytest.raises(ValueError, match="batch limit 65535"):
+        cc_cuda.keyed_rows_cols(many, many, many == 0, 0)
 
 
 @pytest.fixture

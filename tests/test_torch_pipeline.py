@@ -132,6 +132,25 @@ def test_unported_options_raise():
         pipeline.recognize([np.zeros((48, 40, 3), np.uint8)])
 
 
+@pytest.mark.parametrize("entry", ["Detector", "Recognizer", "Pipeline"])
+def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch, entry):
+    """Without a card the entry points raise unless given device="cpu":
+    nothing falls back to the CPU on its own."""
+    import keras_ocr_tpu_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        getattr(keras_ocr_tpu_torch, entry)()
+    detector = keras_ocr_tpu_torch.Detector(width=0.25, device="cpu")
+    recognizer = keras_ocr_tpu_torch.Recognizer(build_params=dict(META_SLIM), device="cpu")
+    built = {
+        "Detector": detector,
+        "Recognizer": recognizer,
+        "Pipeline": keras_ocr_tpu_torch.Pipeline(detector=detector, recognizer=recognizer),
+    }[entry]
+    assert built.device == torch.device("cpu")
+
+
 def test_port_runs_with_jax_blocked():
     """The port and its pipeline import and run with jax, flax and the JAX
     package unimportable (as on a machine without JAX)."""
