@@ -43,8 +43,25 @@ Phases, each printing one line; any failure exits non-zero:
    program under sync debug mode "error", and the CRAFT forward of both
    graphs at batch 1 and 8.
 
-Phases 4-5 (the default path) and 6-7 (the folded path) each count their
-kernel launches from zero. The second-to-last line is the kernel table as
+8. refine: (8, 480, 640, 2) heatmaps of seeded split words (whose dilated
+   segmaps fall into several blobs), a blob nested in a ring's hole, and one
+   word wider than 512 columns that fails the first refine level.
+   ``get_boxes`` + ``refine_boxes`` at each level of ``ops.refine.LADDER``
+   on the card, every sweep-kernel call held exact against its plain
+   version on the same tensors (the window batches of the labelling and the
+   flood); level 1 also against the whole CPU run (``refine_ok`` and
+   ``n_flagged`` exact, boxes within 1e-3 px), levels 2 and 3 against
+   level 1's boxes of the images both prove; per level the host enqueue
+   and event ms (medians of 3), the device busy ms and the sweep kernel's
+   part (``torch.profiler``) and the sweep-kernel launches. ``Detector.detect``
+   with CRAFT replaced by those heatmaps must take no host fallback and
+   agree with the host oracle ``getBoxes`` within 3 px; the full-width
+   ``Detector.detect`` runs on 8 scenes; the full-width pipeline on the
+   stand-in heatmaps must escalate the refine ladder, end with flag 2
+   clear, and enqueue at refine levels 1-3 without a host synchronisation.
+
+Phases 4-5 (the default path), 6-7 (the folded path) and 8 (the refine
+path) each count their kernel launches from zero. The second-to-last line is the kernel table as
 JSON; the last line is ``{"ok": true, "device": {...}}``. There is no CPU
 path.
 """
@@ -93,6 +110,11 @@ CEILING_TFLOPS = 495 / 3
 HEATMAP_BAR = 1e-3
 # The H100 SXM's published HBM rate, TB/s: the sweep kernel's bound.
 HBM_TBS = 3.35
+# The refine phase's heatmaps; its box bars: the CPU run, and the host
+# oracle (tests/test_refine.py's 3 px).
+REFINE_SHAPE = (8, 480, 640)
+REFINE_BAR = 1e-3
+ORACLE_BAR = 3.0
 
 
 def card_line() -> str:
@@ -495,7 +517,7 @@ def conv_phase(conv_cuda):
     return report
 
 
-def enqueue_without_sync(pipeline, scenes):
+def enqueue_without_sync(pipeline, scenes, refine_level=0):
     """Enqueue the device program of a batch under sync debug mode
     "error": any host synchronisation raises."""
     device_batch, _, _, resize_to = pipeline._prepare(scenes)
@@ -506,7 +528,7 @@ def enqueue_without_sync(pipeline, scenes):
         try:
             pipeline._launch(
                 device_batch, {}, pipeline.word_buckets[0], resize_to,
-                pipeline._component_cap, pipeline._num_sweeps,
+                pipeline._component_cap, pipeline._num_sweeps, refine_level,
             )
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -555,6 +577,273 @@ def craft_input(pipeline, scenes):
 
     device_batch, _, _, resize_to = pipeline._prepare(scenes)
     return compute_input(resize_bilinear(device_batch.to(torch.float32), *resize_to))
+
+
+def split_word(text, link, y, x, left, gap, right, height=8):
+    """Two text islands joined by a bridge where text and link both pass
+    their thresholds: overlap removal cuts the bridge, and the gap is wider
+    than the dilation closes, so the word's dilated segmap is two blobs."""
+    text[y : y + height, x : x + left] = 0.95
+    text[y : y + height, x + left + gap : x + left + gap + right] = 0.9
+    mid = y + height // 2 - 1
+    text[mid : mid + 2, x + left : x + left + gap] = 0.45
+    link[mid : mid + 2, x + left - 1 : x + left + gap + 1] = 0.5
+
+
+def refine_heatmaps(seed=0):
+    """(8, 480, 640, 2) float32 heatmaps: five seeded split words an image,
+    one row band each; image 0 also holds a blob nested in a ring's hole
+    (bridged to a far island), and image 1's middle word is 540 columns
+    wide, past level 1's 512-column window."""
+    batch, height, width = REFINE_SHAPE
+    rng = np.random.RandomState(seed)
+    maps = np.zeros((batch, height, width, 2), np.float32)
+    for b in range(batch):
+        text, link = maps[b, ..., 0], maps[b, ..., 1]
+        for k in range(5):
+            y = 30 + 90 * k
+            if b == 1 and k == 2:
+                split_word(text, link, y, 40, 250, 40, 250)
+                continue
+            split_word(text, link, y, rng.randint(10, width - 100), rng.randint(8, 21),
+                       rng.randint(14, 31), rng.randint(8, 21))
+    text, link = maps[0, 440:, 300:, 0], maps[0, 440:, 300:, 1]
+    text[10:30, 10:30] = 0.95
+    text[16:24, 16:24] = 0.45
+    link[15:25, 15:25] = 0.5
+    text[18:22, 18:22] = 0.95
+    link[17:23, 17:23] = 0.3
+    link[18:22, 18:22] = 0.35
+    text[19:21, 30:50] = 0.45
+    link[19:21, 29:51] = 0.5
+    text[12:28, 50:58] = 0.9
+    return maps
+
+
+class FixedCraft(torch.nn.Module):
+    """A CRAFT stand-in returning fixed heatmaps for a batch of the size
+    they were made for (inputs twice their height and width)."""
+
+    def __init__(self, heatmaps):
+        super().__init__()
+        self.heatmaps = heatmaps
+
+    def forward(self, x):
+        if x.shape[0] != self.heatmaps.shape[0] or x.shape[1] != 2 * self.heatmaps.shape[1]:
+            raise AssertionError(f"stand-in CRAFT got {tuple(x.shape)}")
+        return self.heatmaps
+
+
+def canonical(boxes):
+    """Boxes in a fixed order, for comparing two unordered lists."""
+    return np.array(sorted(boxes.tolist(), key=lambda b: (np.sum(b), b[0][0])))
+
+
+def checked_sweeps(cc, cc_cuda, record):
+    """Swap the sweep kernel's two entries in ``cc`` for versions that also
+    run the plain version on the same tensors and require equal maps and
+    flags; ``record`` collects (entry, shape) per call. Returns an undo."""
+    saved = cc.segmented_min_sweeps, cc.keyed_rows_cols
+
+    def sweeps(values, barrier, sentinel, num_sweeps, check_convergence=False):
+        out = cc_cuda.segmented_min_sweeps(values, barrier, sentinel, num_sweeps,
+                                           check_convergence)
+        ref = cc_cuda.segmented_min_sweeps_plain(values, barrier, sentinel, num_sweeps,
+                                                 check_convergence)
+        if check_convergence:
+            exact("cc_sweeps on the refine path", out[0], ref[0], out[1], ref[1])
+        else:
+            exact("cc_sweeps on the refine path", out, ref)
+        record.append(("cc_sweeps", tuple(values.shape)))
+        return out
+
+    def keyed(values, key, fg, sentinel):
+        out = cc_cuda.keyed_rows_cols(values, key, fg, sentinel)
+        exact("cc_keyed_rows_cols on the refine path", out,
+              cc_cuda.keyed_rows_cols_plain(values, key, fg, sentinel))
+        record.append(("cc_keyed_rows_cols", tuple(values.shape)))
+        return out
+
+    cc.segmented_min_sweeps, cc.keyed_rows_cols = sweeps, keyed
+
+    def undo():
+        cc.segmented_min_sweeps, cc.keyed_rows_cols = saved
+
+    return undo
+
+
+def device_busy(fn):
+    """(device busy ms, of it the sweep kernel's passes, device operations)
+    of one call of ``fn``, from ``torch.profiler``: a call that enqueues
+    more launches than the device's queue holds makes the host wait, so its
+    event time is not its device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sweep = 0.0
+    count = 0
+    for event in prof.key_averages():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = event.self_device_time_total / 1e3
+        busy += ms
+        count += event.count
+        if "sweep_pass" in event.key:
+            sweep += ms
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return busy, sweep, count
+
+
+def refine_levels(cc, cc_cuda, postprocess, refine, heatmaps):
+    """``get_boxes`` + ``refine_boxes`` at each LADDER level on the card,
+    every sweep-kernel call checked; level 1 against the CPU run, levels 2
+    and 3 against level 1 where both prove an image. Returns per level
+    (enqueue ms, device ms, sweep launches, maps in the window batch)."""
+    cpu = heatmaps.cpu()
+    analysis = postprocess.component_analysis(heatmaps, 0.7, 0.4, 0.4, 10, 256,
+                                              per_component_census=True)
+    boxes, _, _ = postprocess.get_boxes(heatmaps, analysis=analysis)
+    timings, first = [], None
+    for level, (wh, ww, md, it, rc) in enumerate(refine.LADDER, 1):
+        settings = dict(refine_cap=rc, window_h=wh, window_w=ww, max_dilate=md, num_iters=it)
+
+        def call():
+            return refine.refine_boxes(heatmaps, boxes, analysis=analysis, **settings)
+
+        record = []
+        undo = checked_sweeps(cc, cc_cuda, record)
+        try:
+            out, ok, flagged = (t.cpu() for t in call())
+        finally:
+            undo()
+        if level == 1:
+            ref_analysis = postprocess.component_analysis(cpu, 0.7, 0.4, 0.4, 10, 256,
+                                                          per_component_census=True)
+            ref_boxes, _, _ = postprocess.get_boxes(cpu, analysis=ref_analysis)
+            ref = refine.refine_boxes(cpu, ref_boxes, analysis=ref_analysis, **settings)
+            if not (torch.equal(ok, ref[1]) and torch.equal(flagged, ref[2])):
+                raise AssertionError(f"refine level 1: ok {ok} / {ref[1]}, flagged "
+                                     f"{flagged} / {ref[2]} on the card / CPU")
+            err = float((out - ref[0]).abs().max())
+            if not err <= REFINE_BAR:
+                raise AssertionError(f"refine level 1 boxes {err} px from the CPU run")
+            if ok.tolist() != [True, False] + [True] * 6:
+                raise AssertionError(f"refine level 1 proofs {ok.tolist()}")
+            first = out, ok
+        else:
+            if not bool(ok.all()):
+                raise AssertionError(f"refine level {level} proofs {ok.tolist()}")
+            both = first[1] & ok
+            err = float((out[both] - first[0][both]).abs().max())
+            if not err <= REFINE_BAR:
+                raise AssertionError(f"refine level {level} boxes {err} px from level 1's")
+        if flagged.tolist() != [6] + [5] * 7:
+            raise AssertionError(f"refine level {level} flagged {flagged.tolist()}")
+        maps = {(math.prod(shape[:-2]),) + shape[-2:] for name, shape in record
+                if name == "cc_sweeps"}
+        call()
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            launches = cc_cuda.segmented_min_sweeps.launches
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            begin = time.perf_counter()
+            start.record()
+            call()
+            stop.record()
+            enqueue_ms = (time.perf_counter() - begin) * 1e3
+            torch.cuda.synchronize()
+            runs.append((enqueue_ms, start.elapsed_time(stop),
+                         cc_cuda.segmented_min_sweeps.launches - launches))
+        enqueue_ms, event_ms, launches = (statistics.median(r[i] for r in runs) for i in range(3))
+        busy_ms, sweep_ms, ops = device_busy(call)
+        timings.append((enqueue_ms, event_ms, busy_ms, sweep_ms, ops, launches, sorted(maps),
+                        len(record)))
+    return timings
+
+
+def refine_phase(card, detector, recognizer, scenes):
+    """Phase 8; returns the sweep-kernel launches of the refine path."""
+    from keras_ocr_tpu_torch import Detector, Pipeline, detection
+    from keras_ocr_tpu_torch.ops import cc, cc_cuda, postprocess, refine
+
+    heatmaps = torch.from_numpy(refine_heatmaps()).cuda()
+    with torch.inference_mode():
+        timings = refine_levels(cc, cc_cuda, postprocess, refine, heatmaps)
+
+    stand_in = Detector(width=0.25, device="cuda")
+    stand_in.model = FixedCraft(heatmaps)
+    images = [np.zeros((960, 1280, 3), np.uint8)] * REFINE_SHAPE[0]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        found = stand_in.detect(images)
+        host = detection.getBoxes(heatmaps.cpu().numpy())
+        start = time.perf_counter()
+        full = detector.detect(scenes[:8])
+        detect_ms = (time.perf_counter() - start) * 1e3
+    if caught:
+        raise AssertionError(f"Detector.detect warned: {[str(w.message) for w in caught]}")
+    for image, (got, want) in enumerate(zip(found, host)):
+        if len(got) != len(want):
+            raise AssertionError(f"detect image {image}: {len(got)} boxes, oracle {len(want)}")
+        err = float(np.abs(canonical(got) - canonical(want)).max())
+        if not err <= ORACLE_BAR:
+            raise AssertionError(f"detect image {image}: {err} px from the oracle")
+    check_results([[("", box) for box in boxes] for boxes in full], 8)
+
+    pipeline = Pipeline(detector=stand_in, recognizer=recognizer, scale=2)
+    for level in range(len(refine.LADDER) + 1):
+        enqueue_without_sync(pipeline, scenes[:8], refine_level=level)
+    relaunch_ms = []
+    for level in range(len(refine.LADDER) + 1):
+        device_batch, _, _, resize_to = pipeline._prepare(scenes[:8])
+
+        def launch():
+            return pipeline._launch(device_batch, {}, pipeline.word_buckets[0], resize_to,
+                                    pipeline._component_cap, pipeline._num_sweeps, level).cpu()
+
+        launch()
+        runs = []
+        for _ in range(3):
+            start = time.perf_counter()
+            launch()
+            runs.append((time.perf_counter() - start) * 1e3)
+        relaunch_ms.append(statistics.median(runs))
+    for wrapper in (cc_cuda.segmented_min_sweeps, cc_cuda.keyed_rows_cols):
+        wrapper.launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        start = time.perf_counter()
+        results = pipeline.recognize(scenes[:8])
+        recognize_ms = (time.perf_counter() - start) * 1e3
+    launches = {"cc_sweeps": cc_cuda.segmented_min_sweeps.launches,
+                "cc_keyed_rows_cols": cc_cuda.keyed_rows_cols.launches}
+    check_results(results, 8)
+    stats = pipeline.last_run_stats
+    if any("contours[0]" in str(w.message) for w in caught) or stats["refine_escalations"] < 1:
+        raise AssertionError(f"the refine ladder did not end clear: {stats}, "
+                             f"{[str(w.message) for w in caught]}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the refine path was never launched: {launches}")
+    levels = "; ".join(
+        f"level {i}: sweep-kernel maps {maps}, host enqueue {enq:.2f} ms, event {event:.2f} ms, "
+        f"device busy {busy:.2f} ms of which the sweep kernel {sweep:.2f} ms, {ops} device "
+        f"operations, {n} cc_sweeps launches ({calls} checked calls exact)"
+        for i, (enq, event, busy, sweep, ops, n, maps, calls) in enumerate(timings, 1)
+    )
+    print(f"refine ({card}), (8, 480, 640) split-word heatmaps: {levels}; level 1 equal to "
+          f"the CPU run, levels 2-3 to level 1; Detector.detect on the stand-in: no host "
+          f"fallback, {sum(len(b) for b in found)} boxes within {ORACLE_BAR} px of getBoxes; "
+          f"full-width Detector.detect of 8 scenes {detect_ms:.1f} ms, "
+          f"{sum(len(b) for b in full)} boxes; pipeline launch + fetch at refine levels "
+          f"0-3 {[round(t, 2) for t in relaunch_ms]} ms (median of 3), enqueued without a host "
+          f"synchronisation at each; recognize of 8 scenes with the refine ladder "
+          f"{recognize_ms:.1f} ms, last_run_stats {stats}; launches on the refine path {launches}")
+    return launches
 
 
 def main() -> int:
@@ -682,6 +971,8 @@ def main() -> int:
           f"{forward_ms['unfolded', 1]:.3f} ms, folded (conv kernel) "
           f"{forward_ms['folded', 1]:.3f} ms; batch 8 {forward_ms['unfolded', 8]:.3f} ms "
           f"vs {forward_ms['folded', 8]:.3f} ms (median of 20 / 5)")
+
+    refine_phase(card, detector, recognizer, scenes)
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",

@@ -19,6 +19,8 @@ __all__ = [
     "compact_labels",
     "brushfire_dilate",
     "label_blobs_keyed",
+    "label_components_8conn",
+    "flood_from_seeds",
 ]
 
 
@@ -185,6 +187,12 @@ def label_blobs_keyed(mask, key, num_sweeps=8, check_convergence=False):
     def sweep(lab):
         return diagonal_step(keyed_rows_cols(lab, key, mask, sentinel))
 
+    return _iterate(sweep, label, num_sweeps, check_convergence)
+
+
+def _iterate(sweep, label, num_sweeps, check_convergence):
+    """``num_sweeps`` applications of ``sweep``; with ``check_convergence``
+    one more, and per image whether it changed nothing."""
     out = label
     for _ in range(num_sweeps):
         out = sweep(out)
@@ -192,3 +200,64 @@ def label_blobs_keyed(mask, key, num_sweeps=8, check_convergence=False):
         final = sweep(out)
         return final, (final == out).flatten(-2).all(-1)
     return out
+
+
+def label_components_8conn(fg, num_sweeps=8, comp=None, check_convergence=False):
+    """8-connected component labels of a (..., H, W) bool mask.
+
+    Each sweep is one call of :func:`segmented_min_sweeps` (the row and
+    column runs, the sweep kernel on the card) followed by a min over the
+    four diagonal neighbours, which bridges the diagonal adjacencies the
+    runs cannot cross. With ``comp`` ((..., H, W) int32 4-connected
+    component ids) a diagonal bridge needs equal ``comp`` on both ends, so
+    each component's blobs are labelled on their own.
+
+    Returns (..., H, W) int32 root-flat-index labels (the root is a blob's
+    raster-first pixel; ``H * W`` at background); with
+    ``check_convergence`` a (labels, (...) bool converged) tuple.
+    """
+    height, width = fg.shape[-2:]
+    sentinel = height * width
+    idx = _flat_index(height, width, fg.device)
+    label = torch.where(fg, idx, torch.full_like(idx, sentinel))
+    barrier = ~fg
+
+    def diagonal_step(lab):
+        best = lab
+        for dy, dx in _DIAGONALS:
+            cand = _shift2(lab, dy, dx, sentinel)
+            if comp is not None:
+                cand = torch.where(
+                    _shift2(comp, dy, dx, -1) == comp, cand, torch.full_like(cand, sentinel)
+                )
+            best = torch.minimum(best, cand)
+        return torch.where(barrier, torch.full_like(best, sentinel), best)
+
+    def sweep(lab):
+        return diagonal_step(segmented_min_sweeps(lab, barrier, sentinel, 1))
+
+    return _iterate(sweep, label, num_sweeps, check_convergence)
+
+
+def flood_from_seeds(mask, seeds, num_sweeps=8, check_convergence=False):
+    """4-connected reach inside ``mask`` from ``seeds`` ((..., H, W) bool).
+
+    With ``mask`` the background of a blob plane and ``seeds`` its
+    border-adjacent background, the result is the background that is not a
+    hole (what ``scipy.ndimage.binary_fill_holes`` leaves unfilled). One
+    :func:`segmented_min_sweeps` call of ``num_sweeps`` sweeps: seeds start
+    at 0, and a pixel is reached when the 0 has spread to it.
+
+    Returns (..., H, W) bool; with ``check_convergence`` a (reached, (...)
+    bool converged) tuple.
+    """
+    sentinel = mask.shape[-2] * mask.shape[-1]
+    zero = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
+    values = torch.where(seeds & mask, zero, zero + sentinel)
+    out = segmented_min_sweeps(
+        values, ~mask, sentinel, num_sweeps, check_convergence=check_convergence
+    )
+    if check_convergence:
+        out, converged = out
+        return (out == 0) & mask, converged
+    return (out == 0) & mask

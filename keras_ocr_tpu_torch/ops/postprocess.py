@@ -110,12 +110,15 @@ def component_analysis(
     size_threshold,
     max_components,
     num_sweeps=8,
+    per_component_census=False,
 ):
     """Per-component analysis of (B, H, W, 2) heatmaps.
 
     Returns the dict of ``keras_ocr_tpu/ops/postprocess.py:
-    component_analysis`` (without the per-component census), each entry
-    with a leading batch dimension.
+    component_analysis``, each entry with a leading batch dimension. With
+    ``per_component_census`` it holds ``n_dilblobs`` (B, C) float32 too:
+    the 8-connected blobs of each component's dilated segmap, which the
+    refine pass (:mod:`.refine`) reads to choose its components.
     """
     batch, height, width = hm.shape[:3]
     num_segments = max_components + 1  # last segment = dumped pixels
@@ -180,7 +183,7 @@ def component_analysis(
     is_dilroot = (dil_label == flat_idx) & cover
     n_valid = (valid0 & (n_seg > 0)).sum(1, dtype=torch.int32)
     census_excess = is_dilroot.flatten(1).sum(1, dtype=torch.int32) - n_valid
-    return {
+    analysis = {
         "comp": comp,
         "overlap": overlap,
         "segmask": segmask,
@@ -202,6 +205,14 @@ def component_analysis(
         "xmax_seg_r": xmax_seg_r,
         "n_seg": n_seg,
     }
+    if per_component_census:
+        # Blob roots counted per covering component; the last segment
+        # (pixels outside the cover) is dropped.
+        owner = torch.where(cover, cover_comp, torch.full_like(cover_comp, max_components))
+        counts = torch.zeros((batch, num_segments), dtype=torch.float32, device=device)
+        counts.scatter_add_(1, owner.flatten(1).to(torch.int64), is_dilroot.flatten(1).float())
+        analysis["n_dilblobs"] = counts[:, :-1]
+    return analysis
 
 
 def _angle_bank(num_angles, device):
@@ -221,11 +232,15 @@ def get_boxes(
     max_components: int = 256,
     num_angles: int = 36,
     num_sweeps: int = 8,
+    analysis=None,
 ):
     """Batched heatmaps -> (boxes, mask, diag).
 
     Args:
         heatmaps: (B, H, W, 2) float text/link maps.
+        analysis: the :func:`component_analysis` of these heatmaps at these
+            settings, where the caller has it already (the refine pass
+            reads the same one); computed here otherwise.
 
     Returns:
         boxes: (B, max_components, 4, 2) float32 corners in input-image
@@ -236,15 +251,16 @@ def get_boxes(
             fixpoint proof, ``n_multiblob`` (B,) int32 excess dilated blobs.
     """
     height, width = heatmaps.shape[1:3]
-    analysis = component_analysis(
-        heatmaps,
-        detection_threshold,
-        text_threshold,
-        link_threshold,
-        size_threshold,
-        max_components,
-        num_sweeps=num_sweeps,
-    )
+    if analysis is None:
+        analysis = component_analysis(
+            heatmaps,
+            detection_threshold,
+            text_threshold,
+            link_threshold,
+            size_threshold,
+            max_components,
+            num_sweeps=num_sweeps,
+        )
     a = analysis["a"]
     b = analysis["b"]
     cnt_seg_r = analysis["cnt_seg_r"]

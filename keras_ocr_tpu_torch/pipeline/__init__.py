@@ -2,20 +2,22 @@
 
 Counterpart of ``keras_ocr_tpu/pipeline/__init__.py:Pipeline``. The device
 program (:meth:`Pipeline._device_pipeline`) runs the 2x upscale and
-normalisation, CRAFT, ``get_boxes``, word compaction, grayscale and the
-perspective crops, the CRNN and the greedy CTC decode on the pipeline's
-device, and returns one packed ``(B, words, 8+1+T+2)`` float32 tensor with
-the JAX layout: 8 box coordinates, the slot's validity, T decoded labels,
-the total thresholded components, and a flag bitmask (+1 labeling
-converged, +2 a multi-blob component wants contours[0] refinement, +4 a
-crop overflowed the warp window). PyTorch launches asynchronously; the
-host waits for the device only when it fetches that tensor, and the
-escalation ladders relaunch the program on the flags it reads.
+normalisation, CRAFT, ``get_boxes`` (and, at a refine level above 0, the
+contours[0] refinement of :mod:`..ops.refine`), word compaction, grayscale
+and the perspective crops, the CRNN and the greedy CTC decode on the
+pipeline's device, and returns one packed ``(B, words, 8+1+T+2)`` float32
+tensor with the JAX layout: 8 box coordinates, the slot's validity, T
+decoded labels, the total thresholded components, and a flag bitmask (+1
+labeling converged, +2 a multi-blob component wants, or failed, contours[0]
+refinement, +4 a crop overflowed the warp window). PyTorch launches
+asynchronously; the host waits for the device only when it fetches that
+tensor, and the escalation ladders (sweeps, components, word buckets,
+refine, warp) relaunch the program on the flags it reads. Images whose
+longest side times ``scale`` passes ``max_size`` are resized on the host
+(:func:`..tools.resize_image`), as in the JAX package.
 
-Not ported yet: the contours[0] refinement (flag 2 is reported, counted in
-``last_run_stats["refine_pending"]`` and warned about, not escalated), the
-non-uniform-scale resize path, the two-stage ``recognition_kwargs`` path,
-meshes and export.
+Not ported yet: the two-stage ``recognition_kwargs`` path, meshes and
+export.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from .. import tools
 from ..detection import Detector
 from ..ops import ctc as ctc_ops
 from ..ops import postprocess as postprocess_ops
+from ..ops import refine as refine_ops
 from ..ops.image import compute_input, resize_bilinear, rgb_to_grayscale
 from ..ops.warp import WINDOW_LADDER, warp_boxes_batch, window_overflow
 from ..recognition import Recognizer
@@ -44,7 +47,6 @@ def _new_run_stats():
         "component_escalations": 0,
         "sweep_escalations": 0,
         "refine_escalations": 0,
-        "refine_pending": 0,
         "warp_escalations": 0,
     }
 
@@ -123,6 +125,7 @@ class Pipeline:
         max_words,
         resize_to=None,
         num_sweeps=detection_mod.DEFAULT_NUM_SWEEPS,
+        refine_level=0,  # 1-based index into ops.refine.LADDER
         warp_level=0,
     ):
         images = images.to(torch.float32)
@@ -132,8 +135,7 @@ class Pipeline:
         heatmaps = torch.cat(
             [self.detector.model(chunk) for chunk in torch.split(x, self._detector_chunk)]
         )
-        boxes, mask, diag = postprocess_ops.get_boxes(
-            heatmaps,
+        settings = dict(
             detection_threshold=detection_threshold,
             text_threshold=text_threshold,
             link_threshold=link_threshold,
@@ -141,7 +143,21 @@ class Pipeline:
             max_components=max_components,
             num_sweeps=num_sweeps,
         )
-        refine_signal = diag["n_multiblob"] > 0
+        # One component analysis serves tier 1 and the refine pass.
+        analysis = postprocess_ops.component_analysis(
+            heatmaps, **settings, per_component_census=refine_level > 0
+        )
+        boxes, mask, diag = postprocess_ops.get_boxes(heatmaps, **settings, analysis=analysis)
+        if refine_level > 0:
+            # The contours[0] pass; the signal is now its proofs failing.
+            wh, ww, md, it, rc = refine_ops.LADDER[refine_level - 1]
+            boxes, refine_ok, _ = refine_ops.refine_boxes(
+                heatmaps, boxes, **settings, refine_cap=rc, window_h=wh, window_w=ww,
+                max_dilate=md, num_iters=it, analysis=analysis,
+            )
+            refine_signal = ~refine_ok
+        else:
+            refine_signal = diag["n_multiblob"] > 0
         # Compact valid boxes into the first max_words slots (stable order).
         order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)[:, :max_words]
         boxes_c = torch.gather(boxes, 1, order[..., None, None].expand(-1, -1, 4, 2))
@@ -198,22 +214,38 @@ class Pipeline:
             else self.scale
             for image in images
         ]
-        if len(set(scales)) != 1 or not float(scales[0]).is_integer():
-            raise NotImplementedError(
-                "images that need a non-integer or non-uniform scale (longest "
-                f"side x {self.scale} > max_size={self.max_size}) are not "
-                "supported yet"
-            )
-        scale = int(scales[0])
-        max_height = max(image.shape[0] for image in images)
-        max_width = max(image.shape[1] for image in images)
-        if self.pad_to is not None:
-            if self.pad_to[0] < max_height or self.pad_to[1] < max_width:
-                raise ValueError(
-                    f"pad_to {self.pad_to} smaller than batch extent "
-                    f"({max_height}, {max_width})"
-                )
-            max_height, max_width = self.pad_to
+        if len(set(scales)) == 1 and float(scales[0]).is_integer():
+            # Ship the small uint8 originals; the device upscales them.
+            upscale = int(scales[0])
+            max_height = max(image.shape[0] for image in images)
+            max_width = max(image.shape[1] for image in images)
+            if self.pad_to is not None:
+                if self.pad_to[0] < max_height or self.pad_to[1] < max_width:
+                    raise ValueError(
+                        f"pad_to {self.pad_to} smaller than batch extent "
+                        f"({max_height}, {max_width})"
+                    )
+                max_height, max_width = self.pad_to
+        else:
+            # A fractional or mixed scale: resize on the host (cv2
+            # INTER_LINEAR), and pad in resized space.
+            resized = [
+                tools.resize_image(image, max_scale=self.scale, max_size=self.max_size)
+                for image in images
+            ]
+            images = [image for image, _ in resized]
+            scales = [scale for _, scale in resized]
+            max_height = max(image.shape[0] for image in images)
+            max_width = max(image.shape[1] for image in images)
+            if self.pad_to is not None:
+                target_h, target_w = self.pad_to[0] * self.scale, self.pad_to[1] * self.scale
+                if target_h < max_height or target_w < max_width:
+                    raise ValueError(
+                        f"pad_to {self.pad_to} (x{self.scale}) smaller than "
+                        f"resized batch extent ({max_height}, {max_width})"
+                    )
+                max_height, max_width = target_h, target_w
+            upscale = None
         max_height = -(-max_height // bucket) * bucket
         max_width = -(-max_width // bucket) * bucket
         batch = np.array(
@@ -224,7 +256,7 @@ class Pipeline:
         if self.device.type == "cuda":
             host = host.pin_memory()
         device_batch = host.to(self.device, non_blocking=True)
-        resize_to = (max_height * scale, max_width * scale)
+        resize_to = None if upscale is None else (max_height * upscale, max_width * upscale)
         return device_batch, scales, len(batch), resize_to
 
     def _raise_sticky(self, component_cap=None, num_sweeps=None, bucket_start=None):
@@ -239,10 +271,10 @@ class Pipeline:
 
     def _launch(
         self, device_batch, detection_kwargs, bucket, resize_to, components,
-        sweeps=detection_mod.DEFAULT_NUM_SWEEPS, warp_level=0,
+        sweeps=detection_mod.DEFAULT_NUM_SWEEPS, refine_level=0, warp_level=0,
     ):
-        """Enqueue the device program at one set of caps; returns the
-        packed device tensor without waiting for it."""
+        """Enqueue the device program at one set of caps and levels;
+        returns the packed device tensor without waiting for it."""
         return self._device_pipeline(
             device_batch,
             detection_threshold=float(detection_kwargs.get("detection_threshold", 0.7)),
@@ -253,6 +285,7 @@ class Pipeline:
             max_words=bucket,
             resize_to=resize_to,
             num_sweeps=sweeps,
+            refine_level=refine_level,
             warp_level=warp_level,
         )
 
@@ -269,8 +302,8 @@ class Pipeline:
         stats=None,
     ):
         """Fetch a launched result; relaunch on the sweep, component,
-        word-bucket and warp ladders. ``components``/``sweeps`` are the
-        caps ``packed_dev`` was launched with."""
+        word-bucket, refine and warp ladders. ``components``/``sweeps`` are
+        the caps ``packed_dev`` was launched with."""
         if stats is None:
             stats = self.last_run_stats
         remaining = list(self.word_buckets[self.word_buckets.index(bucket) + 1 :])
@@ -278,11 +311,11 @@ class Pipeline:
         def fetch(packed):
             return packed[:num_real].cpu().numpy()
 
-        def relaunch(warp_level=0):
+        def relaunch(refine_level=0, warp_level=0):
             return fetch(
                 self._launch(
                     device_batch, detection_kwargs, bucket, resize_to,
-                    components, sweeps, warp_level,
+                    components, sweeps, refine_level, warp_level,
                 )
             )
 
@@ -309,7 +342,8 @@ class Pipeline:
             warnings.warn(
                 f"component labeling did not converge within "
                 f"{detection_mod.MAX_SWEEPS_CEILING} sweeps; serpentine "
-                "components may be split.",
+                "components may be split. Use Detector.detect(use_device_postprocess="
+                "False) for this image.",
                 stacklevel=3,
             )
         while (
@@ -325,10 +359,16 @@ class Pipeline:
             bucket = remaining.pop(0)
             stats["escalations"] += 1
             packed = relaunch()
-        # contours[0] refinement is not ported: report what the JAX
-        # pipeline would have escalated, and warn as it does at its top.
+        # contours[0] refinement (flag 2): rerun with the tier-2 pass, up its
+        # (window, iterations, cap) ladder until its proofs hold. Not sticky:
+        # multi-blob components are rare, and a sticky level would add the
+        # pass to every later call.
+        refine_level = 0
+        while flag_bits(2) and refine_level < len(refine_ops.LADDER):
+            refine_level += 1
+            stats["refine_escalations"] += 1
+            packed = relaunch(refine_level)
         if flag_bits(2):
-            stats["refine_pending"] += int(((packed[:, 0, -1].astype(int) & 2) > 0).sum())
             warnings.warn(
                 "contours[0] refinement incomplete at the ladder top; "
                 "multi-blob component boxes may be supersets. Use "
@@ -342,7 +382,7 @@ class Pipeline:
         while flag_bits(4) and warp_level < len(WINDOW_LADDER) - 1:
             warp_level += 1
             stats["warp_escalations"] += 1
-            packed = relaunch(warp_level)
+            packed = relaunch(refine_level, warp_level)
         saturated = int((packed[..., 8] > 0.5).all(axis=1).sum()) if len(packed) else 0
         if saturated:
             stats["truncated_images"] += saturated

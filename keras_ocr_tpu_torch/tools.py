@@ -1,8 +1,10 @@
-"""Host image utilities the pipeline needs: ``read`` and ``pad``.
+"""Host image and geometry utilities of the port.
 
-Counterparts of ``keras_ocr_tpu/tools.py:read`` and ``:pad`` with numpy
-and the standard library only: PNG files are decoded by a small reader
-(8-bit RGB or RGBA, not interlaced).
+Counterparts of ``keras_ocr_tpu/tools.py`` (``read``, ``pad``,
+``resize_image``, ``polygon_area``, ``convex_hull``, ``min_area_rect``)
+with numpy and the standard library only. PNG files are decoded by a small
+reader: colour types 0, 2, 3, 4 and 6 at every bit depth the format allows,
+not interlaced, to RGB uint8 as PIL's ``convert("RGB")`` gives them.
 """
 
 from __future__ import annotations
@@ -15,12 +17,134 @@ import zlib
 import numpy as np
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_SIGNATURE = b"\xff\xd8\xff"
+# Samples per pixel of each PNG colour type: grey, RGB, palette index,
+# grey + alpha, RGBA.
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 
 
-def _unfilter(raw: bytes, height: int, width: int, channels: int) -> np.ndarray:
-    """Undo the per-scanline PNG filters (PNG spec, section 9)."""
-    stride = width * channels
-    data = np.frombuffer(raw, dtype=np.uint8).reshape(height, stride + 1)
+# ---------------------------------------------------------------------------
+# Geometry (cv2.contourArea / minAreaRect + boxPoints, in numpy)
+# ---------------------------------------------------------------------------
+
+
+def polygon_area(points) -> float:
+    """Absolute polygon area by the shoelace formula."""
+    pts = np.asarray(points, dtype="float64")
+    if len(pts) < 3:
+        return 0.0
+    x, y = pts[:, 0], pts[:, 1]
+    return float(abs(np.dot(x, np.roll(y, -1)) - np.dot(y, np.roll(x, -1))) / 2)
+
+
+def convex_hull(points) -> np.ndarray:
+    """Convex hull (counter-clockwise in xy math coordinates) by Andrew's
+    monotone chain."""
+    pts = np.unique(np.asarray(points, dtype="float64"), axis=0)
+    if len(pts) <= 2:
+        return pts
+    pts = pts[np.lexsort((pts[:, 1], pts[:, 0]))]
+
+    def cross(o, a, b):
+        return (a[0] - o[0]) * (b[1] - o[1]) - (a[1] - o[1]) * (b[0] - o[0])
+
+    lower: typing.List[np.ndarray] = []
+    for p in pts:
+        while len(lower) >= 2 and cross(lower[-2], lower[-1], p) <= 0:
+            lower.pop()
+        lower.append(p)
+    upper: typing.List[np.ndarray] = []
+    for p in pts[::-1]:
+        while len(upper) >= 2 and cross(upper[-2], upper[-1], p) <= 0:
+            upper.pop()
+        upper.append(p)
+    return np.array(lower[:-1] + upper[:-1])
+
+
+def min_area_rect(points) -> np.ndarray:
+    """Minimum-area rotated rectangle of a point set, as 4 float32 corners
+    in cyclic order (clockwise on screen, y down): convex hull + rotating
+    calipers, since the optimal rectangle shares a direction with a hull
+    edge."""
+    pts = np.asarray(points, dtype="float64").reshape(-1, 2)
+    hull = convex_hull(pts)
+    if len(hull) == 1:
+        return np.tile(hull[0], (4, 1)).astype("float32")
+    if len(hull) == 2:
+        a, b = hull  # a zero-thickness rectangle along the segment
+        return np.array([a, b, b, a], dtype="float32")
+    edges = np.roll(hull, -1, axis=0) - hull
+    angles = np.arctan2(edges[:, 1], edges[:, 0])
+    best = None
+    for theta in np.unique(np.mod(angles, np.pi / 2)):
+        c, s = np.cos(theta), np.sin(theta)
+        proj = hull @ np.array([[c, s], [-s, c]]).T
+        mins, maxs = proj.min(axis=0), proj.max(axis=0)
+        area = np.prod(maxs - mins)
+        if best is None or area < best[0]:
+            best = (area, theta, mins, maxs)
+    _, theta, (x0, y0), (x1, y1) = best
+    c, s = np.cos(theta), np.sin(theta)
+    corners = np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]])
+    return (corners @ np.array([[c, s], [-s, c]])).astype("float32")
+
+
+# ---------------------------------------------------------------------------
+# Resize (cv2.resize INTER_LINEAR)
+# ---------------------------------------------------------------------------
+
+
+def _linear_taps(dst: int, src: int):
+    """Two-tap source indices and weights per output coordinate: output
+    pixel i samples the source at (i + 0.5) * src/dst - 0.5, borders
+    replicated, no antialiasing on downscale (cv2 INTER_LINEAR)."""
+    x = (np.arange(dst, dtype="float64") + 0.5) * (src / dst) - 0.5
+    x0 = np.floor(x).astype("int64")
+    frac = x - x0
+    return np.clip(x0, 0, src - 1), np.clip(x0 + 1, 0, src - 1), frac
+
+
+def _resize(image, width: int, height: int):
+    """Separable bilinear resize with cv2.resize INTER_LINEAR semantics;
+    integer images are rounded and clipped back to their type."""
+    image = np.asarray(image)
+    width, height = int(width), int(height)
+    if image.shape[0] == height and image.shape[1] == width:
+        return image
+    arr = image.astype("float64")
+    lo, hi, frac = _linear_taps(height, arr.shape[0])
+    f = frac.reshape((-1,) + (1,) * (arr.ndim - 1))
+    arr = arr[lo] * (1.0 - f) + arr[hi] * f
+    lo, hi, frac = _linear_taps(width, arr.shape[1])
+    f = frac.reshape((1, -1) + (1,) * (arr.ndim - 2))
+    arr = arr[:, lo] * (1.0 - f) + arr[:, hi] * f
+    if np.issubdtype(image.dtype, np.integer):
+        info = np.iinfo(image.dtype)
+        arr = np.clip(np.rint(arr), info.min, info.max)
+    return arr.astype(image.dtype)
+
+
+def resize_image(image, max_scale, max_size):
+    """Resize by ``max_scale`` unless that puts the longest side past
+    ``max_size``, then to ``max_size``; returns (image, scale)."""
+    scale = min(max_scale, max_size / max(image.shape))
+    resized = _resize(
+        image, width=int(image.shape[1] * scale), height=int(image.shape[0] * scale)
+    )
+    return resized, scale
+
+
+# ---------------------------------------------------------------------------
+# Image IO
+# ---------------------------------------------------------------------------
+
+
+def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-scanline PNG filters (PNG spec, section 9) of rows of
+    ``stride`` bytes, ``bpp`` bytes a pixel (at least 1)."""
+    data = np.frombuffer(raw, dtype=np.uint8)[: height * (stride + 1)]
+    data = data.reshape(height, stride + 1)
     out = np.zeros((height, stride), dtype=np.uint8)
     prior = np.zeros(stride, dtype=np.int32)
     for row in range(height):
@@ -30,21 +154,21 @@ def _unfilter(raw: bytes, height: int, width: int, channels: int) -> np.ndarray:
             recon = line
         elif kind == 1:  # Sub: serial dependency along the row
             recon = line.copy()
-            for i in range(channels, stride):
-                recon[i] = (recon[i] + recon[i - channels]) & 0xFF
+            for i in range(bpp, stride):
+                recon[i] = (recon[i] + recon[i - bpp]) & 0xFF
         elif kind == 2:  # Up
             recon = (line + prior) & 0xFF
         elif kind == 3:  # Average
             recon = line.copy()
             for i in range(stride):
-                left = recon[i - channels] if i >= channels else 0
+                left = recon[i - bpp] if i >= bpp else 0
                 recon[i] = (recon[i] + ((left + prior[i]) >> 1)) & 0xFF
         elif kind == 4:  # Paeth
             recon = line.copy()
             for i in range(stride):
-                a = recon[i - channels] if i >= channels else 0
+                a = recon[i - bpp] if i >= bpp else 0
                 b = prior[i]
-                c = prior[i - channels] if i >= channels else 0
+                c = prior[i - bpp] if i >= bpp else 0
                 p = a + b - c
                 pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
                 pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
@@ -56,14 +180,33 @@ def _unfilter(raw: bytes, height: int, width: int, channels: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit RGB/RGBA non-interlaced PNG into (H, W, 3) uint8."""
-    with open(path, "rb") as f:
-        blob = f.read()
+def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered scanlines -> (H, W, channels) samples (uint8, or uint16
+    at depth 16)."""
+    height = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(height, width, channels)
+    if depth == 8:
+        return rows.reshape(height, width, channels)
+    # Sub-byte depths (one channel): unpack, leftmost sample first.
+    bits = np.unpackbits(rows, axis=1).reshape(height, -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    values = (bits * weights).sum(-1).astype(np.uint8)
+    return values[:, :width, None]
+
+
+def decode_png(blob: bytes, name: str = "image") -> np.ndarray:
+    """Decode a non-interlaced PNG into (H, W, 3) uint8, as PIL's
+    ``Image.open(...).convert("RGB")`` gives it: alpha is dropped, grey is
+    repeated over the three channels, a palette is looked up, grey of 1-4
+    bits is scaled to 0-255, 16-bit grey is clipped to 255 and 16-bit
+    colour keeps its high byte."""
     if blob[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path!r} is not a PNG file")
+        if blob[:3] == _JPEG_SIGNATURE:
+            raise NotImplementedError(f"{name}: JPEG decoding is not supported yet")
+        raise ValueError(f"{name} is not a PNG file")
     pos = 8
-    header = None
+    header = palette = None
     idat = []
     while pos < len(blob):
         (length,) = struct.unpack(">I", blob[pos : pos + 4])
@@ -72,36 +215,59 @@ def read_png(path: str) -> np.ndarray:
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, dtype=np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
             break
     if header is None:
-        raise ValueError(f"{path!r} has no IHDR chunk")
+        raise ValueError(f"{name} has no IHDR chunk")
     width, height, depth, color, _, _, interlace = header
-    channels = {2: 3, 6: 4}.get(color)
-    if depth != 8 or channels is None or interlace != 0:
-        raise NotImplementedError(
-            f"{path!r}: only 8-bit RGB/RGBA non-interlaced PNG is supported "
-            f"(depth {depth}, colour type {color}, interlace {interlace})"
-        )
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), height, width, channels)
-    image = pixels.reshape(height, width, channels)
-    if channels == 4:
-        # PIL's RGBA -> RGB conversion drops alpha.
-        image = image[..., :3]
-    return np.ascontiguousarray(image)
+    if color not in _CHANNELS or depth not in _DEPTHS[color]:
+        raise ValueError(f"{name}: invalid PNG colour type {color} at depth {depth}")
+    if interlace != 0:
+        raise NotImplementedError(f"{name}: interlaced (Adam7) PNG is not supported yet")
+    if color == 3 and palette is None:
+        raise ValueError(f"{name}: palette PNG without a PLTE chunk")
+    channels = _CHANNELS[color]
+    bits = width * channels * depth
+    stride = (bits + 7) // 8
+    rows = _unfilter(
+        zlib.decompress(b"".join(idat)), height, stride, max(1, channels * depth // 8)
+    )
+    samples = _samples(rows, width, channels, depth)
+    if color == 3:
+        return np.ascontiguousarray(palette[samples[..., 0]])
+    if depth == 16:
+        if color in (0, 4):
+            # PIL opens 16-bit grey as "I;16", whose RGB conversion clips;
+            # grey + alpha it reads by the high byte, as it does colour.
+            grey = samples[..., 0]
+            samples = (np.minimum(grey, 255) if color == 0 else grey >> 8)[..., None]
+        else:
+            samples = samples >> 8
+        samples = samples.astype(np.uint8)
+    elif depth < 8:
+        samples = samples * np.uint8(255 // ((1 << depth) - 1))
+    if color in (0, 4):
+        return np.ascontiguousarray(np.repeat(samples[..., :1], 3, axis=-1))
+    return np.ascontiguousarray(samples[..., :3])
 
 
-def read(filepath_or_array: typing.Union[str, np.ndarray]) -> np.ndarray:
-    """An ndarray as is, or a PNG path decoded to RGB uint8."""
-    if isinstance(filepath_or_array, np.ndarray):
-        return filepath_or_array
-    if isinstance(filepath_or_array, str):
-        if not os.path.isfile(filepath_or_array):
-            raise FileNotFoundError(f"Could not find image at path: {filepath_or_array}")
-        return read_png(filepath_or_array)
-    raise ValueError(f"Unsupported input type: {type(filepath_or_array)}")
+def read(filepath_or_buffer: typing.Union[str, typing.BinaryIO, np.ndarray]) -> np.ndarray:
+    """An ndarray as is; a PNG path, or an object with ``.read`` that gives
+    PNG bytes, decoded to RGB uint8."""
+    if isinstance(filepath_or_buffer, np.ndarray):
+        return filepath_or_buffer
+    if hasattr(filepath_or_buffer, "read"):
+        return decode_png(filepath_or_buffer.read(), "buffer")
+    if isinstance(filepath_or_buffer, str):
+        if not os.path.isfile(filepath_or_buffer):
+            raise FileNotFoundError(f"Could not find image at path: {filepath_or_buffer}")
+        with open(filepath_or_buffer, "rb") as f:
+            return decode_png(f.read(), repr(filepath_or_buffer))
+    raise ValueError(f"Unsupported input type: {type(filepath_or_buffer)}")
 
 
 def pad(image, width: int, height: int, cval: int = 255):

@@ -220,3 +220,80 @@ def test_brushfire_and_keyed_blobs_match_jax(seed):
         )
         np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
         assert bool(conv) == bool(ref_conv)
+
+
+def _mega_snake(height=42, width=40):
+    fg = np.zeros((height, width), bool)
+    for i, row in enumerate(range(1, height - 1, 2)):
+        fg[row, 2 : width - 2] = True
+        if row + 2 < height - 1:
+            fg[row + 1, width - 3 if i % 2 == 0 else 2] = True
+    return fg
+
+
+def _refine_masks():
+    """A sparse and a dense seeded mask, the serpentine and the mega snake,
+    each with a blocky 4-connected-id stand-in for ``comp``."""
+    masks = [_masks()[0], _masks()[2], _masks()[3], _mega_snake()]
+    out = []
+    for fg in masks:
+        yy, xx = np.mgrid[0 : fg.shape[0], 0 : fg.shape[1]]
+        comp = np.where(fg, (yy // 9 * 5 + xx // 13) % 4, -1).astype(np.int32)
+        out.append((fg, comp))
+    return out
+
+
+@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("sweeps", [1, 8, 32])
+def test_label_8conn_matches_jax(case, sweeps):
+    fg, comp = _refine_masks()[case]
+    for key in (None, comp):
+        ref, ref_conv = jcc.label_components_8conn(
+            jnp.asarray(fg), num_sweeps=sweeps, comp=None if key is None else jnp.asarray(key),
+            check_convergence=True,
+        )
+        out, conv = cc.label_components_8conn(
+            torch.from_numpy(fg), num_sweeps=sweeps,
+            comp=None if key is None else torch.from_numpy(key), check_convergence=True,
+        )
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+        assert bool(conv) == bool(ref_conv)
+    if case >= 2:  # the snakes need more than 8 sweeps
+        assert bool(conv) == (sweeps == 32 and case == 3)
+
+
+@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("sweeps", [1, 8, 32])
+def test_flood_matches_jax(case, sweeps):
+    fg, _ = _refine_masks()[case]
+    border = np.zeros(fg.shape, bool)
+    border[0], border[-1], border[:, 0], border[:, -1] = True, True, True, True
+    seeds = border | (np.random.RandomState(case).rand(*fg.shape) < 0.002)
+    ref, ref_conv = jcc.flood_from_seeds(
+        jnp.asarray(fg), jnp.asarray(seeds), num_sweeps=sweeps, check_convergence=True
+    )
+    out, conv = cc.flood_from_seeds(
+        torch.from_numpy(fg), torch.from_numpy(seeds), num_sweeps=sweeps, check_convergence=True
+    )
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    assert bool(conv) == bool(ref_conv)
+
+
+def test_8conn_and_flood_batched_equal_per_image():
+    """A (2, 3, H, W) batch equals its maps one by one, flags per map."""
+    fg = np.stack([m for m, _ in _refine_masks()[:3]] * 2).reshape(2, 3, 96, 160)
+    comp = np.stack([c for _, c in _refine_masks()[:3]] * 2).reshape(2, 3, 96, 160)
+    seeds = np.zeros_like(fg)
+    seeds[..., 0, :] = True
+    fg_t, comp_t, seeds_t = map(torch.from_numpy, (fg, comp, seeds))
+    label, conv = cc.label_components_8conn(fg_t, 4, comp=comp_t, check_convergence=True)
+    flood, fconv = cc.flood_from_seeds(fg_t, seeds_t, 4, check_convergence=True)
+    assert conv.shape == fconv.shape == (2, 3)
+    for i in range(2):
+        for j in range(3):
+            one, one_conv = cc.label_components_8conn(
+                fg_t[i, j], 4, comp=comp_t[i, j], check_convergence=True
+            )
+            assert torch.equal(label[i, j], one) and bool(conv[i, j]) == bool(one_conv)
+            one, one_conv = cc.flood_from_seeds(fg_t[i, j], seeds_t[i, j], 4, check_convergence=True)
+            assert torch.equal(flood[i, j], one) and bool(fconv[i, j]) == bool(one_conv)

@@ -316,3 +316,82 @@ def test_folded_craft_on_card_matches_unfolded(device, full_fp32, shape):
     assert out.shape == ref.shape == (shape[0], shape[1] // 2, shape[2] // 2, 2)
     bar = 1e-4 * max(1.0, float(ref.abs().max()))
     assert float((out - ref).abs().max()) <= bar
+
+
+# The window batches of the refine ladder on (8, 480, 640) heatmaps, as
+# (maps, height, width), and odd small windows.
+WINDOW_BATCHES = [(64, 128, 512), (8, 512, 640), (32, 480, 640), (3, 17, 29), (5, 5, 300),
+                  (2, 300, 7)]
+
+
+def _windows(maps, height, width, seed):
+    """Seeded blob planes: a few filled rectangles with holes, and noise at
+    the percolation density in the last map."""
+    rng = np.random.RandomState(seed)
+    fg = np.zeros((maps, height, width), bool)
+    for m in range(maps):
+        for _ in range(4):
+            y, x = rng.randint(0, height), rng.randint(0, width)
+            h, w = rng.randint(1, height // 2 + 2), rng.randint(1, width // 2 + 2)
+            fg[m, y : y + h, x : x + w] = True
+            fg[m, y + h // 3 : y + 2 * h // 3, x + w // 3 : x + 2 * w // 3] = False
+    fg[-1] = rng.rand(height, width) < 0.6
+    return torch.from_numpy(fg)
+
+
+@pytest.mark.parametrize("num_iters", [1, 16])
+@pytest.mark.parametrize("shape", WINDOW_BATCHES)
+def test_refine_labelling_and_flood_equal_plain(device, monkeypatch, shape, num_iters):
+    """``label_components_8conn`` and ``flood_from_seeds`` through the
+    kernel equal the same calls through the plain sweeps, on the card,
+    converged flags included."""
+    fg = _windows(*shape, seed=sum(shape)).to(device)
+    border = torch.zeros(shape[1:], dtype=torch.bool, device=device)
+    border[0], border[-1], border[:, 0], border[:, -1] = True, True, True, True
+    bg = ~fg
+
+    def run():
+        label = cc.label_components_8conn(fg, num_iters, check_convergence=True)
+        flood = cc.flood_from_seeds(bg, bg & border, num_iters, check_convergence=True)
+        return label + flood
+
+    before = cc_cuda.segmented_min_sweeps.launches
+    out = run()
+    assert cc_cuda.segmented_min_sweeps.launches == before + num_iters + 2
+    monkeypatch.setattr(cc, "segmented_min_sweeps", cc_cuda.segmented_min_sweeps_plain)
+    ref = run()
+    torch.cuda.synchronize()
+    for got, want in zip(out, ref):
+        assert torch.equal(got, want)
+
+
+def _split_words(rng, height=96, width=128, words=3):
+    """Words whose overlap-removed segmap splits into islands that the
+    dilation does not re-merge (as ``tests/test_refine.py`` builds them)."""
+    text = np.zeros((height, width), "float32")
+    link = np.zeros((height, width), "float32")
+    for _ in range(words):
+        y, x, gap = rng.randint(10, height - 14), rng.randint(8, width - 60), rng.randint(14, 30)
+        text[y : y + 6, x : x + 7] = 0.95
+        text[y : y + 6, x + 7 + gap : x + 14 + gap] = 0.9
+        text[y + 2 : y + 4, x + 7 : x + 7 + gap] = 0.45
+        link[y + 2 : y + 4, x + 6 : x + 8 + gap] = 0.5
+    return np.stack([text, link], -1)
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_refine_boxes_on_card_equal_cpu(device, level):
+    from keras_ocr_tpu_torch.ops import postprocess, refine
+
+    hm = torch.from_numpy(np.stack([_split_words(np.random.RandomState(s)) for s in range(4)]))
+    wh, ww, md, it, rc = refine.LADDER[level]
+    settings = dict(max_components=16, refine_cap=rc, window_h=wh, window_w=ww, max_dilate=md,
+                    num_iters=it)
+    results = []
+    for maps in (hm, hm.to(device)):
+        boxes, _, _ = postprocess.get_boxes(maps, max_components=16)
+        results.append([t.cpu() for t in refine.refine_boxes(maps, boxes, **settings)])
+    (boxes, ok, n), (ref_boxes, ref_ok, ref_n) = results[1], results[0]
+    assert torch.equal(ok, ref_ok) and torch.equal(n, ref_n)
+    assert bool(ok.all()) and int(n.min()) >= 1
+    assert float((boxes - ref_boxes).abs().max()) <= 1e-3

@@ -128,8 +128,8 @@ def test_unported_options_raise():
         recognizer=Recognizer(build_params=dict(META_SLIM), device="cpu"),
         max_size=64,
     )
-    with pytest.raises(NotImplementedError):  # 48 x 2 > max_size: non-uniform path
-        pipeline.recognize([np.zeros((48, 40, 3), np.uint8)])
+    # 48 x 2 > max_size: the non-uniform path, ported now, runs.
+    assert len(pipeline.recognize([np.zeros((48, 40, 3), np.uint8)])) == 1
 
 
 @pytest.mark.parametrize("entry", ["Detector", "Recognizer", "Pipeline"])
@@ -152,7 +152,8 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch, entry):
 
 
 def test_port_runs_with_jax_blocked():
-    """The port and its pipeline import and run with jax, flax and the JAX
+    """The port, its pipeline, the refine pass, ``Detector.detect`` and
+    ``read`` of a PNG buffer import and run with jax, flax and the JAX
     package unimportable (as on a machine without JAX)."""
     code = (
         "import sys\n"
@@ -163,9 +164,16 @@ def test_port_runs_with_jax_blocked():
         "import keras_ocr_tpu_torch\n"
         "from keras_ocr_tpu_torch.pipeline import Pipeline\n"
         "from keras_ocr_tpu_torch.utils import golden\n"
+        "import io\n"
+        "import keras_ocr_tpu_torch.ops.refine\n"
+        "from keras_ocr_tpu_torch import tools\n"
         "pipeline, meta = golden.load_golden_pipeline(sys.argv[1], device='cpu')\n"
         "words = [w for w, _ in pipeline.recognize([sys.argv[1] + '/scene_00.png'])[0]]\n"
         "assert words, words\n"
+        "with open(sys.argv[1] + '/scene_01.png', 'rb') as f:\n"
+        "    image = tools.read(io.BytesIO(f.read()))\n"
+        "boxes = pipeline.detector.detect([image])[0]\n"
+        "assert boxes.shape[1:] == (4, 2) and len(boxes), boxes.shape\n"
         "assert not any(m.startswith(('jax', 'flax', 'keras_ocr_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
         "print('words', words)\n"
@@ -176,3 +184,4 @@ def test_port_runs_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "words" in proc.stdout
+

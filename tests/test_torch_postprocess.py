@@ -114,3 +114,26 @@ def test_filters_empty_and_multiblob_match_jax():
     assert mask.sum(1).tolist() == [1, 0, 1]
     assert np.asarray(diag["n_multiblob"]).tolist() == [0, 0, 1]
     assert not ties
+
+
+def test_per_component_census_matches_jax():
+    """``n_dilblobs``, the dilated blobs of each component, exact on maps
+    with multi-blob components, and the rest of the analysis unchanged."""
+    import sys, os
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_refine import _multiblob_heatmap
+
+    hm = np.stack([_multiblob_heatmap(np.random.RandomState(seed), n_words=3) for seed in (0, 4)]
+                  + [_synthetic_heatmap(np.random.RandomState(1), height=96, width=128)])
+    args = (0.7, 0.4, 0.4, 10, 16)
+    out = post.component_analysis(torch.from_numpy(hm), *args, per_component_census=True)
+    plain = post.component_analysis(torch.from_numpy(hm), *args)
+    assert set(out) == set(plain) | {"n_dilblobs"}
+    for key in plain:
+        assert torch.equal(out[key], plain[key]), key
+    assert out["n_dilblobs"].shape == (3, 16) and out["n_dilblobs"].dtype == torch.float32
+    for i in range(len(hm)):
+        ref = jpost.component_analysis(jnp.asarray(hm[i]), *args, per_component_census=True)
+        np.testing.assert_array_equal(out["n_dilblobs"][i].numpy(), np.asarray(ref["n_dilblobs"]))
+    assert out["n_dilblobs"][:2].max() >= 2  # the split words
