@@ -60,10 +60,20 @@ Phases, each printing one line; any failure exits non-zero:
    stand-in heatmaps must escalate the refine ladder, end with flag 2
    clear, and enqueue at refine levels 1-3 without a host synchronisation.
 
-Phases 4-5 (the default path), 6-7 (the folded path) and 8 (the refine
-path) each count their kernel launches from zero. The second-to-last line is the kernel table as
-JSON; the last line is ``{"ok": true, "device": {...}}``. There is no CPU
-path.
+9. two-stage: the golden artifact through ``recognize(...,
+   recognition_kwargs={"verbose": 0})`` (host resize, ``Detector.detect``,
+   host ``warpBox`` crops, the CRNN), standard and folded: its word fraction
+   and ``evaluation.score`` against the fused path's results must reach
+   ``pass_fraction``, both sweep-kernel entries must launch, and both conv
+   entries on the folded graph; the full-width CRNN's softmax on the card
+   within 1e-4 of the CPU on the slim detector's crops; the full-width
+   two-stage ``recognize`` p50 beside the fused one, and its stage split
+   (host resize, ``detect``, host crops, CRNN + CTC).
+
+Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
+path) and each run of 9 count their kernel launches from zero. The
+second-to-last line is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``. There is no CPU path.
 """
 
 from __future__ import annotations
@@ -846,6 +856,124 @@ def refine_phase(card, detector, recognizer, scenes):
     return launches
 
 
+def as_annotations(results, names):
+    """Pipeline results of one image a scene -> ``evaluation.score``'s
+    image id -> [{"text", "vertices"}]."""
+    return {name: [{"text": word, "vertices": box} for word, box in words]
+            for name, words in zip(names, results)}
+
+
+def two_stage_golden(label, pipeline, images, expected, fused, wrappers, pass_fraction):
+    """The golden scenes through the two-stage path, the launch counts
+    from zero; the word fraction and the score against the fused results
+    must reach ``pass_fraction``. Returns the launches and a summary."""
+    from keras_ocr_tpu_torch import evaluation
+    from keras_ocr_tpu_torch.utils import golden
+
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    results = [pipeline.recognize([image], recognition_kwargs={"verbose": 0})[0]
+               for image in images]
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    check_results(results, len(images))
+    hits = sum(golden._word_match_fraction(words, [w for w, _ in found]) * len(words)
+               for words, found in zip(expected, results))
+    n_words = sum(len(words) for words in expected)
+    fraction = hits / n_words
+    names = [f"scene_{i:02d}" for i in range(len(images))]
+    _, (precision, recall) = evaluation.score(as_annotations(fused, names),
+                                              as_annotations(results, names))
+    same = sum(sorted(w for w, _ in a) == sorted(w for w, _ in b)
+               for a, b in zip(results, fused))
+    if min(fraction, precision, recall) < pass_fraction:
+        raise AssertionError(f"two-stage {label}: fraction {fraction}, precision {precision}, "
+                             f"recall {recall} (pass >= {pass_fraction})")
+    return launches, (f"{label}: fraction {fraction:.4f} over {n_words} words, "
+                      f"score against the fused path precision {precision:.4f} recall "
+                      f"{recall:.4f}, same word multiset on {same}/{len(images)} scenes, "
+                      f"launches {launches}")
+
+
+def two_stage_phase(card, golden_images, expected, pipelines, wrappers, pass_fraction,
+                    full_pipeline, fused_p50):
+    """Phase 9: the two-stage ``recognition_kwargs`` path on the golden
+    artifact (unfolded and folded), each run's kernel launches counted from
+    zero; the full-width CRNN on the card against the CPU on the slim
+    detector's crops; the two-stage p50 at full width and its stage
+    split."""
+    import copy
+
+    from keras_ocr_tpu_torch import recognition, tools
+
+    lines = []
+    for label, pipeline in pipelines:
+        fused = [pipeline.recognize([image])[0] for image in golden_images]
+        launches, line = two_stage_golden(label, pipeline, golden_images, expected, fused,
+                                          wrappers, pass_fraction)
+        needed = ("cc_sweeps", "cc_keyed_rows_cols") + (
+            ("conv_chain", "conv3x3_bias_act") if "folded" in label else ())
+        if min(launches[name] for name in needed) <= 0:
+            raise AssertionError(f"two-stage {label} skipped a kernel: {launches}")
+        lines.append(line)
+
+    # The full-width CRNN on the card and on the CPU, on the crops of the
+    # slim detector's boxes in the golden scenes padded to 640x480.
+    slim = pipelines[0][1]
+    recognizer = full_pipeline.recognizer
+
+    def host_batch(scene):
+        """The two-stage path's host resize and pad of one scene."""
+        resized, _, extent = full_pipeline._resize_on_host([scene])
+        return full_pipeline._pad_batch(resized, *extent)
+
+    scenes = [tools.pad(image, width=640, height=480) for image in golden_images[:10]]
+    batches = [host_batch(scene) for scene in scenes]
+    boxes = [slim.detector.detect(images=batch)[0] for batch in batches]
+    crops = [tools.warpBox(recognition.rgb_to_grayscale_host(batch[0]), box, 31, 200)
+             for batch, image_boxes in zip(batches[:2], boxes[:2]) for box in image_boxes]
+    x = torch.from_numpy(np.array(crops, dtype=np.float32)[..., None] / 255)
+    cpu_model = copy.deepcopy(recognizer.model).cpu()
+    with torch.inference_mode():
+        card_probs = recognizer.model(x.cuda()).cpu()
+        cpu_probs = cpu_model(x)
+    err = check_close("full-width CRNN softmax, card vs CPU", card_probs, cpu_probs, 1e-4)
+
+    # Two-stage p50 at full width, then its stages timed one by one (the
+    # crops and the CRNN on the slim detector's boxes: the random-weight
+    # CRAFT finds no words).
+    latencies, found = [], 0
+    full_pipeline.recognize([scenes[0]], recognition_kwargs={"verbose": 0})
+    for scene in scenes:
+        start = time.perf_counter()
+        results = full_pipeline.recognize([scene], recognition_kwargs={"verbose": 0})
+        latencies.append((time.perf_counter() - start) * 1e3)
+        check_results(results, 1)
+        found += len(results[0])
+    stages = {"host resize": [], "detect": [], "host crops": [], "CRNN + CTC": []}
+    for scene, image_boxes in zip(scenes, boxes):
+        start = time.perf_counter()
+        batch = host_batch(scene)
+        mid = time.perf_counter()
+        full_pipeline.detector.detect(images=batch)
+        detected = time.perf_counter()
+        grey = recognition.rgb_to_grayscale_host(batch[0])
+        word_crops = np.array([tools.warpBox(grey, box, 31, 200) for box in image_boxes],
+                              dtype=np.float32)[..., None] / 255
+        cropped = time.perf_counter()
+        recognizer._predict_strings(word_crops)
+        done = time.perf_counter()
+        for name, (a, b) in zip(stages, ((start, mid), (mid, detected), (detected, cropped),
+                                         (cropped, done))):
+            stages[name].append((b - a) * 1e3)
+    split = ", ".join(f"{name} {statistics.median(ms):.2f}" for name, ms in stages.items())
+    print(f"two-stage ({card}): " + "; ".join(lines) + f"; full-width CRNN softmax on "
+          f"{len(crops)} crops of 2 scenes within {err:.3e} of the CPU run (bar 1e-4); "
+          f"full width (640x480, scale 2) recognize p50 with recognition_kwargs "
+          f"{statistics.median(latencies):.2f} ms ({found} words found in 10 scenes), fused "
+          f"p50 {fused_p50:.2f} ms; stage medians over 10 scenes, "
+          f"{statistics.median(len(b) for b in boxes)} words a scene: {split} ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path", file=sys.stderr)
@@ -878,7 +1006,8 @@ def main() -> int:
 
     report = kernel_phase(cc_cuda)
     with open(os.path.join(ARTIFACT, "expected.json"), encoding="utf8") as f:
-        names = [entry["image"] for entry in json.load(f)["scenes"]]
+        golden_scenes = json.load(f)["scenes"]
+    names = [entry["image"] for entry in golden_scenes]
     golden_images = [tools.read(os.path.join(ARTIFACT, name)) for name in names]
     golden_pipeline = golden.load_golden_pipeline(ARTIFACT, device=device)[0]
     golden_traffic(cc_cuda, golden_pipeline, golden_images[:8])
@@ -973,6 +1102,11 @@ def main() -> int:
           f"vs {forward_ms['folded', 8]:.3f} ms (median of 20 / 5)")
 
     refine_phase(card, detector, recognizer, scenes)
+
+    expected = [entry["words"] for entry in golden_scenes]
+    two_stage_phase(card, golden_images, expected,
+                    (("golden", golden_pipeline), ("golden, folded", golden_folded)),
+                    all_wrappers, pass_fraction, pipeline, p50)
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",

@@ -4,9 +4,12 @@ It imports ``torch``, ``numpy`` and the standard library only. The JAX
 package stays the reference the port is tested against.
 """
 
-from . import detection, pipeline, recognition, tools
+from . import detection, evaluation, pipeline, recognition, tools
 from .detection import Detector
 from .pipeline import Pipeline
 from .recognition import Recognizer
 
-__all__ = ["Detector", "Pipeline", "Recognizer", "detection", "pipeline", "recognition", "tools"]
+__all__ = [
+    "Detector", "Pipeline", "Recognizer", "detection", "evaluation", "pipeline", "recognition",
+    "tools",
+]

@@ -16,8 +16,11 @@ refine, warp) relaunch the program on the flags it reads. Images whose
 longest side times ``scale`` passes ``max_size`` are resized on the host
 (:func:`..tools.resize_image`), as in the JAX package.
 
-Not ported yet: the two-stage ``recognition_kwargs`` path, meshes and
-export.
+``recognize(..., recognition_kwargs=...)`` takes the two-stage path
+instead: host resize and pad, :meth:`..detection.Detector.detect` on the
+device, host crops and the recognizer on the device
+(:meth:`..recognition.Recognizer.recognize_from_boxes`), so that per-call
+recognizer options apply. Not ported yet: meshes and export.
 """
 
 from __future__ import annotations
@@ -207,7 +210,6 @@ class Pipeline:
         """
         if not isinstance(images, np.ndarray):
             images = [tools.read(image) for image in images]
-        bucket = self.size_bucket
         scales = [
             self.max_size / max(image.shape)
             if max(image.shape) * self.scale > self.max_size
@@ -229,35 +231,49 @@ class Pipeline:
         else:
             # A fractional or mixed scale: resize on the host (cv2
             # INTER_LINEAR), and pad in resized space.
-            resized = [
-                tools.resize_image(image, max_scale=self.scale, max_size=self.max_size)
-                for image in images
-            ]
-            images = [image for image, _ in resized]
-            scales = [scale for _, scale in resized]
-            max_height = max(image.shape[0] for image in images)
-            max_width = max(image.shape[1] for image in images)
-            if self.pad_to is not None:
-                target_h, target_w = self.pad_to[0] * self.scale, self.pad_to[1] * self.scale
-                if target_h < max_height or target_w < max_width:
-                    raise ValueError(
-                        f"pad_to {self.pad_to} (x{self.scale}) smaller than "
-                        f"resized batch extent ({max_height}, {max_width})"
-                    )
-                max_height, max_width = target_h, target_w
+            images, scales, (max_height, max_width) = self._resize_on_host(images)
             upscale = None
-        max_height = -(-max_height // bucket) * bucket
-        max_width = -(-max_width // bucket) * bucket
-        batch = np.array(
-            [tools.pad(image, width=max_width, height=max_height) for image in images],
-            dtype="uint8",
-        )
+        batch = self._pad_batch(images, max_height, max_width)
+        max_height, max_width = batch.shape[1:3]
         host = torch.from_numpy(batch)
         if self.device.type == "cuda":
             host = host.pin_memory()
         device_batch = host.to(self.device, non_blocking=True)
         resize_to = None if upscale is None else (max_height * upscale, max_width * upscale)
         return device_batch, scales, len(batch), resize_to
+
+    def _resize_on_host(self, images):
+        """Resize each image on the host (:func:`..tools.resize_image`);
+        returns the images, their scales and the (height, width) to pad
+        to: the batch extent, or ``pad_to`` times ``scale``, which raises
+        when it is smaller."""
+        resized = [
+            tools.resize_image(image, max_scale=self.scale, max_size=self.max_size)
+            for image in images
+        ]
+        images = [image for image, _ in resized]
+        max_height = max(image.shape[0] for image in images)
+        max_width = max(image.shape[1] for image in images)
+        if self.pad_to is not None:
+            target_h, target_w = self.pad_to[0] * self.scale, self.pad_to[1] * self.scale
+            if target_h < max_height or target_w < max_width:
+                raise ValueError(
+                    f"pad_to {self.pad_to} (x{self.scale}) smaller than "
+                    f"resized batch extent ({max_height}, {max_width})"
+                )
+            max_height, max_width = target_h, target_w
+        return images, [scale for _, scale in resized], (max_height, max_width)
+
+    def _pad_batch(self, images, max_height, max_width):
+        """One (B, H, W, 3) uint8 array: each image padded with 255 at the
+        bottom and right to the extent rounded up to ``size_bucket``."""
+        bucket = self.size_bucket
+        max_height = -(-max_height // bucket) * bucket
+        max_width = -(-max_width // bucket) * bucket
+        return np.array(
+            [tools.pad(image, width=max_width, height=max_height) for image in images],
+            dtype="uint8",
+        )
 
     def _raise_sticky(self, component_cap=None, num_sweeps=None, bucket_start=None):
         """Publish learned caps monotonically (thread-safe)."""
@@ -435,14 +451,45 @@ class Pipeline:
         )
         return self._finalize(packed, scales)
 
-    def recognize(self, images, detection_kwargs: typing.Optional[dict] = None):
-        """Run the fused pipeline; returns a list of (word, box) lists."""
+    def recognize(
+        self,
+        images,
+        detection_kwargs: typing.Optional[dict] = None,
+        recognition_kwargs: typing.Optional[dict] = None,
+    ):
+        """Run the fused pipeline; returns a list of (word, box) lists.
+
+        Non-empty ``recognition_kwargs`` go to
+        :meth:`Recognizer.recognize_from_boxes` and take the two-stage path
+        (:meth:`_recognize_two_stage`), since the fused program has the
+        recognizer call built in.
+        """
         detection_kwargs = dict(detection_kwargs or {})
         stats = _new_run_stats()
         self.last_run_stats = stats
+        if recognition_kwargs:
+            return self._recognize_two_stage(images, detection_kwargs, dict(recognition_kwargs))
         results = self._finish(self._start(images, detection_kwargs), detection_kwargs, stats)
         self.last_run_stats = stats
         return results
+
+    def _recognize_two_stage(self, images, detection_kwargs, recognition_kwargs):
+        """Host resize (``tools.resize_image``, at any scale) and pad with
+        the fused path's shape policy, ``Detector.detect``, then
+        ``Recognizer.recognize_from_boxes(**recognition_kwargs)`` on the
+        padded batch; boxes are divided by each image's scale."""
+        if not isinstance(images, np.ndarray):
+            images = [tools.read(image) for image in images]
+        resized, scales, extent = self._resize_on_host(images)
+        batch = self._pad_batch(resized, *extent)
+        box_groups = self.detector.detect(images=batch, **detection_kwargs)
+        prediction_groups = self.recognizer.recognize_from_boxes(
+            images=batch, box_groups=box_groups, **recognition_kwargs
+        )
+        return [
+            list(zip(predictions, boxes / scale if scale != 1 else boxes))
+            for predictions, boxes, scale in zip(prediction_groups, box_groups, scales)
+        ]
 
     def recognize_many(
         self,

@@ -1,8 +1,11 @@
 """Text recognition: the CRNN model facade of the port.
 
-Counterpart of ``keras_ocr_tpu/recognition.py:Recognizer`` for the fused
-pipeline. ``Recognizer.recognize`` / ``recognize_from_boxes`` and the
-published-weight loaders are not ported yet.
+Counterpart of ``keras_ocr_tpu/recognition.py``: ``rgb_to_grayscale_host``
+and ``Recognizer`` with ``recognize`` (one pre-cropped image) and
+``recognize_from_boxes`` (word boxes of whole images, cropped on the host
+by :func:`..tools.warpBox`), the CRNN and the greedy CTC decode on the
+recognizer's device. The published-weight loaders, training and
+``get_batch_generator`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -10,24 +13,35 @@ from __future__ import annotations
 import string
 import typing
 
+import numpy as np
 import torch
 
+from . import tools
 from . import weights as weights_lib
 from .detection import default_device
 from .models import CRNN, init_parameters
 from .models.crnn import DEFAULT_BUILD_PARAMS
+from .ops import ctc as ctc_ops
 
 DEFAULT_ALPHABET = string.digits + string.ascii_lowercase
+
+
+def rgb_to_grayscale_host(image: np.ndarray) -> np.ndarray:
+    """uint8 RGB -> uint8 grey in OpenCV's fixed point:
+    ``(9798 R + 19235 G + 3735 B + 2**14) >> 15``."""
+    rgb = image.astype(np.int64)
+    gray = (9798 * rgb[..., 0] + 19235 * rgb[..., 1] + 3735 * rgb[..., 2] + (1 << 14)) >> 15
+    return gray.astype("uint8")
 
 
 class Recognizer:
     """CRNN text recognizer.
 
     Args:
+        alphabet: the character set (default digits + lowercase).
         weights: name of published pretrained weights; not loadable yet,
             so only ``None`` (seeded random weights, or a variable tree
             passed to :meth:`load_variables`) is accepted.
-        alphabet: the character set (default digits + lowercase).
         build_params: CRNN build parameters (default
             :data:`~keras_ocr_tpu_torch.models.crnn.DEFAULT_BUILD_PARAMS`).
         device: where the model runs (default: the first GPU; without
@@ -37,9 +51,10 @@ class Recognizer:
 
     def __init__(
         self,
-        weights: typing.Optional[str] = None,
         alphabet: typing.Optional[str] = None,
+        weights: typing.Optional[str] = None,
         build_params: typing.Optional[dict] = None,
+        *,
         device=None,
         seed: int = 0,
     ):
@@ -72,3 +87,65 @@ class Recognizer:
         """Load a JAX-package CRNN variable tree (numpy leaves)."""
         self.model.load_state_dict(weights_lib.crnn_state_dict(variables))
         return self
+
+    @torch.inference_mode()
+    def _predict_strings(self, crops: np.ndarray, batch_size=None) -> typing.List[str]:
+        """(N, H, W, C) float32 crops in [0, 1] -> decoded strings: one
+        upload, the CRNN and the CTC decode on the device in chunks of
+        ``batch_size`` crops (all at once by default), one fetch."""
+        x = torch.from_numpy(np.ascontiguousarray(crops, dtype=np.float32)).to(self.device)
+        chunk = batch_size if batch_size is not None and batch_size < len(x) else len(x)
+        decoded = torch.cat(
+            [ctc_ops.ctc_greedy_decode(self.model(part)) for part in torch.split(x, chunk)]
+        )
+        return ctc_ops.ctc_decode_to_strings(decoded.cpu().numpy(), self.alphabet)
+
+    def recognize(self, image) -> str:
+        """The text of one pre-cropped image (a path or an array),
+        letterboxed to the model's input size on a black canvas."""
+        height, width, channels = self.input_shape
+        image = tools.read_and_fit(filepath_or_array=image, width=width, height=height, cval=0)
+        if channels == 1 and image.shape[-1] == 3:
+            image = rgb_to_grayscale_host(image)[..., np.newaxis]
+        image = image.astype("float32") / 255
+        return self._predict_strings(image[np.newaxis])[0]
+
+    def recognize_from_boxes(self, images, box_groups, **kwargs) -> typing.List[typing.List[str]]:
+        """The text of each box of each image: one list of strings per
+        image, in box order.
+
+        The crops are cut on the host (:func:`..tools.warpBox`, from the
+        grey image when the model has one channel) and read together in
+        one device batch. ``batch_size`` chunks the device forward,
+        ``verbose`` is accepted and ignored; any other keyword raises
+        ``TypeError``.
+        """
+        batch_size = kwargs.pop("batch_size", None)
+        kwargs.pop("verbose", None)
+        if kwargs:
+            raise TypeError(f"Unsupported recognize_from_boxes kwargs: {sorted(kwargs)}")
+        if len(box_groups) != len(images):
+            raise ValueError("You must provide the same number of box groups as images.")
+        height, width, channels = self.input_shape
+        crops = []
+        start_end: typing.List[typing.Tuple[int, int]] = []
+        for image, boxes in zip(images, box_groups):
+            image = tools.read(image)
+            if channels == 1 and image.shape[-1] == 3:
+                image = rgb_to_grayscale_host(image)
+            for box in boxes:
+                crops.append(
+                    tools.warpBox(
+                        image=image, box=np.asarray(box, "float32"),
+                        target_height=height, target_width=width,
+                    )
+                )
+            start = start_end[-1][1] if start_end else 0
+            start_end.append((start, start + len(boxes)))
+        if not crops:
+            return [[]] * len(images)
+        X = np.array(crops, dtype="float32") / 255
+        if X.ndim == 3:
+            X = X[..., np.newaxis]
+        predictions = self._predict_strings(X, batch_size)
+        return [predictions[start:end] for start, end in start_end]

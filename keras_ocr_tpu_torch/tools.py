@@ -1,10 +1,12 @@
 """Host image and geometry utilities of the port.
 
 Counterparts of ``keras_ocr_tpu/tools.py`` (``read``, ``pad``,
-``resize_image``, ``polygon_area``, ``convex_hull``, ``min_area_rect``)
-with numpy and the standard library only. PNG files are decoded by a small
-reader: colour types 0, 2, 3, 4 and 6 at every bit depth the format allows,
-not interlaced, to RGB uint8 as PIL's ``convert("RGB")`` gives them.
+``resize_image``, ``fit``, ``read_and_fit``, ``polygon_area``,
+``convex_hull``, ``min_area_rect``, ``get_perspective_transform``,
+``warp_perspective``, ``get_rotated_box``, ``warpBox``) with numpy and the
+standard library only. PNG files are decoded by a small reader: colour
+types 0, 2, 3, 4 and 6 at every bit depth the format allows, not
+interlaced, to RGB uint8 as PIL's ``convert("RGB")`` gives them.
 """
 
 from __future__ import annotations
@@ -90,6 +92,70 @@ def min_area_rect(points) -> np.ndarray:
     return (corners @ np.array([[c, s], [-s, c]])).astype("float32")
 
 
+def get_perspective_transform(src, dst) -> np.ndarray:
+    """3x3 homography taking 4 ``src`` points onto 4 ``dst`` points
+    (``cv2.getPerspectiveTransform``), by one 8x8 solve."""
+    src = np.asarray(src, dtype="float64")
+    dst = np.asarray(dst, dtype="float64")
+    A = np.zeros((8, 8))
+    b = np.zeros(8)
+    for i in range(4):
+        x, y = src[i]
+        u, v = dst[i]
+        A[2 * i] = [x, y, 1, 0, 0, 0, -u * x, -u * y]
+        A[2 * i + 1] = [0, 0, 0, x, y, 1, -v * x, -v * y]
+        b[2 * i] = u
+        b[2 * i + 1] = v
+    return np.append(np.linalg.solve(A, b), 1.0).reshape(3, 3)
+
+
+def warp_perspective(image, M, dsize, cval=0.0):
+    """Apply the homography ``M`` (source -> destination) to ``image``;
+    ``dsize`` is the output (width, height).
+
+    Each destination pixel samples the source at ``M^-1 @ (x, y, 1)``
+    bilinearly in float64, as ``scipy.ndimage.map_coordinates(order=1,
+    mode="constant")`` does: a sample outside the closed range [0, n-1] of
+    either axis, by any amount, takes ``cval``, and the four taps are
+    summed in scipy's order, ``(value * wy) * wx``, so that the sums agree
+    bit for bit. Integer images are rounded half to even and clipped back
+    to their type.
+    """
+    width, height = dsize
+    Minv = np.linalg.inv(M)
+    xs, ys = np.meshgrid(np.arange(width, dtype="float64"), np.arange(height, dtype="float64"))
+    denom = Minv[2, 0] * xs + Minv[2, 1] * ys + Minv[2, 2]
+    src_x = (Minv[0, 0] * xs + Minv[0, 1] * ys + Minv[0, 2]) / denom
+    src_y = (Minv[1, 0] * xs + Minv[1, 1] * ys + Minv[1, 2]) / denom
+    image = np.asarray(image)
+    planes = image.astype("float64")
+    if image.ndim == 2:
+        planes = planes[..., None]
+    rows, cols = planes.shape[:2]
+    inside = (src_y >= 0) & (src_y <= rows - 1) & (src_x >= 0) & (src_x <= cols - 1)
+    y = np.where(inside, src_y, 0.0)
+    x = np.where(inside, src_x, 0.0)
+    y0 = np.floor(y).astype("int64")
+    x0 = np.floor(x).astype("int64")
+    # At the last row or column the far tap has weight 0: clamp its index.
+    y1 = np.minimum(y0 + 1, rows - 1)
+    x1 = np.minimum(x0 + 1, cols - 1)
+    wy1 = (y - y0)[..., None]
+    wx1 = (x - x0)[..., None]
+    wy0, wx0 = 1.0 - wy1, 1.0 - wx1
+    out = (planes[y0, x0] * wy0) * wx0
+    out = out + (planes[y0, x1] * wy0) * wx1
+    out = out + (planes[y1, x0] * wy1) * wx0
+    out = out + (planes[y1, x1] * wy1) * wx1
+    out = np.where(inside[..., None], out, cval)
+    if image.ndim == 2:
+        out = out[..., 0]
+    if np.issubdtype(image.dtype, np.integer):
+        info = np.iinfo(image.dtype)
+        out = np.clip(np.rint(out), info.min, info.max)
+    return out.astype(image.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Resize (cv2.resize INTER_LINEAR)
 # ---------------------------------------------------------------------------
@@ -133,6 +199,34 @@ def resize_image(image, max_scale, max_size):
         image, width=int(image.shape[1] * scale), height=int(image.shape[0] * scale)
     )
     return resized, scale
+
+
+def fit(image, width: int, height: int, cval: int = 255, mode="letterbox", return_scale=False):
+    """Fit an image to (height, width): ``letterbox`` scales by the tighter
+    axis and fills the rest with ``cval`` (the output is then 3-channel
+    uint8); ``crop`` scales by the looser axis and trims the overflow. The
+    other side's extent is truncated to an int; an image already of the
+    size passes as it is."""
+    src_h, src_w = image.shape[:2]
+    if (src_h, src_w) == (height, width):
+        return (image, 1) if return_scale else image
+    if mode not in ("letterbox", "crop"):
+        raise NotImplementedError(f"Unsupported mode: {mode}")
+    width_scale = width / src_w
+    height_scale = height / src_h
+    if (width_scale <= height_scale) if mode == "letterbox" else (width_scale >= height_scale):
+        scale = width_scale
+        resized = _resize(image, width=width, height=int(width_scale * src_h))
+    else:
+        scale = height_scale
+        resized = _resize(image, width=int(height_scale * src_w), height=height)
+    if mode == "crop":
+        fitted = resized[:height, :width]
+    else:
+        fitted = np.full((height, width, 3), cval, dtype="uint8")
+        visible = resized[:height, :width]
+        fitted[: visible.shape[0], : visible.shape[1]] = visible
+    return (fitted, scale) if return_scale else fitted
 
 
 # ---------------------------------------------------------------------------
@@ -280,3 +374,98 @@ def pad(image, width: int, height: int, cval: int = 255):
     canvas = np.full((height, width) + image.shape[2:], cval, dtype=image.dtype)
     canvas[:src_h, :src_w] = image
     return canvas
+
+
+def read_and_fit(
+    filepath_or_array: typing.Union[str, np.ndarray],
+    width: int,
+    height: int,
+    cval: int = 255,
+    mode="letterbox",
+):
+    """:func:`read` a path (an array passes as it is), then :func:`fit`."""
+    image = read(filepath_or_array) if isinstance(filepath_or_array, str) else filepath_or_array
+    return fit(image=image, width=width, height=height, cval=cval, mode=mode)
+
+
+# ---------------------------------------------------------------------------
+# Rotated boxes and their crops (the host warpBox)
+# ---------------------------------------------------------------------------
+
+
+def get_rotated_width_height(box):
+    """(width, height) of a tl-tr-br-bl box: the means of its opposite
+    sides' lengths, each truncated to an int."""
+    box = np.asarray(box, dtype="float64")
+    w = (np.linalg.norm(box[0] - box[1]) + np.linalg.norm(box[2] - box[3])) / 2
+    h = (np.linalg.norm(box[0] - box[3]) + np.linalg.norm(box[1] - box[2])) / 2
+    return int(w), int(h)
+
+
+def get_rotated_box(points) -> typing.Tuple[np.ndarray, float]:
+    """The min-area rectangle of ``points`` (the points as they are when
+    fewer than 3 are distinct) as float32 tl-tr-br-bl corners, and its
+    rotation ``arctan((tl_x - bl_x) / (tl_y - bl_y))``, 0 where that is
+    NaN."""
+    points = np.asarray(points, dtype="float64")
+    pts = min_area_rect(points) if len(np.unique(points, axis=0)) >= 3 else points
+    x_sorted = pts[np.argsort(pts[:, 0]), :]
+    left_most = x_sorted[:2, :]
+    right_most = x_sorted[2:, :]
+    tl, bl = left_most[np.argsort(left_most[:, 1]), :]
+    distances = np.linalg.norm(right_most - tl, axis=1)
+    br, tr = right_most[np.argsort(distances)[::-1], :]
+    pts = np.array([tl, tr, br, bl], dtype="float32")
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rotation = np.arctan((tl[0] - bl[0]) / (tl[1] - bl[1]))
+    if np.isnan(rotation):
+        rotation = 0.0
+    return pts, float(rotation)
+
+
+def warpBox(
+    image,
+    box,
+    target_height=None,
+    target_width=None,
+    margin=0,
+    cval=None,
+    return_transform=False,
+    skip_rotate=False,
+):
+    """Perspective-crop the quadrilateral ``box`` of ``image`` into an
+    axis-aligned rectangle, scaled to fit (target_height, target_width)
+    with the aspect kept, top-left aligned on a ``cval`` canvas (uint8).
+    Without targets the crop keeps the box's own size."""
+    if cval is None:
+        cval = (0, 0, 0) if len(image.shape) == 3 else 0
+    box = np.asarray(box, dtype="float32")
+    if not skip_rotate:
+        box, _ = get_rotated_box(box)
+    w, h = get_rotated_width_height(box)
+    if (target_width is None) != (target_height is None):
+        raise ValueError("Either both or neither of target width and height must be provided.")
+    if target_width is None:
+        target_width, target_height = w, h
+    scale = min(target_width / w, target_height / h)
+    M = get_perspective_transform(
+        src=box,
+        dst=np.array(
+            [
+                [margin, margin],
+                [scale * w - margin, margin],
+                [scale * w - margin, scale * h - margin],
+                [margin, scale * h - margin],
+            ],
+            dtype="float32",
+        ),
+    )
+    crop = warp_perspective(image, M, dsize=(int(scale * w), int(scale * h)))
+    target_shape = (
+        (target_height, target_width, 3) if len(image.shape) == 3 else (target_height, target_width)
+    )
+    full = (np.zeros(target_shape) + cval).astype("uint8")
+    full[: crop.shape[0], : crop.shape[1]] = crop
+    if return_transform:
+        return full, M
+    return full
