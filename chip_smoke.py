@@ -70,17 +70,38 @@ Phases, each printing one line; any failure exits non-zero:
    two-stage ``recognize`` p50 beside the fused one, and its stage split
    (host resize, ``detect``, host crops, CRNN + CTC).
 
+10. serving: ``tests/fixtures/test_image.jpg`` read by path with the port's
+   JPEG decoder (its sha256 must be that of PIL's decode, which
+   ``tests/test_torch_tools.py`` asserts too; median decode ms beside the
+   host's CPU model), and the full-width ``recognize`` of that path; the
+   golden pipeline, standard and folded, exported on the card at its
+   ``pad_to`` envelope (batch 4), loaded with ``load_exported`` and served
+   the 12 scenes through ``ExportedPipeline.recognize``: the word fraction
+   must reach ``pass_fraction``, every packed output must equal the live
+   device program's at the baked levels, and the kernels must launch inside
+   the artifact's run (counted from zero); then the full-width pipeline
+   exported at 640x480, batch 1 and 8, with its export, save and load
+   seconds, ``.pt2`` size and graph nodes, and the artifact's ``recognize``
+   p50 timed in turns with the live one's.
+
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
-path) and each run of 9 count their kernel launches from zero. The
-second-to-last line is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``. There is no CPU path.
+path), each run of 9 and each golden artifact's run in 10 count their
+kernel launches from zero; the kernel ops are
+``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
+whose CUDA kernels count. The second-to-last line is the kernel table as
+JSON; the last line is ``{"ok": true, "device": {...}}``. There is no CPU
+path.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import gc
 import math
 import os
+import platform
+import shutil
 import statistics
 import subprocess
 import sys
@@ -125,6 +146,13 @@ HBM_TBS = 3.35
 REFINE_SHAPE = (8, 480, 640)
 REFINE_BAR = 1e-3
 ORACLE_BAR = 3.0
+# The serving phase's JPEG and the sha256 of PIL's RGB decode of it.
+SERVING_JPEG = os.path.join(ROOT, "tests", "fixtures", "test_image.jpg")
+SERVING_JPEG_SHA256 = "f5cb48dc1b0a224b4e16c418b92a2e0b851364882e21645efdd244d0fc3207c4"
+SERVING_DIR = os.path.join(ROOT, "build", "serving")
+# Each kernel's op in torch.ops.keras_ocr_tpu_torch.
+OPS = {"cc_sweeps": "cc_sweeps", "cc_keyed_rows_cols": "cc_keyed_rows_cols",
+       "conv_chain": "conv_layer", "conv3x3_bias_act": "conv_layer"}
 
 
 def card_line() -> str:
@@ -974,6 +1002,179 @@ def two_stage_phase(card, golden_images, expected, pipelines, wrappers, pass_fra
           f"{statistics.median(len(b) for b in boxes)} words a scene: {split} ms")
 
 
+def host_cpu() -> str:
+    """The host's CPU model: ``/proc/cpuinfo``, else ``lscpu``, else the
+    machine type."""
+    with open("/proc/cpuinfo", encoding="utf8") as f:
+        for line in f:
+            if line.lower().startswith("model name"):
+                return line.split(":", 1)[1].strip()
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+    except OSError:
+        out = ""
+    for line in out.splitlines():
+        if line.startswith("Model name:"):
+            return line.split(":", 1)[1].strip()
+    return f"CPU model not reported ({platform.machine()}, {os.cpu_count()} cores)"
+
+
+def timed_export(pipeline, path, **kwargs):
+    """``pipeline.export(path, **kwargs)``, then ``load_exported``; returns
+    the served artifact and (export s, save s, load s), the save timed
+    inside the export."""
+    from keras_ocr_tpu_torch import load_exported
+
+    save, seconds = torch.export.save, {}
+
+    def timed_save(*args, **save_kwargs):
+        start = time.perf_counter()
+        save(*args, **save_kwargs)
+        seconds["save"] = time.perf_counter() - start
+
+    torch.export.save = timed_save
+    try:
+        start = time.perf_counter()
+        pipeline.export(path, **kwargs)
+        total = time.perf_counter() - start
+    finally:
+        torch.export.save = save
+    start = time.perf_counter()
+    served = load_exported(path)
+    load_s = time.perf_counter() - start
+    return served, (total - seconds["save"], seconds["save"], load_s)
+
+
+def export_summary(served, path, seconds):
+    export_s, save_s, load_s = seconds
+    return (f"export {export_s:.2f} s, save {save_s:.2f} s, load {load_s:.2f} s, "
+            f"{os.path.getsize(path + '.pt2') / 1e6:.2f} MB, "
+            f"{len(served._program.graph.nodes)} graph nodes")
+
+
+def serve_golden(label, pipeline, images, expected, wrappers, pass_fraction):
+    """The golden pipeline exported on the card (batch 4), loaded and
+    served the scenes, the launch counts from zero over the artifact's
+    run; every packed output must equal the live device program's at the
+    baked levels and the word fraction reach ``pass_fraction``. Returns the
+    launches and a summary."""
+    from keras_ocr_tpu_torch.utils import golden
+
+    meta = golden._read_json(ARTIFACT, golden.META_NAME)
+    height, width = meta["pad_to"]
+    path = os.path.join(SERVING_DIR, label.replace(", ", "_"))
+    served, seconds = timed_export(pipeline, path, height=height, width=width, batch_size=4)
+    program, runs = served._program, []
+
+    def recorded(batch):
+        runs.append((batch, program(batch)))
+        return runs[-1][1]
+
+    served._program = recorded
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    try:
+        results = [words for i in range(0, len(images), 4)
+                   for words in served.recognize(images[i : i + 4])]
+    finally:
+        served._program = program
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    check_results(results, len(images))
+    baked = served.meta
+    for batch, packed in runs:
+        live = pipeline._device_pipeline(
+            batch, 0.7, 0.4, 0.4, 10.0, pipeline.detector.max_components, baked["max_words"],
+            resize_to=(height * baked["scale"], width * baked["scale"]),
+            refine_level=baked["refine_level"], warp_level=baked["warp_level"],
+        )
+        if not torch.equal(live, packed):
+            raise AssertionError(f"{label} artifact: packed output differs from the live "
+                                 f"program's by {float((live - packed).abs().max())}")
+    hits = sum(golden._word_match_fraction(words, [w for w, _ in found]) * len(words)
+               for words, found in zip(expected, results))
+    n_words = sum(len(words) for words in expected)
+    fraction = hits / n_words
+    if fraction < pass_fraction:
+        raise AssertionError(f"{label} artifact: fraction {fraction} (pass >= {pass_fraction})")
+    return launches, (f"{label} artifact (batch 4, {height}x{width}, refine level "
+                      f"{baked['refine_level']}, warp level {baked['warp_level']}): "
+                      f"{export_summary(served, path, seconds)}; fraction {fraction:.4f} over "
+                      f"{n_words} words, {len(runs)} packed outputs equal to the live program's, "
+                      f"launches in the artifact's run {launches}")
+
+
+def serving_phase(card, golden_images, expected, pipelines, wrappers, pass_fraction,
+                  full_pipeline, scenes):
+    """Phase 10: the JPEG read, the golden artifacts on both graphs and
+    the full-width artifacts at batch 1 and 8 against the live pipeline.
+    Returns the launches of the folded golden artifact's run."""
+    from keras_ocr_tpu_torch import tools
+
+    decode_ms = []
+    for _ in range(5):
+        start = time.perf_counter()
+        photo = tools.read(SERVING_JPEG)
+        decode_ms.append((time.perf_counter() - start) * 1e3)
+    digest = hashlib.sha256(photo.tobytes()).hexdigest()
+    if photo.shape != (480, 640, 3) or digest != SERVING_JPEG_SHA256:
+        raise AssertionError(f"JPEG decode {photo.shape} sha256 {digest}, PIL's is "
+                             f"{SERVING_JPEG_SHA256}")
+    full_pipeline.recognize([SERVING_JPEG])
+    start = time.perf_counter()
+    photo_results = full_pipeline.recognize([SERVING_JPEG])
+    photo_ms = (time.perf_counter() - start) * 1e3
+    check_results(photo_results, 1)
+    print(f"serving ({card}): {os.path.relpath(SERVING_JPEG, ROOT)} decoded by path in "
+          f"{statistics.median(decode_ms):.2f} ms (median of 5; host CPU {host_cpu()}), "
+          f"640x480x3, sha256 equal to PIL's decode; full-width recognize of the path "
+          f"{photo_ms:.2f} ms, {len(photo_results[0])} words")
+
+    shutil.rmtree(SERVING_DIR, ignore_errors=True)
+    os.makedirs(SERVING_DIR)
+    try:
+        lines, golden_launches = [], {}
+        for label, pipeline in pipelines:
+            launches, line = serve_golden(label, pipeline, golden_images, expected, wrappers,
+                                          pass_fraction)
+            needed = ("cc_sweeps", "cc_keyed_rows_cols") + (
+                ("conv_chain", "conv3x3_bias_act") if "folded" in label else ())
+            if min(launches[name] for name in needed) <= 0:
+                raise AssertionError(f"the {label} artifact skipped a kernel: {launches}")
+            golden_launches = launches
+            lines.append(line)
+        print(f"serving ({card}): " + "; ".join(lines))
+
+        for batch_size, reps in ((1, 10), (8, 5)):
+            alone_ms = []
+            for rep in range(reps):
+                start = time.perf_counter()
+                check_results(full_pipeline.recognize((scenes * 2)[rep : rep + batch_size]),
+                              batch_size)
+                alone_ms.append((time.perf_counter() - start) * 1e3)
+            path = os.path.join(SERVING_DIR, f"full_b{batch_size}")
+            served, seconds = timed_export(full_pipeline, path, height=480, width=640,
+                                           batch_size=batch_size)
+            gc.collect()  # the export's traced graphs, before anything is timed
+            art_ms, live_ms = [], []
+            for rep in range(reps + 1):
+                images = (scenes * 2)[rep : rep + batch_size]
+                for times, call in ((art_ms, served.recognize), (live_ms, full_pipeline.recognize)):
+                    start = time.perf_counter()
+                    results = call(images)
+                    if rep:  # the first round warms both up
+                        times.append((time.perf_counter() - start) * 1e3)
+                    check_results(results, batch_size)
+            print(f"serving, full width ({card}), 640x480 batch {batch_size}: "
+                  f"{export_summary(served, path, seconds)}; recognize p50 (in turns, "
+                  f"{reps} each) artifact {statistics.median(art_ms):.2f} ms, live "
+                  f"{statistics.median(live_ms):.2f} ms (live before the export "
+                  f"{statistics.median(alone_ms):.2f} ms); artifact refine level "
+                  f"{served.meta['refine_level']}, warp level {served.meta['warp_level']}")
+    finally:
+        shutil.rmtree(SERVING_DIR, ignore_errors=True)
+    return golden_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path", file=sys.stderr)
@@ -1108,6 +1309,10 @@ def main() -> int:
                     (("golden", golden_pipeline), ("golden, folded", golden_folded)),
                     all_wrappers, pass_fraction, pipeline, p50)
 
+    serving_phase(card, golden_images, expected,
+                  (("golden", golden_pipeline), ("golden, folded", golden_folded)),
+                  all_wrappers, pass_fraction, pipeline, scenes)
+
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",
         # An XLA loop in the JAX package, not a Pallas kernel.
@@ -1123,6 +1328,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {
             "name": name,
+            "op": f"keras_ocr_tpu_torch::{OPS[name]}",
             "route": "cuda",
             "source": f"keras_ocr_tpu_torch/csrc/{sources[name]}",
             "replaces": replaces[name],

@@ -6,10 +6,10 @@ package stays the reference the port is tested against.
 
 from . import detection, evaluation, pipeline, recognition, tools
 from .detection import Detector
-from .pipeline import Pipeline
+from .pipeline import ExportedPipeline, Pipeline, load_exported
 from .recognition import Recognizer
 
 __all__ = [
-    "Detector", "Pipeline", "Recognizer", "detection", "evaluation", "pipeline", "recognition",
-    "tools",
+    "Detector", "ExportedPipeline", "Pipeline", "Recognizer", "detection", "evaluation",
+    "load_exported", "pipeline", "recognition", "tools",
 ]

@@ -6,6 +6,13 @@ Each ``csrc/*.cu`` file exposes a plain C interface. It is compiled with
 kernel rebuilds, and loaded with :mod:`ctypes`. The build happens at the
 first launch, never at import, so the CPU-only test environment imports
 every module without a compiler.
+
+The kernels reach PyTorch as operators of one namespace,
+``torch.ops.keras_ocr_tpu_torch`` (:data:`LIBRARY`): each op module defines
+its ops there with a CPU kernel (the plain PyTorch version), a CUDA kernel
+(the launch, which raises on failure) and a fake kernel (output shapes only),
+so that ``torch.export`` records a launch as one opaque node and a loaded
+program dispatches it by device.
 """
 
 from __future__ import annotations
@@ -17,6 +24,11 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+import torch
+
+NAMESPACE = "keras_ocr_tpu_torch"
+LIBRARY = torch.library.Library(NAMESPACE, "DEF")
 
 _PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE_DIR = os.path.join(_PACKAGE_DIR, "csrc")

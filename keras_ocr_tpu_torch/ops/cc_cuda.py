@@ -3,13 +3,15 @@
 Counterpart of ``keras_ocr_tpu/ops/cc_pallas.py``. On the card,
 :func:`segmented_min_sweeps` launches the hand-written CUDA kernel
 ``csrc/cc_sweeps.cu`` (one launch per row or column pass, batched over
-images). For tensors on the CPU it runs :func:`segmented_min_sweeps_plain`,
+images), as the op ``torch.ops.keras_ocr_tpu_torch.cc_sweeps``. For tensors
+on the CPU the op runs :func:`segmented_min_sweeps_plain`,
 the shift-doubling form of ``keras_ocr_tpu/ops/cc.py:segmented_min_sweeps``
 written in PyTorch, which computes the same values.
 
 :func:`keyed_rows_cols` is the same kernel in its keyed mode: the row then
 column passes of ``keras_ocr_tpu/ops/cc.py:label_blobs_keyed``'s sweep,
-with :func:`keyed_rows_cols_plain` (``_keyed_run_min`` twice) for the CPU.
+with :func:`keyed_rows_cols_plain` (``_keyed_run_min`` twice) for the CPU,
+as the op ``cc_keyed_rows_cols``.
 """
 
 from __future__ import annotations
@@ -86,8 +88,11 @@ def _library():
 
 
 def _check(values, *planes):
-    """Validate (..., H, W) int32 CUDA ``values`` and same-shape planes;
-    returns the library and (batch, H, W)."""
+    """Validate (..., H, W) int32 CUDA ``values`` and same-shape bool or
+    integer planes (other devices raise); shapes and dtypes only, so that it
+    traces."""
+    if values.device.type != "cuda":
+        raise ValueError(f"no sweep kernel for device {values.device}")
     if values.dtype != torch.int32:
         raise TypeError(f"values must be int32, got {values.dtype}")
     for plane in planes:
@@ -96,8 +101,15 @@ def _check(values, *planes):
                 f"plane {tuple(plane.shape)} on {plane.device} does not "
                 f"match values {tuple(values.shape)} on {values.device}"
             )
+        if plane.dtype.is_floating_point or plane.dtype.is_complex:
+            raise TypeError(f"a barrier, key or mask must be bool or integer, got {plane.dtype}")
     if values.dim() < 2:
         raise ValueError(f"values must be (..., H, W), got {tuple(values.shape)}")
+
+
+def _maps(values):
+    """The library and the (batch, H, W) of ``values``, within the kernel's
+    line and batch limits."""
     height, width = values.shape[-2:]
     batch = values.numel() // (height * width) if height * width else 0
     lib = _library()
@@ -115,8 +127,6 @@ def _check(values, *planes):
 def _byte_plane(mask, shape):
     """A bool or integer plane as the kernel's one byte a cell, nonzero =
     set: bool and uint8 pass as they are, other integers are converted once."""
-    if mask.dtype.is_floating_point or mask.dtype.is_complex:
-        raise TypeError(f"a barrier or mask must be bool or integer, got {mask.dtype}")
     if mask.dtype not in (torch.bool, torch.uint8):
         mask = mask != 0
     return mask.reshape(shape).contiguous()
@@ -126,13 +136,34 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch(values, barrier, sentinel, num_sweeps, check_convergence):
-    lib, shape = _check(values, barrier)
+kernels.LIBRARY.define(
+    "cc_sweeps(Tensor values, Tensor barrier, int sentinel, int num_sweeps, "
+    "bool check_convergence) -> (Tensor, Tensor)"
+)
+
+
+def _sweeps_cpu(values, barrier, sentinel, num_sweeps, check_convergence):
+    if check_convergence:
+        return segmented_min_sweeps_plain(values, barrier, sentinel, num_sweeps, True)
+    out = segmented_min_sweeps_plain(values, barrier, sentinel, num_sweeps)
+    # Zero sweeps return the input itself; an op's output owns its storage.
+    out = out.clone() if out is values else out
+    return out, torch.zeros(values.shape[:-2], dtype=torch.bool)
+
+
+def _sweeps_cuda(values, barrier, sentinel, num_sweeps, check_convergence):
+    lib, shape = _maps(values)
     source = values.reshape(shape).contiguous()
     barrier = _byte_plane(barrier, shape)
     out = torch.empty_like(source)
-    # flags[s, b]: sweep s changed image b (see csrc/cc_sweeps.cu).
-    flags = torch.zeros((num_sweeps + 1, shape[0]), dtype=torch.int32, device=values.device)
+    # One zeroed allocation: a byte an image, the all-False ``converged`` of
+    # a call without the check (at offset 0, as an output must start), then
+    # 4-byte aligned flags[s, b], sweep s changed image b (see
+    # csrc/cc_sweeps.cu).
+    head = -(-shape[0] // 4) * 4
+    buffer = torch.zeros(head + 4 * (num_sweeps + 1) * shape[0], dtype=torch.uint8,
+                         device=values.device)
+    flags = buffer[head:].view(torch.int32).view(num_sweeps + 1, shape[0])
     if shape[0]:
         with torch.cuda.device(values.device):
             rc = lib.cc_sweeps(
@@ -143,10 +174,20 @@ def _launch(values, barrier, sentinel, num_sweeps, check_convergence):
         if rc != 0:
             raise RuntimeError(f"cc_sweeps launch failed with CUDA error {rc}")
         segmented_min_sweeps.launches += 1
-    out = out.reshape(values.shape)
-    if check_convergence:
-        return out, (flags[num_sweeps] == 0).reshape(values.shape[:-2])
-    return out
+    converged = flags[num_sweeps] == 0 if check_convergence else buffer[: shape[0]].view(torch.bool)
+    return out.reshape(values.shape), converged.reshape(values.shape[:-2])
+
+
+def _sweeps_fake(values, barrier, sentinel, num_sweeps, check_convergence):
+    return (
+        values.new_empty(values.shape),
+        values.new_empty(values.shape[:-2], dtype=torch.bool),
+    )
+
+
+kernels.LIBRARY.impl("cc_sweeps", _sweeps_cpu, "CPU")
+kernels.LIBRARY.impl("cc_sweeps", _sweeps_cuda, "CUDA")
+torch.library.register_fake(f"{kernels.NAMESPACE}::cc_sweeps", _sweeps_fake, lib=kernels.LIBRARY)
 
 
 def segmented_min_sweeps(values, barrier, sentinel, num_sweeps, check_convergence=False):
@@ -168,18 +209,19 @@ def segmented_min_sweeps(values, barrier, sentinel, num_sweeps, check_convergenc
         (..., H, W) int32; with ``check_convergence`` a tuple of (values
         after the extra sweep, (...) bool ``converged``).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``segmented_min_sweeps.launches``) or raise. On the
-    card an image stops at its fixpoint: the sweeps after one that left it
-    unchanged skip it, which changes neither the map nor the flags.
+    One call of the op ``torch.ops.keras_ocr_tpu_torch.cc_sweeps``: CPU
+    tensors take the plain version; CUDA tensors launch the kernel (its CUDA
+    kernel counts the launch in ``segmented_min_sweeps.launches``, also when
+    an exported program makes the call) or raise. On the card an image stops
+    at its fixpoint: the sweeps after one that left it unchanged skip it,
+    which changes neither the map nor the flags.
     """
-    if values.device.type == "cpu":
-        return segmented_min_sweeps_plain(
-            values, barrier, sentinel, num_sweeps, check_convergence
-        )
-    if values.device.type != "cuda":
-        raise ValueError(f"no sweep kernel for device {values.device}")
-    return _launch(values, barrier, sentinel, num_sweeps, check_convergence)
+    if values.device.type != "cpu":
+        _check(values, barrier)
+    out, converged = torch.ops.keras_ocr_tpu_torch.cc_sweeps(
+        values, barrier, int(sentinel), int(num_sweeps), bool(check_convergence)
+    )
+    return (out, converged) if check_convergence else out
 
 
 segmented_min_sweeps.launches = 0
@@ -215,20 +257,13 @@ def keyed_rows_cols_plain(values, key, fg, sentinel):
     return _keyed_run_min(values, key, fg, sentinel, -2)
 
 
-def keyed_rows_cols(values, key, fg, sentinel):
-    """Keyed run minimum of (..., H, W) int32 ``values`` along the rows,
-    then along the columns: a run is a maximal stretch of ``fg`` cells
-    (bool or integer, nonzero = foreground) with equal int32 ``key``;
-    cells outside ``fg`` get ``sentinel``.
+kernels.LIBRARY.define(
+    "cc_keyed_rows_cols(Tensor values, Tensor key, Tensor fg, int sentinel) -> Tensor"
+)
 
-    CPU tensors take :func:`keyed_rows_cols_plain`; CUDA tensors launch the
-    kernel's keyed mode (counted in ``keyed_rows_cols.launches``) or raise.
-    """
-    if values.device.type == "cpu":
-        return keyed_rows_cols_plain(values, key, fg, sentinel)
-    if values.device.type != "cuda":
-        raise ValueError(f"no keyed kernel for device {values.device}")
-    lib, shape = _check(values, key, fg)
+
+def _keyed_cuda(values, key, fg, sentinel):
+    lib, shape = _maps(values)
     source = values.reshape(shape).contiguous()
     key = key.to(torch.int32).reshape(shape).contiguous()
     fg = _byte_plane(fg, shape)
@@ -243,6 +278,31 @@ def keyed_rows_cols(values, key, fg, sentinel):
             raise RuntimeError(f"cc_keyed_rows_cols launch failed with CUDA error {rc}")
         keyed_rows_cols.launches += 1
     return out.reshape(values.shape)
+
+
+kernels.LIBRARY.impl("cc_keyed_rows_cols", keyed_rows_cols_plain, "CPU")
+kernels.LIBRARY.impl("cc_keyed_rows_cols", _keyed_cuda, "CUDA")
+torch.library.register_fake(
+    f"{kernels.NAMESPACE}::cc_keyed_rows_cols",
+    lambda values, key, fg, sentinel: values.new_empty(values.shape),
+    lib=kernels.LIBRARY,
+)
+
+
+def keyed_rows_cols(values, key, fg, sentinel):
+    """Keyed run minimum of (..., H, W) int32 ``values`` along the rows,
+    then along the columns: a run is a maximal stretch of ``fg`` cells
+    (bool or integer, nonzero = foreground) with equal int32 ``key``;
+    cells outside ``fg`` get ``sentinel``.
+
+    One call of the op ``torch.ops.keras_ocr_tpu_torch.cc_keyed_rows_cols``:
+    CPU tensors take :func:`keyed_rows_cols_plain`; CUDA tensors launch the
+    kernel's keyed mode (counted in ``keyed_rows_cols.launches`` by the
+    op's CUDA kernel) or raise.
+    """
+    if values.device.type != "cpu":
+        _check(values, key, fg)
+    return torch.ops.keras_ocr_tpu_torch.cc_keyed_rows_cols(values, key, fg, int(sentinel))
 
 
 keyed_rows_cols.launches = 0

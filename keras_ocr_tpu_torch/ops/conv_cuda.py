@@ -5,18 +5,20 @@ signatures (images ``(H, W, Cin)`` or batches ``(B, H, W, Cin)``, kernels
 HWIO, convs as ``(w, b, relu)`` with BatchNorm already folded in). On the
 card both wrappers launch the hand-written tensor-core implicit GEMM of
 ``csrc/conv_chain.cu`` (3xTF32 ``wgmma`` fed by TMA: fp32 in, out and
-sums), one launch per layer; for tensors on the CPU they run
-:func:`conv3x3_bias_act_plain` and :func:`conv_chain_plain`, built from
-``F.conv2d``, ``F.relu`` and ``F.max_pool2d``. Inference only: the kernels
-have no backward.
+sums), one launch per layer, as the op
+``torch.ops.keras_ocr_tpu_torch.conv_layer``; for tensors on the CPU the op
+runs the plain layer of :func:`conv3x3_bias_act_plain` and
+:func:`conv_chain_plain`, built from ``F.conv2d``, ``F.relu`` and
+``F.max_pool2d``. Inference only: the kernels have no backward.
 
 The operands the kernel takes are made here, in plain PyTorch:
 :func:`pad_channels` (TMA needs 16-byte strides, so Cin a multiple of 4),
 :func:`kmajor_weights` (the tf32 ``wgmma`` reads both operands K-major) and
 :func:`tf32_split` (the hi and lo parts of the 3xTF32 product).
 
-Launch counts: ``conv3x3_bias_act.launches`` counts every launch of a 3x3
-layer that is not a pooled last layer (from either wrapper);
+Launch counts, kept by the op's CUDA kernel (so that an exported program's
+launches count too): ``conv3x3_bias_act.launches`` counts every launch of a
+3x3 layer that is not a pooled last layer (from either wrapper);
 ``conv_chain.launches`` counts each call of :func:`conv_chain` that
 launched, its 1x1 layers and pooled last layers included.
 """
@@ -135,7 +137,8 @@ def _aligned(t):
 
 
 def _check(x, convs):
-    """Validate a (B, H, W, Cin) CUDA input and its HWIO convs."""
+    """Validate a (B, H, W, Cin) CUDA input and its HWIO convs; shapes,
+    dtypes and devices only, so that it traces."""
     if x.device.type != "cuda":
         raise ValueError(f"no conv kernel for device {x.device}")
     if not convs:
@@ -155,26 +158,41 @@ def _check(x, convs):
         cin = w.shape[3]
 
 
-def _layer(x, w, b, relu, pool=False, tap=False):
-    """Launch one layer on (B, H, W, Cin) CUDA ``x``; returns (out, tap or
-    None, whether a kernel was launched)."""
+kernels.LIBRARY.define(
+    "conv_layer(Tensor x, Tensor weight, Tensor bias, bool relu, bool pool, bool tap, "
+    "bool chain_start) -> (Tensor, Tensor)"
+)
+
+
+def _layer_cpu(x, weight, bias, relu, pool, tap, chain_start):
+    """The plain layer: :func:`conv_chain_plain` of one conv."""
+    y = _plain_layer(_to_nchw(x), weight, bias, relu)
+    out = _to_nhwc(F.max_pool2d(y, 2, 2) if pool else y)
+    return out, _to_nhwc(y) if tap else x.new_empty(0)
+
+
+def _layer_cuda(x, weight, bias, relu, pool, tap, chain_start):
+    """One launch of the kernel on (B, H, W, Cin) ``x`` with an HWIO
+    ``weight``: a 3x3 layer that is not pooled counts in
+    ``conv3x3_bias_act.launches``, the first layer of a chain in
+    ``conv_chain.launches``."""
     batch, height, width, cin = x.shape
-    k, cout = w.shape[0], w.shape[3]
+    k, cout = weight.shape[0], weight.shape[3]
     cin_pad = -(-cin // 4) * 4
     x = _aligned(pad_channels(x, cin_pad))
-    wsplit = _aligned(split_weights(w, cin_pad))
-    b = _aligned(b)
+    wsplit = _aligned(split_weights(weight, cin_pad))
+    bias = _aligned(bias)
     out_hw = (height // 2, width // 2) if pool else (height, width)
     out = torch.empty((batch, *out_hw, cout), dtype=torch.float32, device=x.device)
     tap_out = (
         torch.empty((batch, height, width, cout), dtype=torch.float32, device=x.device)
-        if tap else None
+        if tap else x.new_empty(0)
     )
     if (tap_out if tap else out).numel() == 0:
-        return out, tap_out, False
+        return out, tap_out
     with torch.cuda.device(x.device):
         rc = _library().conv_layer(
-            x.data_ptr(), wsplit.data_ptr(), b.data_ptr(), out.data_ptr(),
+            x.data_ptr(), wsplit.data_ptr(), bias.data_ptr(), out.data_ptr(),
             tap_out.data_ptr() if tap else None, batch, height, width, cin_pad, cout,
             k, int(bool(relu)), int(pool), torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -183,7 +201,38 @@ def _layer(x, w, b, relu, pool=False, tap=False):
                            f"{rc - _ENCODE_ERROR}")
     if rc != 0:
         raise RuntimeError(f"conv_layer launch failed with CUDA error {rc}")
-    return out, tap_out, True
+    conv3x3_bias_act.launches += k == 3 and not pool
+    conv_chain.launches += bool(chain_start)
+    return out, tap_out
+
+
+def _layer_fake(x, weight, bias, relu, pool, tap, chain_start):
+    batch, height, width, _ = x.shape
+    cout = weight.shape[3]
+    out_hw = (height // 2, width // 2) if pool else (height, width)
+    tap_out = x.new_empty((batch, height, width, cout)) if tap else x.new_empty(0)
+    return x.new_empty((batch, *out_hw, cout)), tap_out
+
+
+kernels.LIBRARY.impl("conv_layer", _layer_cpu, "CPU")
+kernels.LIBRARY.impl("conv_layer", _layer_cuda, "CUDA")
+torch.library.register_fake(f"{kernels.NAMESPACE}::conv_layer", _layer_fake, lib=kernels.LIBRARY)
+
+
+def _layer(x, w, b, relu, pool=False, tap=False, chain_start=False):
+    """One call of the op ``torch.ops.keras_ocr_tpu_torch.conv_layer`` on
+    (B, H, W, Cin) ``x``; returns (out, tap, whose size is 0 without
+    ``tap``)."""
+    return torch.ops.keras_ocr_tpu_torch.conv_layer(
+        x, w, b, bool(relu), bool(pool), bool(tap), bool(chain_start)
+    )
+
+
+def _validate(x4, convs):
+    """CUDA inputs are checked before dispatch; the CPU takes the plain
+    version as it is; other devices raise."""
+    if x4.device.type != "cpu":
+        _check(x4, convs)
 
 
 def conv3x3_bias_act(x, w, b, relu=True):
@@ -198,18 +247,16 @@ def conv3x3_bias_act(x, w, b, relu=True):
         b: (Cout,) bias.
 
     Returns:
-        (H, W, Cout) or (B, H, W, Cout). CPU tensors take
-        :func:`conv3x3_bias_act_plain`; CUDA tensors launch the kernel
-        (counted in ``conv3x3_bias_act.launches``) or raise.
+        (H, W, Cout) or (B, H, W, Cout): one ``conv_layer`` op. CPU tensors
+        take the plain layer (:func:`conv3x3_bias_act_plain`); CUDA tensors
+        launch the kernel (counted in ``conv3x3_bias_act.launches``) or
+        raise.
     """
-    if x.device.type == "cpu":
-        return conv3x3_bias_act_plain(x, w, b, relu)
     x4, squeeze = _batched(x)
-    _check(x4, [(w, b, relu)])
+    _validate(x4, [(w, b, relu)])
     if w.shape[0] != 3:
         raise ValueError(f"conv3x3_bias_act takes a 3x3 kernel, got {tuple(w.shape)}")
-    out, _, launched = _layer(x4, w, b, relu)
-    conv3x3_bias_act.launches += launched
+    out, _ = _layer(x4, w, b, relu)
     return out[0] if squeeze else out
 
 
@@ -233,25 +280,25 @@ def conv_chain(x, convs, pool=False, tap_prepool=False):
 
     Returns:
         The (pooled) output; with ``tap_prepool`` a tuple (output, prepool).
-        CPU tensors take :func:`conv_chain_plain`. CUDA tensors launch one
-        kernel per layer, intermediates through device memory: 3x3 layers
-        as :func:`conv3x3_bias_act`, 1x1 layers in the kernel's 1x1 mode,
-        a pooled last layer in its pooled epilogue (with the tap); or raise.
+        One ``conv_layer`` op per layer, intermediates through memory. CPU
+        tensors take the plain layers (the values of
+        :func:`conv_chain_plain`). CUDA tensors launch one kernel per layer:
+        3x3 layers as :func:`conv3x3_bias_act`, 1x1 layers in the kernel's
+        1x1 mode, a pooled last layer in its pooled epilogue (with the tap);
+        the first launch counts the chain in ``conv_chain.launches``; or
+        raise.
     """
-    if x.device.type == "cpu":
-        return conv_chain_plain(x, convs, pool, tap_prepool)
     x4, squeeze = _batched(x)
-    _check(x4, convs)
-    y, tap, launched = x4, None, False
+    _validate(x4, convs)
+    if not convs:
+        raise ValueError("a chain needs at least one conv")
+    y, tap = x4, None
     for i, (w, b, relu) in enumerate(convs):
-        if pool and i == len(convs) - 1:
-            y, tap, ran = _layer(y, w, b, relu, pool=True, tap=tap_prepool)
-        else:
-            y, _, ran = _layer(y, w, b, relu)
-            if w.shape[0] == 3:
-                conv3x3_bias_act.launches += ran
-        launched |= ran
-    conv_chain.launches += launched
+        last_pooled = pool and i == len(convs) - 1
+        y, layer_tap = _layer(y, w, b, relu, pool=last_pooled,
+                              tap=last_pooled and tap_prepool, chain_start=i == 0)
+        if last_pooled:
+            tap = layer_tap
     if tap_prepool and not pool:
         tap = y
     if squeeze:

@@ -20,11 +20,19 @@ longest side times ``scale`` passes ``max_size`` are resized on the host
 instead: host resize and pad, :meth:`..detection.Detector.detect` on the
 device, host crops and the recognizer on the device
 (:meth:`..recognition.Recognizer.recognize_from_boxes`), so that per-call
-recognizer options apply. Not ported yet: meshes and export.
+recognizer options apply.
+
+:meth:`Pipeline.export` traces the device program at one static shape with
+``torch.export`` (the kernels are the ``torch.ops.keras_ocr_tpu_torch`` ops,
+one opaque node a launch) into ``<path>.pt2``, weights inside, and writes
+the host metadata to ``<path>.json``; :func:`load_exported` loads it into an
+:class:`ExportedPipeline`, which serves it without the model classes. Not
+ported yet: meshes.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import typing
 import warnings
@@ -52,6 +60,100 @@ def _new_run_stats():
         "refine_escalations": 0,
         "warp_escalations": 0,
     }
+
+
+def device_program(
+    craft,
+    crnn,
+    crop_shape,
+    images,  # (B, H, W, 3) uint8 on the device
+    detection_threshold,
+    text_threshold,
+    link_threshold,
+    size_threshold,
+    max_components,
+    max_words,
+    resize_to=None,
+    num_sweeps=detection_mod.DEFAULT_NUM_SWEEPS,
+    refine_level=0,  # 1-based index into ops.refine.LADDER
+    warp_level=0,
+    detector_chunk=16,
+):
+    """The fused device program on (B, H, W, 3) uint8 ``images``, with
+    ``craft`` and ``crnn`` the two models and ``crop_shape`` the
+    recognizer's (height, width, channels); returns the packed
+    (B, words, 8+1+T+2) float32 tensor. It sets no grad mode of its own:
+    :meth:`Pipeline._device_pipeline` runs it under inference mode, and
+    :meth:`Pipeline.export` traces it. ``detector_chunk`` bounds the CRAFT
+    batch (the full-resolution activations of large batches)."""
+    images = images.to(torch.float32)
+    if resize_to is not None:
+        images = resize_bilinear(images, resize_to[0], resize_to[1])
+    x = compute_input(images)
+    heatmaps = torch.cat([craft(chunk) for chunk in torch.split(x, detector_chunk)])
+    settings = dict(
+        detection_threshold=detection_threshold,
+        text_threshold=text_threshold,
+        link_threshold=link_threshold,
+        size_threshold=size_threshold,
+        max_components=max_components,
+        num_sweeps=num_sweeps,
+    )
+    # One component analysis serves tier 1 and the refine pass.
+    analysis = postprocess_ops.component_analysis(
+        heatmaps, **settings, per_component_census=refine_level > 0
+    )
+    boxes, mask, diag = postprocess_ops.get_boxes(heatmaps, **settings, analysis=analysis)
+    if refine_level > 0:
+        # The contours[0] pass; the signal is now its proofs failing.
+        wh, ww, md, it, rc = refine_ops.LADDER[refine_level - 1]
+        boxes, refine_ok, _ = refine_ops.refine_boxes(
+            heatmaps, boxes, **settings, refine_cap=rc, window_h=wh, window_w=ww,
+            max_dilate=md, num_iters=it, analysis=analysis,
+        )
+        refine_signal = ~refine_ok
+    else:
+        refine_signal = diag["n_multiblob"] > 0
+    # Compact valid boxes into the first max_words slots (stable order).
+    order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)[:, :max_words]
+    boxes_c = torch.gather(boxes, 1, order[..., None, None].expand(-1, -1, 4, 2))
+    mask_c = torch.gather(mask, 1, order)
+
+    win_h, win_w = WINDOW_LADDER[warp_level]
+    warp_signal = window_overflow(boxes_c, mask_c, win_h, win_w)
+
+    height, width, channels = crop_shape
+    if channels == 1:
+        # Grayscale before warping, as the reference converts on host.
+        source = torch.clamp(rgb_to_grayscale(images), 0, 255)
+        crops = warp_boxes_batch(
+            source, boxes_c, target_height=height, target_width=width,
+            window_height=win_h, window_width=win_w,
+        )
+        crops = (crops / 255.0)[..., None]
+    else:
+        crops = warp_boxes_batch(
+            images, boxes_c, target_height=height, target_width=width,
+            window_height=win_h, window_width=win_w,
+        ) / 255.0
+    batch, words = crops.shape[:2]
+    probs = crnn(crops.reshape((batch * words,) + crops.shape[2:]))
+    decoded = ctc_ops.ctc_greedy_decode(probs).reshape(batch, words, -1)
+    flags = (
+        diag["converged"].to(torch.float32)
+        + 2.0 * refine_signal.to(torch.float32)
+        + 4.0 * warp_signal.to(torch.float32)
+    )
+    per_image = torch.stack([diag["n_components"].to(torch.float32), flags], -1)
+    return torch.cat(
+        [
+            boxes_c.reshape(batch, words, 8),
+            mask_c[..., None].to(torch.float32),
+            decoded.to(torch.float32),
+            per_image[:, None, :].expand(batch, words, 2),
+        ],
+        dim=-1,
+    )
 
 
 class Pipeline:
@@ -117,89 +219,12 @@ class Pipeline:
         self._detector_chunk = 16
 
     @torch.inference_mode()
-    def _device_pipeline(
-        self,
-        images,  # (B, H, W, 3) uint8 on the device
-        detection_threshold,
-        text_threshold,
-        link_threshold,
-        size_threshold,
-        max_components,
-        max_words,
-        resize_to=None,
-        num_sweeps=detection_mod.DEFAULT_NUM_SWEEPS,
-        refine_level=0,  # 1-based index into ops.refine.LADDER
-        warp_level=0,
-    ):
-        images = images.to(torch.float32)
-        if resize_to is not None:
-            images = resize_bilinear(images, resize_to[0], resize_to[1])
-        x = compute_input(images)
-        heatmaps = torch.cat(
-            [self.detector.model(chunk) for chunk in torch.split(x, self._detector_chunk)]
-        )
-        settings = dict(
-            detection_threshold=detection_threshold,
-            text_threshold=text_threshold,
-            link_threshold=link_threshold,
-            size_threshold=size_threshold,
-            max_components=max_components,
-            num_sweeps=num_sweeps,
-        )
-        # One component analysis serves tier 1 and the refine pass.
-        analysis = postprocess_ops.component_analysis(
-            heatmaps, **settings, per_component_census=refine_level > 0
-        )
-        boxes, mask, diag = postprocess_ops.get_boxes(heatmaps, **settings, analysis=analysis)
-        if refine_level > 0:
-            # The contours[0] pass; the signal is now its proofs failing.
-            wh, ww, md, it, rc = refine_ops.LADDER[refine_level - 1]
-            boxes, refine_ok, _ = refine_ops.refine_boxes(
-                heatmaps, boxes, **settings, refine_cap=rc, window_h=wh, window_w=ww,
-                max_dilate=md, num_iters=it, analysis=analysis,
-            )
-            refine_signal = ~refine_ok
-        else:
-            refine_signal = diag["n_multiblob"] > 0
-        # Compact valid boxes into the first max_words slots (stable order).
-        order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)[:, :max_words]
-        boxes_c = torch.gather(boxes, 1, order[..., None, None].expand(-1, -1, 4, 2))
-        mask_c = torch.gather(mask, 1, order)
-
-        win_h, win_w = WINDOW_LADDER[warp_level]
-        warp_signal = window_overflow(boxes_c, mask_c, win_h, win_w)
-
-        height, width, channels = self.recognizer.input_shape
-        if channels == 1:
-            # Grayscale before warping, as the reference converts on host.
-            source = torch.clamp(rgb_to_grayscale(images), 0, 255)
-            crops = warp_boxes_batch(
-                source, boxes_c, target_height=height, target_width=width,
-                window_height=win_h, window_width=win_w,
-            )
-            crops = (crops / 255.0)[..., None]
-        else:
-            crops = warp_boxes_batch(
-                images, boxes_c, target_height=height, target_width=width,
-                window_height=win_h, window_width=win_w,
-            ) / 255.0
-        batch, words = crops.shape[:2]
-        probs = self.recognizer.model(crops.reshape((batch * words,) + crops.shape[2:]))
-        decoded = ctc_ops.ctc_greedy_decode(probs).reshape(batch, words, -1)
-        flags = (
-            diag["converged"].to(torch.float32)
-            + 2.0 * refine_signal.to(torch.float32)
-            + 4.0 * warp_signal.to(torch.float32)
-        )
-        per_image = torch.stack([diag["n_components"].to(torch.float32), flags], -1)
-        return torch.cat(
-            [
-                boxes_c.reshape(batch, words, 8),
-                mask_c[..., None].to(torch.float32),
-                decoded.to(torch.float32),
-                per_image[:, None, :].expand(batch, words, 2),
-            ],
-            dim=-1,
+    def _device_pipeline(self, images, *args, **kwargs):
+        """:func:`device_program` of this pipeline's models on (B, H, W, 3)
+        uint8 ``images`` on the device, under inference mode."""
+        return device_program(
+            self.detector.model, self.recognizer.model, self.recognizer.input_shape,
+            images, *args, detector_chunk=self._detector_chunk, **kwargs,
         )
 
     def _prepare(self, images):
@@ -518,3 +543,220 @@ class Pipeline:
             results.extend(self._finish(inflight.pop(0), detection_kwargs, stats))
         self.last_run_stats = stats
         return results
+
+    def export(
+        self,
+        path: str,
+        height: int,
+        width: int,
+        batch_size: int = 1,
+        detection_kwargs: typing.Optional[dict] = None,
+        max_words: typing.Optional[int] = None,
+        platforms: typing.Optional[typing.Sequence[str]] = None,
+        refine_level: int = 1,
+    ) -> str:
+        """Serialize the fused pipeline for serving, weights inside.
+
+        Writes ``<path>.pt2``, a ``torch.export`` program of the whole
+        device program (normalize, CRAFT, ``get_boxes``, refine, crops,
+        CRNN, CTC) at one static input shape, its kernels as the
+        ``torch.ops.keras_ocr_tpu_torch`` ops, and ``<path>.json`` with the
+        host metadata that serves it. Reload with :func:`load_exported`.
+
+        Args:
+            height/width: pre-scale input image shape the artifact serves
+                (images are padded to it by the serving wrapper).
+            batch_size: static batch the artifact serves.
+            platforms: ``None`` or this pipeline's own device type: the
+                traced graph holds its device's constants and is never
+                re-targeted.
+            refine_level: contours[0] pass baked into the program (1-based
+                index into ``ops.refine.LADDER``, clamped; 0 = tier 1 only).
+                Components its proofs cannot handle surface as
+                ``refine_pending`` in :meth:`ExportedPipeline.recognize`.
+
+        The warp window is the first ``WINDOW_LADDER`` rung that holds the
+        whole scaled envelope (every crop then takes the exact slice path),
+        else the top rung, whose oversized crops take its antialiased
+        downscale and are flagged ``warp_downscaled``; the component cap is
+        the detector's and the sweeps ``DEFAULT_NUM_SWEEPS``: the artifact
+        has no escalation relaunches.
+        """
+        if isinstance(platforms, str):
+            platforms = [platforms]
+        if platforms is not None and set(platforms) != {self.device.type}:
+            raise ValueError(
+                f"a pipeline on {self.device} exports for platforms "
+                f"[{self.device.type!r}] only, not {list(platforms)}"
+            )
+        detection_kwargs = dict(detection_kwargs or {})
+        max_words = max_words or self.max_words
+        refine_level = max(0, min(int(refine_level), len(refine_ops.LADDER)))
+        resize_to = (height * self.scale, width * self.scale)
+        warp_level = next(
+            (
+                level
+                for level, (wh, ww) in enumerate(WINDOW_LADDER)
+                if wh >= resize_to[0] + 3 and ww >= resize_to[1] + 3
+            ),
+            len(WINDOW_LADDER) - 1,
+        )
+        settings = dict(
+            detection_threshold=float(detection_kwargs.get("detection_threshold", 0.7)),
+            text_threshold=float(detection_kwargs.get("text_threshold", 0.4)),
+            link_threshold=float(detection_kwargs.get("link_threshold", 0.4)),
+            size_threshold=float(detection_kwargs.get("size_threshold", 10)),
+            max_components=self.detector.max_components,
+            max_words=max_words,
+            resize_to=resize_to,
+            num_sweeps=detection_mod.DEFAULT_NUM_SWEEPS,
+            refine_level=refine_level,
+            warp_level=warp_level,
+            detector_chunk=self._detector_chunk,
+        )
+        program = _ServedProgram(
+            self.detector.model, self.recognizer.model, self.recognizer.input_shape, settings
+        )
+        example = torch.zeros((batch_size, height, width, 3), dtype=torch.uint8, device=self.device)
+        with torch.no_grad(), warnings.catch_warnings():
+            # Export swaps the parameters for traced ones, and nn.LSTM's
+            # setattr hook reassigns its ``_flat_weights`` list to follow;
+            # export restores every attribute afterwards and the graph reads
+            # the lifted parameters, so the artifact computes what the live
+            # program does (the tests hold the two bit for bit).
+            warnings.filterwarnings("ignore", message=r"The tensor attributes? .*_flat_weights")
+            exported = torch.export.export(program, (example,), strict=False)
+        torch.export.save(exported, path + ".pt2")
+        build = self.recognizer.build_params
+        meta = {
+            "alphabet": self.recognizer.alphabet,
+            "scale": self.scale,
+            "height": height,
+            "width": width,
+            "batch_size": batch_size,
+            "max_words": max_words,
+            "ctc_time": int(
+                build["width"] // build["pool_size"] ** 2 - build["rnn_steps_to_discard"]
+            ),
+            "refine_level": refine_level,
+            "warp_level": warp_level,
+            "device": str(self.device),
+        }
+        with open(path + ".json", "w") as f:
+            json.dump(meta, f)
+        return path + ".pt2"
+
+
+class _ServedProgram(torch.nn.Module):
+    """The two models as submodules, and :func:`device_program` at baked
+    settings as ``forward``: what :meth:`Pipeline.export` traces."""
+
+    def __init__(self, craft, crnn, crop_shape, settings):
+        super().__init__()
+        self.craft = craft
+        self.crnn = crnn
+        self.crop_shape = tuple(crop_shape)
+        self.settings = dict(settings)
+
+    def forward(self, images):
+        return device_program(self.craft, self.crnn, self.crop_shape, images, **self.settings)
+
+
+class ExportedPipeline:
+    """Serving wrapper for a :meth:`Pipeline.export` artifact.
+
+    Holds only the loaded program (a callable taking the (batch, height,
+    width, 3) uint8 batch on ``meta["device"]``) and the host metadata, no
+    model classes or weight files, and exposes the same ``recognize(images)
+    -> [[(word, box)]]`` contract for its static (batch, height, width)
+    envelope.
+    """
+
+    def __init__(self, program, meta: dict):
+        self._program = program
+        self.meta = meta
+        self.alphabet = meta["alphabet"]
+        self.device = torch.device(meta.get("device", "cpu"))
+
+    def recognize(self, images, return_diagnostics: bool = False):
+        """Serve one batch; optionally surface per-image health flags.
+
+        With ``return_diagnostics=True`` returns ``(results, diags)`` where
+        each diag dict reports where the static artifact may diverge from
+        the live pipeline's escalation ladders (``Pipeline._fetch_escalating``):
+
+        * ``n_components``: thresholded components the labelling found;
+          components beyond the baked ``max_components`` were dropped in
+          raster order.
+        * ``converged``: the labelling converged within the baked sweeps.
+        * ``refine_pending``: a multi-blob component's contours[0]
+          refinement is beyond the baked ``refine_level``; its box may be a
+          superset of the reference's.
+        * ``warp_downscaled``: a word crop exceeded the warp window and took
+          the antialiased downscale instead of the exact slice path.
+        * ``truncated``: every word slot filled; the scene may hold more
+          than ``max_words`` words.
+
+        Artifacts whose packed rows lack the two diagnostic columns return
+        ``None`` for the flag-derived fields.
+        """
+        height, width = self.meta["height"], self.meta["width"]
+        batch_size = self.meta["batch_size"]
+        if len(images) > batch_size:
+            raise ValueError(f"artifact serves batches of {batch_size}, got {len(images)}")
+        batch = np.zeros((batch_size, height, width, 3), dtype="uint8")
+        for i, image in enumerate(images):
+            image = tools.read(image)
+            if image.shape[0] > height or image.shape[1] > width:
+                raise ValueError(
+                    f"image {image.shape} exceeds the exported envelope ({height}, {width})"
+                )
+            batch[i] = tools.pad(image, width=width, height=height)
+        with torch.inference_mode():
+            packed = self._program(torch.from_numpy(batch).to(self.device))
+        packed = packed.cpu().numpy()[: len(images)]
+        boxes = packed[..., :8].reshape(packed.shape[0], packed.shape[1], 4, 2)
+        mask = packed[..., 8] > 0.5
+        # Slice by the artifact's own CTC length: packed rows of 9+T columns
+        # (no diagnostics) and of 9+T+1 or 9+T+2 all decode all T frames.
+        ctc_time = self.meta["ctc_time"]
+        decoded = packed[..., 9 : 9 + ctc_time].astype("int32")
+        has_diag_columns = packed.shape[-1] >= 9 + ctc_time + 2
+        results, diags = [], []
+        for i in range(len(images)):
+            valid = mask[i]
+            words = ctc_ops.ctc_decode_to_strings(decoded[i][valid], self.alphabet)
+            image_boxes = boxes[i][valid].astype("float32") / self.meta["scale"]
+            results.append(list(zip(words, [box for box in image_boxes])))
+            if return_diagnostics:
+                diag = {
+                    "truncated": bool(valid.all()) and valid.size > 0,
+                    "n_components": None,
+                    "converged": None,
+                    "refine_pending": None,
+                    "warp_downscaled": None,
+                }
+                if has_diag_columns:
+                    flags = int(packed[i, 0, 9 + ctc_time + 1])
+                    diag.update(
+                        n_components=int(packed[i, 0, 9 + ctc_time]),
+                        converged=bool(flags & 1),
+                        refine_pending=bool(flags & 2),
+                        warp_downscaled=bool(flags & 4),
+                    )
+                diags.append(diag)
+        if return_diagnostics:
+            return results, diags
+        return results
+
+
+def load_exported(path: str) -> ExportedPipeline:
+    """Load a :meth:`Pipeline.export` artifact (``<path>.pt2`` and
+    ``<path>.json``) into a serving-ready :class:`ExportedPipeline`. The op
+    modules are imported first, so that the graph's kernel ops resolve."""
+    from ..ops import cc_cuda, conv_cuda  # noqa: F401  (registers the ops)
+
+    program = torch.export.load(path + ".pt2").module()
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    return ExportedPipeline(program, meta)

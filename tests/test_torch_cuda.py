@@ -4,20 +4,26 @@ widths, tall maps, the line limit, every barrier type, images that stop
 at their fixpoint at different sweeps) and both
 conv wrappers (``conv_chain``, ``conv3x3_bias_act``), against their plain
 versions; the BN-folded CRAFT through the conv kernel against the unfolded
-graph.
+graph; ``torch.library.opcheck`` of the three kernel ops on CUDA tensors;
+the golden pipeline exported on the card against the live device program,
+with the kernels' launch counts advancing during the artifact's run.
 
 Skipped where no CUDA device is present. On a machine with a card and no
 JAX, run with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (the repository's conftest imports JAX). The file imports nothing of JAX.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from keras_ocr_tpu_torch import load_exported, tools
 from keras_ocr_tpu_torch.models import CRAFT, init_parameters
 from keras_ocr_tpu_torch.models.craft import fold_bn_state_dict
 from keras_ocr_tpu_torch.ops import cc, cc_cuda, conv_cuda
+from keras_ocr_tpu_torch.utils import golden
 
 pytestmark = pytest.mark.cuda
 
@@ -395,3 +401,71 @@ def test_refine_boxes_on_card_equal_cpu(device, level):
     assert torch.equal(ok, ref_ok) and torch.equal(n, ref_n)
     assert bool(ok.all()) and int(n.min()) >= 1
     assert float((boxes - ref_boxes).abs().max()) <= 1e-3
+
+
+def _op_cases(device):
+    rng = np.random.RandomState(0)
+    fg = torch.from_numpy(rng.rand(3, 9, 13) < 0.6).to(device)
+    sentinel = 9 * 13
+    index = torch.arange(sentinel, dtype=torch.int32, device=device).reshape(9, 13)
+    values = torch.where(fg, index, torch.full_like(index, sentinel))
+    key = torch.from_numpy(rng.randint(0, 3, size=(3, 9, 13))).to(device, torch.int32)
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((2, 7, 9, 5), generator=gen, device=device)
+    w3 = torch.randn((3, 3, 5, 6), generator=gen, device=device) / 9
+    w1 = torch.randn((1, 1, 5, 6), generator=gen, device=device) / 3
+    b = 0.1 * torch.randn((6,), generator=gen, device=device)
+    ops = torch.ops.keras_ocr_tpu_torch
+    return {
+        "cc_sweeps": (ops.cc_sweeps.default, (values, ~fg, sentinel, 4, False)),
+        "cc_sweeps_check": (ops.cc_sweeps.default, (values, ~fg, sentinel, 4, True)),
+        "cc_keyed_rows_cols": (ops.cc_keyed_rows_cols.default, (values, key, fg, sentinel)),
+        "conv_layer_3x3": (ops.conv_layer.default, (x, w3, b, True, False, False, True)),
+        "conv_layer_1x1_pool_tap": (ops.conv_layer.default, (x, w1, b, True, True, True, False)),
+    }
+
+
+@pytest.mark.parametrize("case", ["cc_sweeps", "cc_sweeps_check", "cc_keyed_rows_cols",
+                                  "conv_layer_3x3", "conv_layer_1x1_pool_tap"])
+def test_ops_pass_opcheck_on_card(device, full_fp32, case):
+    op, args = _op_cases(device)[case]
+    torch.library.opcheck(op, args)
+
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "golden_offline")
+
+
+@pytest.mark.parametrize("fold_bn", [False, True], ids=["standard", "folded"])
+def test_exported_golden_on_card_equals_live(device, full_fp32, tmp_path, fold_bn):
+    """The golden pipeline exported on the card, loaded and run: its packed
+    output equals the live device program's at the baked levels bit for
+    bit, and the launch counters advance during the artifact's run (the
+    counts live in the ops' CUDA kernels): 20 label-sweep calls (2 of
+    ``get_boxes``, 18 of refine level 1) and 8 keyed calls, and on the
+    folded graph 12 chains with 15 unpooled 3x3 layers."""
+    pipeline, meta = golden.load_golden_pipeline(GOLDEN, device=device, fold_bn=fold_bn)
+    height, width = meta["pad_to"]
+    path = str(tmp_path / "golden")
+    pipeline.export(path, height=height, width=width, batch_size=2)
+    served = load_exported(path)
+    images = [tools.read(os.path.join(GOLDEN, f"scene_0{i}.png")) for i in range(2)]
+    batch = torch.from_numpy(
+        np.stack([tools.pad(image, width=width, height=height) for image in images])
+    ).to(device)
+    wrappers = [cc_cuda.segmented_min_sweeps, cc_cuda.keyed_rows_cols, conv_cuda.conv_chain,
+                conv_cuda.conv3x3_bias_act]
+    before = [wrapper.launches for wrapper in wrappers]
+    with torch.inference_mode():
+        packed = served._program(batch)
+    torch.cuda.synchronize()
+    launched = [wrapper.launches - count for wrapper, count in zip(wrappers, before)]
+    assert launched == [20, 8] + ([12, 15] if fold_bn else [0, 0])
+    live = pipeline._device_pipeline(
+        batch, 0.7, 0.4, 0.4, 10.0, pipeline.detector.max_components, pipeline.max_words,
+        resize_to=(height * meta["scale"], width * meta["scale"]),
+        refine_level=served.meta["refine_level"], warp_level=served.meta["warp_level"],
+    )
+    assert packed.device.type == "cuda"
+    assert torch.equal(packed, live)
+    words = [[w for w, _ in r] for r in served.recognize(images)]
+    assert words == [[w for w, _ in r] for r in pipeline.recognize(images)]

@@ -151,10 +151,11 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch, entry):
     assert built.device == torch.device("cpu")
 
 
-def test_port_runs_with_jax_blocked():
-    """The port, its pipeline, the refine pass, ``Detector.detect`` and
-    ``read`` of a PNG buffer import and run with jax, flax and the JAX
-    package unimportable (as on a machine without JAX)."""
+def test_port_runs_with_jax_blocked(tmp_path):
+    """The port, its pipeline, the refine pass, ``Detector.detect``,
+    ``read`` of a PNG buffer and of a JPEG path, ``Pipeline.export`` and
+    ``load_exported`` import and run with jax, flax and the JAX package
+    unimportable (as on a machine without JAX)."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'keras_ocr_tpu'):\n"
@@ -174,12 +175,19 @@ def test_port_runs_with_jax_blocked():
         "    image = tools.read(io.BytesIO(f.read()))\n"
         "boxes = pipeline.detector.detect([image])[0]\n"
         "assert boxes.shape[1:] == (4, 2) and len(boxes), boxes.shape\n"
+        "photo = tools.read(sys.argv[2])\n"
+        "assert photo.shape == (480, 640, 3), photo.shape\n"
+        "base = sys.argv[3] + '/ocr'\n"
+        "assert pipeline.export(base, height=64, width=96, refine_level=0) == base + '.pt2'\n"
+        "served = keras_ocr_tpu_torch.load_exported(base)\n"
+        "assert len(served.recognize([photo[:64, :96]])) == 1\n"
         "assert not any(m.startswith(('jax', 'flax', 'keras_ocr_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
         "print('words', words)\n"
     )
     proc = subprocess.run(
-        [sys.executable, "-c", code, GOLDEN],
+        [sys.executable, "-c", code, GOLDEN,
+         os.path.join(ROOT, "tests", "fixtures", "test_image.jpg"), str(tmp_path)],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]

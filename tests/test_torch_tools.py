@@ -3,12 +3,20 @@
 PNGs of every colour type the reader takes (grey, RGB, palette, grey +
 alpha, RGBA), at 1-16 bits, are written here with numpy + zlib and read
 from a path and from ``io.BytesIO``: the port must give what JAX ``read``
-(PIL's ``convert("RGB")``) gives, bit for bit. ``resize_image`` must be
-bit-exact with JAX's up and down.
+(PIL's ``convert("RGB")``) gives, bit for bit. JPEGs (the repository's
+``tests/fixtures/test_image.jpg``, and JPEGs PIL writes here: 4:4:4, 4:2:2
+and 4:2:0, quality 50 and 95, optimised Huffman tables, grey, odd sizes,
+restart intervals; a 4:4:0 one from OpenCV) must come within 1 count of
+JAX ``read`` and be exact on at least 99.9% of pixels; measured: every
+pixel of every case exact. ``read`` fetches ``http(s)://`` paths with
+``urllib``. ``resize_image`` must be bit-exact with JAX's up and down.
 """
 
+import hashlib
 import io
+import os
 import struct
+import urllib.request
 import zlib
 
 import numpy as np
@@ -86,8 +94,8 @@ def test_read_refuses_what_it_cannot_decode():
     grey = np.zeros((3, 4), np.uint8)
     with pytest.raises(NotImplementedError, match="interlaced"):
         tools.read(io.BytesIO(_png(grey, 0, 8, interlace=1)))
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        tools.read(io.BytesIO(b"\xff\xd8\xff\xe0" + bytes(16)))
+    with pytest.raises(NotImplementedError, match="progressive"):
+        tools.read(io.BytesIO(_pil_jpeg(_scene_crop(16, 24), progressive=True)))
     with pytest.raises(ValueError):
         tools.read(io.BytesIO(b"GIF89a"))
     with pytest.raises(ValueError):
@@ -104,3 +112,146 @@ def test_resize_image_exact(shape):
         assert scale == ref_scale
         assert out.dtype == ref.dtype
         np.testing.assert_array_equal(out, ref)
+
+
+FIXTURE_JPEG = os.path.join(os.path.dirname(__file__), "fixtures", "test_image.jpg")
+# sha256 of PIL's RGB decode of the fixture: chip_smoke.py checks the port's
+# decode against it on the card's machine, which has no PIL.
+FIXTURE_JPEG_SHA256 = "f5cb48dc1b0a224b4e16c418b92a2e0b851364882e21645efdd244d0fc3207c4"
+
+
+def _scene_crop(height, width, mode="RGB"):
+    from PIL import Image
+
+    image = jtools.read(FIXTURE_JPEG)[100 : 100 + height, 200 : 200 + width]
+    return Image.fromarray(np.ascontiguousarray(image)).convert(mode)
+
+
+def _pil_jpeg(image, **options):
+    buffer = io.BytesIO()
+    image.save(buffer, "JPEG", **options)
+    return buffer.getvalue()
+
+
+def _assert_jpeg_close(out, ref):
+    """Within 1 count, exact on at least 99.9% of pixels."""
+    assert out.dtype == np.uint8 and out.shape == ref.shape
+    diff = np.abs(out.astype(np.int16) - ref.astype(np.int16))
+    assert diff.max() <= 1
+    assert (diff == 0).all(-1).mean() >= 0.999
+
+
+def test_read_jpeg_fixture_matches_jax(tmp_path):
+    """The reference's test image: baseline, 640x480, 4:2:2 (h2v1 luma),
+    restart intervals. By path and from a buffer."""
+    ref = jtools.read(FIXTURE_JPEG)
+    assert ref.shape == (480, 640, 3)
+    assert hashlib.sha256(ref.tobytes()).hexdigest() == FIXTURE_JPEG_SHA256
+    with open(FIXTURE_JPEG, "rb") as f:
+        blob = f.read()
+    for source in (FIXTURE_JPEG, io.BytesIO(blob)):
+        _assert_jpeg_close(tools.read(source), ref)
+
+
+JPEG_CASES = {
+    "444_q95": ((37, 53), "RGB", dict(subsampling=0, quality=95)),
+    "422_q95": ((37, 53), "RGB", dict(subsampling=1, quality=95)),
+    "420_q95": ((37, 53), "RGB", dict(subsampling=2, quality=95)),
+    "444_q50": ((37, 53), "RGB", dict(subsampling=0, quality=50)),
+    "422_q50": ((37, 53), "RGB", dict(subsampling=1, quality=50)),
+    "420_q50": ((37, 53), "RGB", dict(subsampling=2, quality=50)),
+    "420_optimize": ((64, 80), "RGB", dict(subsampling=2, optimize=True)),
+    "grey": ((37, 53), "L", dict(quality=80)),
+    "grey_optimize_1x1": ((1, 1), "L", dict(optimize=True)),
+    "420_1x1": ((1, 1), "RGB", dict(subsampling=2)),
+    "422_2x3": ((2, 3), "RGB", dict(subsampling=1)),
+    "420_17x200": ((17, 200), "RGB", dict(subsampling=2)),
+    "422_17x200": ((17, 200), "RGB", dict(subsampling=1)),
+    "420_restart": ((48, 70), "RGB", dict(subsampling=2, restart_marker_blocks=3)),
+    "grey_restart_rows": ((33, 41), "L", dict(restart_marker_rows=1)),
+}
+
+
+@pytest.mark.parametrize("case", list(JPEG_CASES))
+def test_read_pil_written_jpeg_matches_jax(tmp_path, case):
+    shape, mode, options = JPEG_CASES[case]
+    blob = _pil_jpeg(_scene_crop(*shape, mode), **options)
+    path = str(tmp_path / "x.jpg")
+    with open(path, "wb") as f:
+        f.write(blob)
+    ref = jtools.read(path)
+    for source in (path, io.BytesIO(blob)):
+        _assert_jpeg_close(tools.read(source), ref)
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (1, 1), (17, 200)])
+def test_read_h1v2_jpeg_matches_jax(shape):
+    """4:4:0 (luma sampled 1x2): libjpeg-turbo's h1v2 fancy upsampling.
+    PIL cannot write it; OpenCV can."""
+    cv2 = pytest.importorskip("cv2")
+    image = np.ascontiguousarray(np.asarray(_scene_crop(*shape))[..., ::-1])
+    ok, encoded = cv2.imencode(
+        ".jpg", image, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440]
+    )
+    assert ok
+    blob = encoded.tobytes()
+    _assert_jpeg_close(tools.read(io.BytesIO(blob)), jtools.read(io.BytesIO(blob)))
+
+
+def _with_sof(blob, marker=None, precision=None):
+    """A baseline JPEG with its SOF0 marker or sample precision replaced."""
+    at = blob.index(b"\xff\xc0")
+    data = bytearray(blob)
+    if marker is not None:
+        data[at + 1] = marker
+    if precision is not None:
+        data[at + 4] = precision
+    return bytes(data)
+
+
+def test_read_jpeg_refuses_what_it_cannot_decode():
+    baseline = _pil_jpeg(_scene_crop(16, 24))
+    kinds = {
+        "progressive": _pil_jpeg(_scene_crop(16, 24), progressive=True),
+        "lossless": _with_sof(baseline, marker=0xC3),
+        "arithmetic-coded": _with_sof(baseline, marker=0xC9),
+        "12-bit": _with_sof(baseline, precision=12),
+        "4-component": _pil_jpeg(_scene_crop(16, 24, "CMYK")),
+    }
+    for kind, blob in kinds.items():
+        with pytest.raises(NotImplementedError, match=kind):
+            tools.read(io.BytesIO(blob))
+    with open(FIXTURE_JPEG, "rb") as f:
+        fixture = f.read()
+    for cut in (200, len(fixture) // 2, len(fixture) - 2):
+        with pytest.raises(ValueError, match="truncated"):
+            tools.read(io.BytesIO(fixture[:cut]))
+    scan = baseline.index(b"\xff\xda")
+    corrupt = baseline[: scan + 20] + b"\xff" * 40 + baseline[scan + 60 :]
+    with pytest.raises(ValueError):
+        tools.read(io.BytesIO(corrupt))
+
+
+def test_read_fetches_urls(monkeypatch):
+    """``http(s)://`` paths are fetched with ``urllib.request.urlopen`` (here
+    patched to serve a PNG and a JPEG: no network)."""
+    png = _png(np.arange(15, dtype=np.uint8).reshape(3, 5), 0, 8)
+    jpeg = _pil_jpeg(_scene_crop(9, 11))
+    served = {"http://example.test/a.png": png, "HTTPS://example.test/b.jpg": jpeg}
+    opened = []
+
+    class Response(io.BytesIO):
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            self.close()
+
+    def urlopen(url):
+        opened.append(url)
+        return Response(served[url])
+
+    monkeypatch.setattr(urllib.request, "urlopen", urlopen)
+    for url, blob in served.items():
+        np.testing.assert_array_equal(tools.read(url), jtools.read(io.BytesIO(blob)))
+    assert opened == list(served)
