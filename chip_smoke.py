@@ -84,6 +84,25 @@ Phases, each printing one line; any failure exits non-zero:
    seconds, ``.pt2`` size and graph nodes, and the artifact's ``recognize``
    p50 timed in turns with the live one's.
 
+11. training: the full-width CRNN (``DEFAULT_BUILD_PARAMS``, dropout 0) at
+   batch 8 and CRAFT (width 1.0) at 2x256x256 take one train step on the
+   card and the same step on the CPU from the same state, in float32 and in
+   float64: the float32 losses within 1e-4 relative; each float64 gradient
+   leaf within 1e-3 of its largest |g| (leaves at rounding noise within
+   1e-4 of the model's largest), the worst leaf printed, and the float32
+   gradients' distance from the float64 ones on the card and the CPU; 20
+   steps on a fixed batch must lower each loss; an OHEM step must give a
+   finite loss. Times (CUDA events, medians of 10): CRNN steps
+   at batch 8 and 64, CRAFT steps at 640x640 batch 8 on
+   ``get_batch_generator`` batches of numpy-drawn character lines, with the
+   peak memory and the host ms of one generator batch; the port's
+   ``ctc_loss`` forward + backward against ``F.ctc_loss`` at batch 64.
+   ``fit`` for 2 epochs x 2 steps with ``EarlyStopping``,
+   ``ModelCheckpoint`` and ``CSVLogger``, then ``save_npz`` (in
+   ``build/training``, removed at the end); the trained detector's
+   ``Detector.detect`` of a golden scene must launch both sweep-kernel
+   entries. The train step launches none of the three kernels.
+
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9 and each golden artifact's run in 10 count their
 kernel launches from zero; the kernel ops are
@@ -1175,6 +1194,327 @@ def serving_phase(card, golden_images, expected, pipelines, wrappers, pass_fract
     return golden_launches
 
 
+# Phase 11: training.
+TRAIN_LOSS_BAR = 1e-4
+# Each gradient leaf of the float64 card step within this share of the
+# leaf's largest |g| of the float64 CPU step. In float32 the card's cuDNN
+# and CUDA reductions leave its gradients up to ~5e-3 (CRNN) and ~6e-2
+# (CRAFT at random init, where the CPU's own float32 step is 4.5e-2 off)
+# from the float64 ones, so the float32 gradients are printed, not barred.
+TRAIN_GRAD_BAR = 1e-3
+# Card leaves whose float64 CPU gradient is rounding noise (zero in exact
+# arithmetic: a conv bias a BatchNorm follows) stay below this share of
+# the model's largest gradient.
+TRAIN_NOISE_BAR = 1e-4
+TRAINING_DIR = os.path.join(ROOT, "build", "training")
+# Detector width, the (batch, height, width) of the card-vs-CPU CRAFT step
+# and of the timed CRAFT steps, and the timed CRNN batches.
+TRAIN_CRAFT_WIDTH = 1.0
+TRAIN_CRAFT_PARITY = (2, 256, 256)
+TRAIN_CRAFT_TIMED = (8, 640, 640)
+TRAIN_CRNN_BATCHES = (8, 64)
+
+
+def tree_leaves(tree, prefix=""):
+    for key, value in sorted(tree.items()):
+        if isinstance(value, dict):
+            yield from tree_leaves(value, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", np.asarray(value)
+
+
+def gradient_leaves(model, bridge):
+    """The model's last gradients as numpy leaves of the JAX tree layout
+    (zeros for frozen parameters), through the weight bridge."""
+    state = dict(model.state_dict())
+    for name, param in model.named_parameters():
+        state[name] = param.grad if param.grad is not None else torch.zeros_like(param)
+    return dict(tree_leaves(bridge(state)["params"]))
+
+
+def gradient_errors(model, reference, bridge):
+    """({leaf: max|g - g_ref| / max|g_ref|}, the largest |g| of the leaves
+    that are rounding noise in the reference, over the reference's largest)."""
+    ours, ref = gradient_leaves(model, bridge), gradient_leaves(reference, bridge)
+    largest = max(float(np.abs(value).max()) for value in ref.values())
+    errors, noise = {}, 0.0
+    for path, value in ref.items():
+        scale = float(np.abs(value).max())
+        if scale <= 1e-9 * largest:
+            noise = max(noise, float(np.abs(ours[path]).max()) / largest)
+        else:
+            errors[path] = float(np.abs(ours[path] - value).max()) / scale
+    return errors, noise
+
+
+def worst(errors):
+    leaf = max(errors, key=errors.get)
+    return (f"{leaf} at {errors[leaf]:.3e} of its largest |g| "
+            f"({sum(e > TRAIN_GRAD_BAR for e in errors.values())}/{len(errors)} leaves over "
+            f"{TRAIN_GRAD_BAR})")
+
+
+def step_parity(what, trainer_cls, make, bridge, batch, **kwargs):
+    """One train step from one state on the card and on the CPU, in float32
+    and in float64: the float32 losses within TRAIN_LOSS_BAR relative; the
+    float64 gradients within TRAIN_GRAD_BAR of each leaf's largest |g|.
+    Returns the float32 card trainer (for more steps), its loss and a
+    summary with the float32 gradients' distance from the float64 ones."""
+    card = make("cuda")
+    variables = bridge(card.model)
+    cpu, card64, cpu64 = (make(on).load_variables(variables) for on in ("cpu", "cuda", "cpu"))
+    for wide in (card64, cpu64):
+        wide.model.double()
+    trainer = trainer_cls(card, **kwargs)
+    loss = trainer.train_step(batch)
+    loss_err = loss_parity(what, loss, trainer_cls(cpu, **kwargs).train_step(batch))
+    trainer_cls(card64, **kwargs).train_step(batch)
+    trainer_cls(cpu64, **kwargs).train_step(batch)
+    errors, noise = gradient_errors(card64.model, cpu64.model, bridge)
+    if not (max(errors.values()) <= TRAIN_GRAD_BAR and noise <= TRAIN_NOISE_BAR):
+        raise AssertionError(f"{what} float64 gradients, card vs CPU: {worst(errors)}; noise "
+                             f"leaves {noise:.3e}")
+    card32, _ = gradient_errors(card.model, cpu64.model, bridge)
+    cpu32, _ = gradient_errors(cpu.model, cpu64.model, bridge)
+    summary = (f"loss {loss:.6f} within {loss_err:.3e} relative of the CPU's (bar "
+               f"{TRAIN_LOSS_BAR}); float64 gradients, card vs CPU: worst {worst(errors)}, "
+               f"noise leaves {noise:.3e} of the largest |g|; float32 gradients against the "
+               f"float64 CPU step: card worst {worst(card32)}, CPU worst {worst(cpu32)}")
+    return trainer, loss, summary
+
+
+def loss_parity(what, card_loss, cpu_loss):
+    err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    if not err <= TRAIN_LOSS_BAR:
+        raise AssertionError(f"{what} loss {card_loss} on the card vs {cpu_loss} on the CPU")
+    return err
+
+
+def crnn_batch(rng, size, frames, alphabet_size, width=200):
+    """Random crops and labels of 1-20 characters, as ``get_batch_generator``
+    gives them."""
+    images = rng.rand(size, 31, width, 1).astype(np.float32)
+    label_length = rng.randint(1, min(20, frames) + 1, size=(size, 1))
+    labels = np.full((size, frames), -1, np.int64)
+    for i, n in enumerate(label_length[:, 0]):
+        labels[i, :n] = rng.randint(0, alphabet_size, size=n)
+    return ((images, labels, np.full((size, 1), frames, np.float64), label_length),
+            np.zeros((size, 1)))
+
+
+def craft_batch(rng, size, height, width):
+    """Normalised random images and maps with a text and a link blob each."""
+    images = rng.randn(size, height, width, 3).astype(np.float32)
+    targets = (rng.rand(size, height // 2, width // 2, 2) * 0.05).astype(np.float32)
+    for i in range(size):
+        y, x = rng.randint(0, height // 4, size=2)
+        targets[i, y : y + height // 8, x : x + width // 4, 0] = 0.9
+        targets[i, y + 2 : y + height // 16, x : x + width // 4, 1] = 0.6
+    return images, targets
+
+
+def text_scenes(rng, height=640, width=640):
+    """(image, lines) samples for ``Detector.get_batch_generator``: dark
+    character rectangles on a light noisy page, in horizontal lines of
+    words separated by spaces."""
+    while True:
+        image = rng.randint(180, 256, (height, width, 3)).astype(np.uint8)
+        lines = []
+        for top in range(20, height - 60, 60):
+            size = rng.randint(16, 40)
+            x, line = rng.randint(0, 40), []
+            while x + size < width - 10 and len(line) < 24:
+                if line and rng.rand() < 0.15:
+                    line.append((np.array([[x, top], [x + size // 2, top],
+                                           [x + size // 2, top + size], [x, top + size]],
+                                          np.float32), " "))
+                    x += size // 2
+                    continue
+                w = int(size * rng.uniform(0.6, 0.9))
+                image[top : top + size, x : x + w] = rng.randint(0, 80)
+                line.append((np.array([[x, top], [x + w, top], [x + w, top + size],
+                                       [x, top + size]], np.float32), "x"))
+                x += w + 2
+            lines.append(line)
+        yield image, lines
+
+
+def crop_samples(rng, alphabet):
+    """(image, text) samples for ``Recognizer.get_batch_generator``."""
+    while True:
+        text = "".join(rng.choice(list(alphabet), size=rng.randint(3, 11)))
+        yield rng.randint(0, 256, (31, 200, 3)).astype(np.uint8), text
+
+
+def training_phase(card, golden_images, sweep_wrappers):
+    """Phase 11: the full-width train steps on the card held against the
+    same steps on the CPU, falling losses, OHEM, step and generator times,
+    the CTC loss against ``F.ctc_loss``, ``fit`` with the three callbacks
+    and ``save_npz``, and ``Detector.detect`` of the trained detector."""
+    from torch.nn import functional as F
+
+    from keras_ocr_tpu_torch import Detector, Recognizer, weights
+    from keras_ocr_tpu_torch.models.crnn import DEFAULT_BUILD_PARAMS
+    from keras_ocr_tpu_torch.ops.ctc import ctc_loss
+    from keras_ocr_tpu_torch.train import DetectorTrainer, RecognizerTrainer, checkpoint
+    from keras_ocr_tpu_torch.train.callbacks import CSVLogger, EarlyStopping, ModelCheckpoint
+
+    device = torch.device("cuda")
+    rng = np.random.RandomState(11)
+    no_dropout = dict(DEFAULT_BUILD_PARAMS, dropout=0.0)
+
+    # (a) One step on the card against the same step on the CPU from one
+    # state, then 19 more on the same batch.
+    def recognizer_on(on):
+        return Recognizer(build_params=no_dropout, device=on, seed=3)
+
+    def detector_on(on):
+        return Detector(width=TRAIN_CRAFT_WIDTH, device=on, seed=4)
+
+    frames = 48
+    batch = crnn_batch(rng, 8, frames, 36)
+    trainer, loss, crnn_summary = step_parity("CRNN", RecognizerTrainer, recognizer_on,
+                                              weights.crnn_variables, batch)
+    crnn_losses = [loss] + [trainer.train_step(batch) for _ in range(19)]
+
+    images, targets = craft_batch(rng, *TRAIN_CRAFT_PARITY)
+    detector_trainer, loss, craft_summary = step_parity(
+        "CRAFT", DetectorTrainer, detector_on, weights.craft_variables, (images, targets))
+    detector = detector_trainer.detector
+    craft_losses = [loss] + [detector_trainer.train_step((images, targets)) for _ in range(19)]
+    ohem_loss = DetectorTrainer(Detector(width=TRAIN_CRAFT_WIDTH, device=device, seed=5),
+                                loss="ohem").train_step((images, targets))
+    for what, series in (("CRNN", crnn_losses), ("CRAFT", craft_losses)):
+        if not (np.isfinite(series).all() and series[-1] < series[0]):
+            raise AssertionError(f"{what} loss on a fixed batch did not fall: {series}")
+    if not np.isfinite(ohem_loss):
+        raise AssertionError(f"OHEM loss {ohem_loss}")
+    print(f"training ({card}), card vs CPU from one state: full-width CRNN (31x200, filters "
+          f"64..512, STN at its identity start, dropout 0) batch 8: {crnn_summary}")
+    print(f"training ({card}), card vs CPU from one state: CRAFT width {TRAIN_CRAFT_WIDTH}, "
+          f"{'x'.join(map(str, TRAIN_CRAFT_PARITY))}: {craft_summary}")
+    print(f"training ({card}), 20 steps on a fixed batch: CRNN (RMSprop 1e-3) "
+          f"{crnn_losses[0]:.4f} -> {crnn_losses[-1]:.4f}; CRAFT (Adam 1e-3, MSE) "
+          f"{craft_losses[0]:.6f} -> {craft_losses[-1]:.6f}; OHEM step loss {ohem_loss:.6f}")
+
+    # (b) Times: CUDA events around whole train steps (upload, forward,
+    # backward, optimiser, loss fetch), medians of 10 after a warm-up.
+    timing = Recognizer(device=device, seed=6)  # dropout 0.25, as trained
+    timing_trainer = RecognizerTrainer(timing)
+    if timing.max_string_length() != frames:
+        raise AssertionError(f"{timing.max_string_length()} CTC frames, not {frames}")
+    step_ms = {}
+    for size in TRAIN_CRNN_BATCHES:
+        batch = crnn_batch(rng, size, frames, len(timing.alphabet))
+        step_ms["crnn", size] = cuda_median_ms(lambda: timing_trainer.train_step(batch),
+                                               runs=10)
+    size_craft, height, width = TRAIN_CRAFT_TIMED
+    generator = detector.get_batch_generator(text_scenes(rng, height, width),
+                                             batch_size=size_craft)
+    batches, generator_ms = [], []
+    for _ in range(3):
+        start = time.perf_counter()
+        batches.append(next(generator))
+        generator_ms.append((time.perf_counter() - start) * 1e3)
+    turn = iter(range(1 << 30))
+    torch.cuda.reset_peak_memory_stats()
+    step_ms["craft"] = cuda_median_ms(
+        lambda: detector_trainer.train_step(batches[next(turn) % len(batches)]), runs=10)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # Forwards alone, in training mode with autograd recording, and the
+    # CTC loss forward + backward against F.ctc_loss at each CRNN batch.
+    forward_ms = {}
+    dropout_masks = torch.Generator(device="cuda").manual_seed(8)
+    timing.model.train()
+    for size in TRAIN_CRNN_BATCHES:
+        x = torch.rand((size, 31, 200, 1), device=device)
+        forward_ms["crnn", size] = cuda_median_ms(
+            lambda: timing.model(x, return_logits=True, generator=dropout_masks), runs=10)
+    timing.model.eval()
+    x = torch.randn((size_craft, height, width, 3), device=device)
+    detector.model.train()
+    forward_ms["craft"] = cuda_median_ms(lambda: detector.model(x), runs=10)
+    detector.model.eval()
+    del x
+
+    ctc_ms, library_ms, ctc_err = {}, {}, 0.0
+    for ctc_batch in TRAIN_CRNN_BATCHES:
+        logits = torch.randn((ctc_batch, frames, len(timing.alphabet) + 1), device=device,
+                             generator=torch.Generator(device="cuda").manual_seed(7))
+        _, labels, input_length, label_length = [
+            torch.as_tensor(a, device=device)
+            for a in crnn_batch(rng, ctc_batch, frames, 36)[0]]
+        input_length = input_length.to(torch.int64).reshape(-1)
+        label_length = label_length.reshape(-1)
+
+        def port_ctc():
+            x = logits.detach().requires_grad_()
+            loss = ctc_loss(x, labels, input_length, label_length)
+            loss.sum().backward()
+            return loss.detach()
+
+        def library_ctc():
+            x = logits.detach().requires_grad_()
+            loss = F.ctc_loss(torch.log_softmax(x, -1).transpose(0, 1), labels.clamp(min=0),
+                              input_length, label_length, blank=logits.shape[-1] - 1,
+                              reduction="none")
+            loss.sum().backward()
+            return loss.detach()
+
+        ctc_err = max(ctc_err, float(((port_ctc() - library_ctc()).abs()
+                                      / library_ctc().abs()).max()))
+        ctc_ms[ctc_batch] = cuda_median_ms(port_ctc, runs=10)
+        library_ms[ctc_batch] = cuda_median_ms(library_ctc, runs=10)
+    if not ctc_err <= TRAIN_LOSS_BAR:
+        raise AssertionError(f"ctc_loss vs F.ctc_loss: {ctc_err}")
+    crnn_ms = ", ".join(f"batch {b} {step_ms['crnn', b]:.3f} ms (forward "
+                        f"{forward_ms['crnn', b]:.3f}, CTC forward + backward {ctc_ms[b]:.3f} "
+                        f"vs F.ctc_loss {library_ms[b]:.3f})" for b in TRAIN_CRNN_BATCHES)
+    print(f"training ({card}): train step, median of 10: CRNN {crnn_ms}; CRAFT "
+          f"{height}x{width} batch {size_craft} (get_batch_generator batches) "
+          f"{step_ms['craft']:.3f} ms (forward {forward_ms['craft']:.3f}), peak memory "
+          f"{peak_gb:.3f} GB; one generator batch of {size_craft} (compute_maps on the host) "
+          f"{statistics.median(generator_ms):.2f} ms (median of 3; host CPU {host_cpu()}); "
+          f"the port's CTC losses within {ctc_err:.3e} relative of F.ctc_loss")
+
+    # (c) fit with the three callbacks, then save_npz.
+    shutil.rmtree(TRAINING_DIR, ignore_errors=True)
+    try:
+        log = os.path.join(TRAINING_DIR, "log.csv")
+        os.makedirs(TRAINING_DIR)
+        history = timing_trainer.fit(
+            timing.get_batch_generator(crop_samples(rng, timing.alphabet), batch_size=8),
+            steps_per_epoch=2, epochs=2, seed=1, callbacks=[
+                EarlyStopping(restore_best_weights=True),
+                ModelCheckpoint(os.path.join(TRAINING_DIR, "best")), CSVLogger(log)])
+        path = checkpoint.save_npz(os.path.join(TRAINING_DIR, "recognizer.npz"),
+                                   timing_trainer.variables)
+        with open(log) as f:
+            rows = len(f.read().strip().splitlines())
+        restored = dict(tree_leaves(checkpoint.restore_npz(path)))
+        if (len(history) != 2 or rows != 3 or timing.model.training
+                or not os.path.isfile(os.path.join(TRAINING_DIR, "best.npz"))
+                or not all(np.array_equal(restored[k], v)
+                           for k, v in tree_leaves(timing_trainer.variables))):
+            raise AssertionError(f"fit: history {history}, {rows} CSV rows")
+        print(f"training ({card}): fit 2 epochs x 2 steps (batch 8, EarlyStopping, "
+              f"ModelCheckpoint, CSVLogger): epoch losses {[round(h, 4) for h in history]}; "
+              f"save_npz {os.path.getsize(path) / 1e6:.2f} MB, restored equal")
+    finally:
+        shutil.rmtree(TRAINING_DIR, ignore_errors=True)
+
+    # (d) The trained detector reads a golden scene through the sweep kernel.
+    for wrapper in sweep_wrappers.values():
+        wrapper.launches = 0
+    boxes = detector.detect([golden_images[0]])
+    launches = {name: wrapper.launches for name, wrapper in sweep_wrappers.items()}
+    if len(boxes) != 1 or min(launches.values()) <= 0:
+        raise AssertionError(f"trained detector's detect: {len(boxes)} results, {launches}")
+    print(f"training ({card}): Detector.detect of the trained detector on one golden scene: "
+          f"{len(boxes[0])} boxes, launches {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path", file=sys.stderr)
@@ -1312,6 +1652,8 @@ def main() -> int:
     serving_phase(card, golden_images, expected,
                   (("golden", golden_pipeline), ("golden, folded", golden_folded)),
                   all_wrappers, pass_fraction, pipeline, scenes)
+
+    training_phase(card, golden_images, sweep_wrappers)
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",

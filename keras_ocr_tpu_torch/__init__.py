@@ -4,12 +4,12 @@ It imports ``torch``, ``numpy`` and the standard library only. The JAX
 package stays the reference the port is tested against.
 """
 
-from . import detection, evaluation, pipeline, recognition, tools
+from . import data, detection, evaluation, pipeline, recognition, tools, train
 from .detection import Detector
 from .pipeline import ExportedPipeline, Pipeline, load_exported
 from .recognition import Recognizer
 
 __all__ = [
-    "Detector", "ExportedPipeline", "Pipeline", "Recognizer", "detection", "evaluation",
-    "load_exported", "pipeline", "recognition", "tools",
+    "Detector", "ExportedPipeline", "Pipeline", "Recognizer", "data", "detection",
+    "evaluation", "load_exported", "pipeline", "recognition", "tools", "train",
 ]

@@ -4,7 +4,9 @@ host oracle.
 Counterpart of ``keras_ocr_tpu/detection.py``: ``compute_input``,
 ``getBoxes`` (the reference's algorithm on the host, exact: the oracle the
 device post-processing is held to, and its fallback), ``boxes_from_mask``
-and ``Detector`` with ``heatmaps`` and ``detect``. Where the JAX package's
+and ``Detector`` with ``heatmaps`` and ``detect``; for training
+``get_gaussian_heatmap``, ``compute_maps`` and ``Detector.compile`` /
+``get_batch_generator``. Where the JAX package's
 oracle calls scipy, this one labels with the plain CPU versions of
 :mod:`.ops.cc`, run to their fixpoint.
 """
@@ -19,6 +21,7 @@ import torch
 
 from . import tools
 from . import weights as weights_lib
+from .data.detection_targets import compute_maps
 from .models import CRAFT, init_parameters
 from .models.craft import fold_bn_state_dict
 from .ops import cc as cc_ops
@@ -52,6 +55,17 @@ def compute_input(image):
     mean = np.array([0.485, 0.456, 0.406])
     variance = np.array([0.229, 0.224, 0.225])
     return (image - mean * 255) / (variance * 255)
+
+
+def get_gaussian_heatmap(size=512, distanceRatio=3.34):
+    """Isotropic 2-D gaussian template (uint8) for the detector's targets."""
+    v = np.abs(np.linspace(-size / 2, size / 2, num=size))
+    x, y = np.meshgrid(v, v)
+    g = np.sqrt(x**2 + y**2)
+    g *= distanceRatio / (size / 2)
+    g = np.exp(-(1 / 2) * (g**2))
+    g *= 255
+    return g.clip(0, 255).astype("uint8")
 
 
 def _dilate_cv2_style(mask: np.ndarray, niter: int) -> np.ndarray:
@@ -352,3 +366,39 @@ class Detector:
             for index, host in zip(bad, getBoxes(heatmaps.cpu().numpy()[bad], **thresholds)):
                 groups[index] = host
         return groups
+
+    def compile(self, optimizer=None, learning_rate: float = 1e-3, mesh=None):
+        """Create (and return, as ``self.trainer``) the MSE trainer of this
+        detector: ``optimizer`` is a callable from parameters to a
+        ``torch.optim.Optimizer``, by default Adam at ``learning_rate``
+        (the reference's ``compile(loss="mse", optimizer="adam")``). Train
+        with ``self.trainer.fit(...)``."""
+        from .train import DetectorTrainer
+        from .train.optim import adam
+
+        if optimizer is None:
+            def optimizer(params):
+                return adam(params, lr=learning_rate)
+        self.trainer = DetectorTrainer(self, optimizer=optimizer, mesh=mesh)
+        return self.trainer
+
+    def get_batch_generator(self, image_generator, batch_size=8, heatmap_size=512,
+                            heatmap_distance_ratio=1.5):
+        """Training batches ``(X, y)``, or ``(X, y, sample_weights)`` from
+        samples with a third element, from ``(image, lines[, weight])``
+        samples of same-size uint8 RGB images: X is the normalised batch, y
+        the (B, H/2, W/2, 2) text and link maps of :func:`compute_maps`."""
+        heatmap = get_gaussian_heatmap(size=heatmap_size, distanceRatio=heatmap_distance_ratio)
+        while True:
+            batch = [next(image_generator) for _ in range(batch_size)]
+            images = np.array([entry[0] for entry in batch])
+            X = compute_input(images)
+            y = np.array([
+                compute_maps(heatmap=heatmap, image_height=images.shape[1],
+                             image_width=images.shape[2], lines=entry[1])
+                for entry in batch
+            ])
+            if len(batch[0]) == 3:
+                yield X, y, np.array([sample[2] for sample in batch])
+            else:
+                yield X, y

@@ -12,10 +12,13 @@ its convolutions NCHW inside (cuDNN). The BN-folded graph
 (``fold_bn=True``, inference only) stays NHWC and runs every conv but the
 s5 head as :func:`keras_ocr_tpu_torch.ops.conv_cuda.conv_chain` calls:
 the hand-written CUDA kernel on the card, ``F.conv2d`` on the CPU.
-Module names follow the Flax tree, so a parameter's ``state_dict`` key is
-its Flax path joined with dots (:mod:`keras_ocr_tpu_torch.weights`); the
-folded graph keeps the same ``conv`` keys and has no ``bn`` ones
-(:func:`fold_bn_state_dict`).
+Training mode (``model.train()``) is the JAX module's ``train=True``: the
+BatchNorms normalise with batch statistics and keep their running ones as
+Flax does (:class:`.layers.BatchNorm2d`, torch momentum 0.1 = Flax 0.9);
+the folded graph refuses it. Module names follow the Flax tree, so a
+parameter's ``state_dict`` key is its Flax path joined with dots
+(:mod:`keras_ocr_tpu_torch.weights`); the folded graph keeps the same
+``conv`` keys and has no ``bn`` ones (:func:`fold_bn_state_dict`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from torch.nn import functional as F
 
 from ..ops import conv_cuda
 from ..ops.image import resize_bilinear
+from .layers import BatchNorm2d
 
 # (slice name, reference layer index of the conv, filters, pool after block)
 VGG_BLOCKS: typing.Tuple[typing.Tuple[str, int, int, bool], ...] = (
@@ -92,7 +96,7 @@ class ConvBN(nn.Module):
     def __init__(self, in_ch, out_ch, kernel=3, relu=True, fold_bn=False):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, padding="same")
-        self.bn = None if fold_bn else nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.bn = None if fold_bn else BatchNorm2d(out_ch, eps=1e-5)
         self.relu = relu
 
     def forward(self, x):
@@ -197,11 +201,14 @@ class CRAFT(nn.Module):
 
     def forward(self, x):
         if self.fold_bn:
+            if self.training:
+                raise ValueError("fold_bn=True is an inference-only graph")
             return self._forward_folded(x)
         # contiguous(): from a permuted NHWC tensor cuDNN runs every conv in
         # its channels-last fp32 kernels (CRAFT at batch 8 x 960x1280
-        # measured 903 ms instead of 235 ms on an H100).
-        x = x.to(torch.float32).permute(0, 3, 1, 2).contiguous()
+        # measured 903 ms instead of 235 ms on an H100). The standard graph
+        # computes in its parameters' dtype (float32 unless converted).
+        x = x.to(self.slice5_1.weight.dtype).permute(0, 3, 1, 2).contiguous()
         s1, s2, s3, s4 = self.basenet(x)
         s5 = F.max_pool2d(s4, 3, 1, padding=1)
         s5 = self.slice5_2(self.slice5_1(s5))

@@ -14,8 +14,17 @@ reproduces:
 * two bidirectional LSTM stages (Keras gate order [i, f, c~, o], which is
   PyTorch's [i, f, g, o]) whose backward output stays in processing order,
   i.e. NOT re-reversed: stage 1 sums the directions, stage 2 concatenates;
-* a softmax over ``alphabet_size + 1`` classes with the first
-  ``rnn_steps_to_discard`` frames dropped.
+* dropout on the biLSTM features in training mode, then a softmax over
+  ``alphabet_size + 1`` classes with the first ``rnn_steps_to_discard``
+  frames dropped.
+
+Training mode (``model.train()``) is the JAX module's ``train=True``: the
+three BatchNorms normalise with batch statistics and update their running
+ones with Flax's momentum 0.99 (torch momentum 0.01) and biased variance
+(:class:`.layers.BatchNorm2d`), and the dropout mask is drawn from the
+``torch.Generator`` passed to ``forward``. The LSTMs' ``bias_hh`` stay zero
+and frozen: the Keras layer has one bias, carried in ``bias_ih``, and a
+trained second copy would move the sum twice as far.
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ import typing
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from .layers import BatchNorm2d
 
 DEFAULT_BUILD_PARAMS = {
     "height": 31,
@@ -56,11 +67,12 @@ class SpatialTransformer(nn.Module):
         y = F.relu(self.conv2(y))
         y = y.permute(0, 2, 3, 1).reshape(batch, -1)  # flatten in (h, w, c)
         y = F.relu(self.dense1(y))
-        theta = self.dense2(y).reshape(batch, 2, 3).to(torch.float32)
+        theta = self.dense2(y).reshape(batch, 2, 3)
+        dtype = theta.dtype
 
         def linspace(n):
             grid = torch.linspace(-1.0, 1.0, n, dtype=torch.float64, device=x.device)
-            return grid.to(torch.float32)
+            return grid.to(dtype)
 
         gx = linspace(width)[None, :].expand(height, width).reshape(1, -1)
         gy = linspace(height)[:, None].expand(height, width).reshape(1, -1)
@@ -78,12 +90,12 @@ class SpatialTransformer(nn.Module):
         y1c = (y0 + 1).clamp(0, height - 1)
         # Weights from the CLIPPED indices: where both taps clip to the same
         # edge pixel they cancel, the reference's zero edge contribution.
-        wx_lo = (x1c.to(torch.float32) - sx)[..., None]
-        wx_hi = (sx - x0c.to(torch.float32))[..., None]
-        wy_lo = (y1c.to(torch.float32) - sy)[..., None]
-        wy_hi = (sy - y0c.to(torch.float32))[..., None]
+        wx_lo = (x1c.to(dtype) - sx)[..., None]
+        wx_hi = (sx - x0c.to(dtype))[..., None]
+        wy_lo = (y1c.to(dtype) - sy)[..., None]
+        wy_hi = (sy - y0c.to(dtype))[..., None]
 
-        feats = x.to(torch.float32).reshape(batch, height * width, channels)
+        feats = x.reshape(batch, height * width, channels)
 
         def tap(yy, xx):
             index = (yy * width + xx)[..., None].expand(-1, -1, channels)
@@ -97,7 +109,8 @@ class SpatialTransformer(nn.Module):
 
 class CRNN(nn.Module):
     """Full CRNN graph: (B, H, W, C) crops in [0, 1] -> (B, T, classes)
-    softmax frames, the first ``rnn_steps_to_discard`` dropped."""
+    softmax frames, the first ``rnn_steps_to_discard`` dropped (``forward``
+    says what else it returns)."""
 
     def __init__(
         self,
@@ -120,13 +133,15 @@ class CRNN(nn.Module):
         self.height, self.width = height, width
         self.pool_size = pool_size
         self.rnn_steps_to_discard = rnn_steps_to_discard
+        self.dropout = dropout
         in_ch = 3 if color else 1
         for i, out_ch in enumerate(filters, start=1):
             self.add_module(f"conv_{i}", nn.Conv2d(in_ch, out_ch, 3, padding="same"))
             in_ch = out_ch
-        self.bn_3 = nn.BatchNorm2d(filters[2], eps=1e-3)
-        self.bn_5 = nn.BatchNorm2d(filters[4], eps=1e-3)
-        self.bn_7 = nn.BatchNorm2d(filters[6], eps=1e-3)
+        # Flax momentum 0.99 = torch momentum 0.01.
+        self.bn_3 = BatchNorm2d(filters[2], eps=1e-3, momentum=0.01)
+        self.bn_5 = BatchNorm2d(filters[4], eps=1e-3, momentum=0.01)
+        self.bn_7 = BatchNorm2d(filters[6], eps=1e-3, momentum=0.01)
         steps = width // pool_size**2
         rows = height // pool_size**2
         self.stn = SpatialTransformer(filters[6], steps, rows) if stn else None
@@ -135,6 +150,10 @@ class CRNN(nn.Module):
         self.lstm_10 = nn.LSTM(u1, u1, batch_first=True, bidirectional=True)
         self.lstm_11 = nn.LSTM(u1, u2, batch_first=True, bidirectional=True)
         self.fc_12 = nn.Linear(2 * u2, alphabet_size + 1)
+        for lstm in (self.lstm_10, self.lstm_11):
+            for name, param in lstm.named_parameters():
+                if name.startswith("bias_hh"):
+                    param.requires_grad_(False)
 
     def _bilstm(self, lstm, x):
         out, _ = lstm(x)
@@ -143,9 +162,18 @@ class CRNN(nn.Module):
         # go_backwards output stays in processing order.
         return out[..., :units], out[..., units:].flip(1)
 
-    def forward(self, x):
+    def forward(self, x, return_logits=False, return_backbone=False, generator=None):
+        """(B, H, W, C) crops -> softmax frames (B, T, classes).
+
+        ``return_logits``: the pre-softmax frames instead.
+        ``return_backbone``: the (B, T + discarded, 2 * units) biLSTM
+        features before the dropout (no frame dropped).
+        ``generator``: the ``torch.Generator`` (on ``x``'s device) of the
+        training-mode dropout mask; training mode with dropout needs one.
+        """
         # NHWC (B, H, W, C) -> NCHW (B, C, W, H), flipped along H.
-        x = x.to(torch.float32).permute(0, 3, 2, 1).flip(3).contiguous()
+        # The graph computes in its parameters' dtype (float32 unless converted).
+        x = x.to(self.fc_9.weight.dtype).permute(0, 3, 2, 1).flip(3).contiguous()
         p = self.pool_size
         x = F.relu(self.conv_1(x))
         x = F.relu(self.conv_2(x))
@@ -163,5 +191,22 @@ class CRNN(nn.Module):
         x = F.relu(self.fc_9(x))
         fwd, bwd = self._bilstm(self.lstm_10, x)
         fwd, bwd = self._bilstm(self.lstm_11, fwd + bwd)
-        x = self.fc_12(torch.cat([fwd, bwd], -1))
-        return torch.softmax(x, -1)[:, self.rnn_steps_to_discard :]
+        features = torch.cat([fwd, bwd], -1)
+        if return_backbone:
+            return features
+        x = self.fc_12(self._dropout(features, generator))
+        if not return_logits:
+            x = torch.softmax(x, -1)
+        return x[:, self.rnn_steps_to_discard :]
+
+    def _dropout(self, x, generator):
+        """Flax's dropout: keep with probability 1 - p, survivors scaled by
+        1 / (1 - p); the identity in evaluation mode."""
+        if not self.training or self.dropout == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("training-mode dropout draws its mask from a torch.Generator; "
+                             "pass generator=")
+        keep = 1.0 - self.dropout
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)

@@ -669,7 +669,9 @@ class ExportedPipeline:
     width, 3) uint8 batch on ``meta["device"]``) and the host metadata, no
     model classes or weight files, and exposes the same ``recognize(images)
     -> [[(word, box)]]`` contract for its static (batch, height, width)
-    envelope.
+    envelope. The weights are those the pipeline had when it was exported:
+    training its models afterwards changes the live ``Pipeline``, not the
+    artifact (export again).
     """
 
     def __init__(self, program, meta: dict):

@@ -4,12 +4,14 @@ Counterpart of ``keras_ocr_tpu/recognition.py``: ``rgb_to_grayscale_host``
 and ``Recognizer`` with ``recognize`` (one pre-cropped image) and
 ``recognize_from_boxes`` (word boxes of whole images, cropped on the host
 by :func:`..tools.warpBox`), the CRNN and the greedy CTC decode on the
-recognizer's device. The published-weight loaders, training and
-``get_batch_generator`` are not ported yet.
+recognizer's device; ``compile`` (a :class:`..train.RecognizerTrainer`) and
+``get_batch_generator`` for training. The published-weight loaders are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import itertools
 import string
 import typing
 
@@ -86,6 +88,8 @@ class Recognizer:
     def load_variables(self, variables: dict) -> "Recognizer":
         """Load a JAX-package CRNN variable tree (numpy leaves)."""
         self.model.load_state_dict(weights_lib.crnn_state_dict(variables))
+        for lstm in (self.model.lstm_10, self.model.lstm_11):
+            lstm.flatten_parameters()  # cuDNN's one weight buffer
         return self
 
     @torch.inference_mode()
@@ -149,3 +153,70 @@ class Recognizer:
             X = X[..., np.newaxis]
         predictions = self._predict_strings(X, batch_size)
         return [predictions[start:end] for start, end in start_end]
+
+    def compile(self, optimizer=None, learning_rate: float = 1e-3, mesh=None):
+        """Create (and return, as ``self.trainer``) the CTC trainer of this
+        recognizer: ``optimizer`` is a callable from parameters to a
+        ``torch.optim.Optimizer``, by default RMSprop at ``learning_rate``
+        (the reference's Keras ``compile``). Train with
+        ``self.trainer.fit(...)``."""
+        from .train import RecognizerTrainer
+        from .train.optim import RMSprop
+
+        if optimizer is None:
+            def optimizer(params):
+                return RMSprop(params, lr=learning_rate)
+        self.trainer = RecognizerTrainer(self, optimizer=optimizer, mesh=mesh)
+        return self.trainer
+
+    def max_string_length(self) -> int:
+        """CTC frame count, ``width / pool**2 - rnn_steps_to_discard``: the
+        longest label this model can emit."""
+        params = self.build_params
+        return int(params["width"] // params["pool_size"] ** 2 - params["rnn_steps_to_discard"])
+
+    def _encode_label(self, sentence: str, pad_to: int) -> typing.List[int]:
+        """Alphabet indices of a sentence, -1-padded to ``pad_to`` slots.
+        Raises ``ValueError`` on what CTC training cannot take: an empty
+        sentence, one longer than ``pad_to``, runs of spaces, characters
+        outside the alphabet."""
+        if not sentence:
+            raise ValueError("Found a zero length sentence.")
+        if len(sentence) > pad_to:
+            raise ValueError("A sentence is longer than this model can predict.")
+        if "  " in sentence:
+            raise ValueError("Strings with multiple sequential spaces are not permitted.")
+        bad = [c for c in sentence if c not in self.alphabet]
+        if bad:
+            raise ValueError(f"Found illegal character: {bad[0]}")
+        return [self.alphabet.index(c) for c in sentence] + [-1] * (pad_to - len(sentence))
+
+    def get_batch_generator(self, image_generator, batch_size=8, lowercase=False):
+        """Training batches ``((images, labels, input_length, label_length),
+        zeros)`` from ``(image, text)`` samples, or with ``sample_weights``
+        appended from ``(image, text, weight)`` ones: uint8 RGB crops at the
+        model's input size become float32 in [0, 1] (grey for a one-channel
+        model), texts are stripped (and lowercased) and encoded."""
+        frames = self.max_string_length()
+        channels = self.input_shape[2]
+        ctc_dummy_target = np.zeros((batch_size, 1))
+        input_length = np.full((batch_size, 1), frames, dtype="float64")
+        while True:
+            samples = list(itertools.islice(image_generator, batch_size))
+            texts = [sample[1].strip() for sample in samples]
+            if lowercase:
+                texts = [text.lower() for text in texts]
+            planes = []
+            for sample in samples:
+                image = sample[0]
+                if channels != 3:
+                    image = rgb_to_grayscale_host(image)[..., np.newaxis]
+                planes.append(image.astype("float32") / 255)
+            images = np.array(planes)
+            labels = np.array([self._encode_label(text, frames) for text in texts])
+            label_length = np.array([[len(text)] for text in texts])
+            inputs = (images, labels, input_length, label_length)
+            if len(samples[0]) == 3:
+                yield inputs, ctc_dummy_target, np.array([sample[2] for sample in samples])
+            else:
+                yield inputs, ctc_dummy_target

@@ -3,7 +3,8 @@
 Counterparts of ``keras_ocr_tpu/tools.py`` (``read``, ``pad``,
 ``resize_image``, ``fit``, ``read_and_fit``, ``polygon_area``,
 ``convex_hull``, ``min_area_rect``, ``get_perspective_transform``,
-``warp_perspective``, ``get_rotated_box``, ``warpBox``) with numpy and the
+``warp_perspective``, ``get_rotated_box``, ``warpBox``, and the line
+helpers ``flatten``, ``combine_line``, ``adjust_boxes``, ``fix_line``) with numpy and the
 standard library only. PNG files are decoded by a small reader: colour
 types 0, 2, 3, 4 and 6 at every bit depth the format allows, not
 interlaced, to RGB uint8 as PIL's ``convert("RGB")`` gives them. JPEG files
@@ -922,3 +923,59 @@ def warpBox(
     if return_transform:
         return full, M
     return full
+
+
+# ---------------------------------------------------------------------------
+# Lines of characters (the detector's training targets)
+# ---------------------------------------------------------------------------
+
+
+def flatten(list_of_lists):
+    return [item for sublist in list_of_lists for item in sublist]
+
+
+def combine_line(line):
+    """One line of (box, character) entries -> one (box, text) word: the
+    min-area rectangle of the boxes' top and bottom edges, rolled to start
+    at the corner nearest the first box's top-left."""
+    text = "".join([character if character is not None else "" for _, character in line])
+    box = np.concatenate(
+        [coords[:2] for coords, _ in line]
+        + [np.array([coords[3], coords[2]]) for coords, _ in reversed(line)]
+    ).astype("float32")
+    first_point = box[0]
+    box = min_area_rect(box)
+    box = np.array(np.roll(box, -np.linalg.norm(box - first_point, axis=1).argmin(), 0))
+    return box, text
+
+
+def adjust_boxes(boxes, scale=1, boxes_format: str = "boxes"):
+    """Scale boxes in one of the three reference formats: ``"boxes"`` (an
+    array), ``"lines"`` (lists of (box, character)) or ``"predictions"``
+    ((word, box) pairs)."""
+    if scale == 1:
+        return boxes
+    if boxes_format == "boxes":
+        return np.array(boxes) * scale
+    if boxes_format == "lines":
+        return [
+            [(np.array(box) * scale, character) for box, character in line] for line in boxes
+        ]
+    if boxes_format == "predictions":
+        return [(word, np.array(box) * scale) for word, box in boxes]
+    raise NotImplementedError(f"Unsupported boxes format: {boxes_format}")
+
+
+def fix_line(line):
+    """Order a line of (box, character) tuples left to right or top to
+    bottom, each box as its rotated rectangle: returns the line and
+    ``"horizontal"`` or ``"vertical"``, by the larger spread of the box
+    centres."""
+    oriented = [(get_rotated_box(box)[0], character) for box, character in line]
+    centers = np.array([box.mean(axis=0) for box, _ in oriented])
+    x_extent, y_extent = centers.max(axis=0) - centers.min(axis=0)
+    if y_extent > x_extent:
+        axis, orientation = 1, "vertical"
+    else:
+        axis, orientation = 0, "horizontal"
+    return [oriented[i] for i in centers[:, axis].argsort()], orientation

@@ -1,4 +1,5 @@
-"""Weight bridge: JAX-package variable trees -> the port's ``state_dict``s.
+"""Weight bridge between JAX-package variable trees and the port's
+``state_dict``s, both ways.
 
 A variable tree is the nested ``{"params": ..., "batch_stats": ...}`` dict
 of numpy arrays the JAX package produces (``Detector.variables``,
@@ -7,7 +8,9 @@ changes: conv kernels HWIO -> OIHW, Dense ``(in, out)`` -> Linear
 ``(out, in)``, Keras LSTM ``kernel (in, 4u)`` / ``recurrent_kernel (u, 4u)``
 / ``bias (4u,)`` -> ``weight_ih (4u, in)`` / ``weight_hh (4u, u)`` /
 ``bias_ih`` with a zero ``bias_hh`` (the gate order [i, f, c~, o] is
-PyTorch's [i, f, g, o]).
+PyTorch's [i, f, g, o]). The way back (``craft_variables``,
+``crnn_variables``) inverts each change and returns the LSTM bias as
+``bias_ih + bias_hh``; a tree that goes there and back is unchanged.
 """
 
 from __future__ import annotations
@@ -133,3 +136,83 @@ def crnn_state_dict(variables: dict) -> dict:
         _dense(state, "stn.dense1", stn["dense1"])
         _dense(state, "stn.dense2", stn["dense2"])
     return state
+
+
+def _state(source) -> typing.Mapping[str, torch.Tensor]:
+    return source.state_dict() if isinstance(source, torch.nn.Module) else source
+
+
+def _array(tensor) -> np.ndarray:
+    """A float32 numpy copy (never a view of the tensor's storage)."""
+    return tensor.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _put(tree: dict, path: str, leaf: dict):
+    *parents, last = path.split(".")
+    for key in parents:
+        tree = tree.setdefault(key, {})
+    tree[last] = leaf
+
+
+def _conv_leaf(state, path):
+    return {"kernel": np.transpose(_array(state[f"{path}.weight"]), (2, 3, 1, 0)),
+            "bias": _array(state[f"{path}.bias"])}
+
+
+def _dense_leaf(state, path):
+    return {"kernel": np.transpose(_array(state[f"{path}.weight"])),
+            "bias": _array(state[f"{path}.bias"])}
+
+
+def _put_bn(params, stats, state, path):
+    _put(params, path, {"scale": _array(state[f"{path}.weight"]),
+                        "bias": _array(state[f"{path}.bias"])})
+    _put(stats, path, {"mean": _array(state[f"{path}.running_mean"]),
+                       "var": _array(state[f"{path}.running_var"])})
+
+
+def _tree(params: dict, stats: dict) -> dict:
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
+def craft_variables(source) -> dict:
+    """``CRAFT`` module or state_dict -> JAX-package variable tree (numpy
+    copies); a BN-folded model gives a tree without ``batch_stats``."""
+    state = _state(source)
+    params: dict = {}
+    stats: dict = {}
+    for path, kind in craft_name_map().values():
+        if kind == "conv":
+            _put(params, path, _conv_leaf(state, path))
+        elif f"{path}.weight" in state:
+            _put_bn(params, stats, state, path)
+    return _tree(params, stats)
+
+
+def crnn_variables(source) -> dict:
+    """``CRNN`` module or state_dict -> JAX-package variable tree (numpy
+    copies)."""
+    state = _state(source)
+    params: dict = {}
+    stats: dict = {}
+    for i in range(1, 8):
+        params[f"conv_{i}"] = _conv_leaf(state, f"conv_{i}")
+    for name in ("bn_3", "bn_5", "bn_7"):
+        _put_bn(params, stats, state, name)
+    for name in ("fc_9", "fc_12"):
+        params[name] = _dense_leaf(state, name)
+    for layer in ("lstm_10", "lstm_11"):
+        for suffix, target in (("", layer), ("_reverse", f"{layer}_back")):
+            bias = _array(state[f"{layer}.bias_ih_l0{suffix}"]) + _array(
+                state[f"{layer}.bias_hh_l0{suffix}"])
+            params[target] = {
+                "kernel": np.transpose(_array(state[f"{layer}.weight_ih_l0{suffix}"])),
+                "recurrent_kernel": np.transpose(_array(state[f"{layer}.weight_hh_l0{suffix}"])),
+                "bias": bias,
+            }
+    if "stn.conv1.weight" in state:
+        params["stn"] = {
+            "conv1": _conv_leaf(state, "stn.conv1"), "conv2": _conv_leaf(state, "stn.conv2"),
+            "dense1": _dense_leaf(state, "stn.dense1"), "dense2": _dense_leaf(state, "stn.dense2"),
+        }
+    return _tree(params, stats)

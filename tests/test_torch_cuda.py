@@ -6,7 +6,10 @@ conv wrappers (``conv_chain``, ``conv3x3_bias_act``), against their plain
 versions; the BN-folded CRAFT through the conv kernel against the unfolded
 graph; ``torch.library.opcheck`` of the three kernel ops on CUDA tensors;
 the golden pipeline exported on the card against the live device program,
-with the kernels' launch counts advancing during the artifact's run.
+with the kernels' launch counts advancing during the artifact's run; one
+full-width train step of the CRNN and of CRAFT (MSE and OHEM) on the card
+against the same step on the CPU (losses in float32, gradients in float64),
+and falling losses.
 
 Skipped where no CUDA device is present. On a machine with a card and no
 JAX, run with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -469,3 +472,101 @@ def test_exported_golden_on_card_equals_live(device, full_fp32, tmp_path, fold_b
     assert torch.equal(packed, live)
     words = [[w for w, _ in r] for r in served.recognize(images)]
     assert words == [[w for w, _ in r] for r in pipeline.recognize(images)]
+
+
+def _gradient_leaves(model, bridge):
+    state = dict(model.state_dict())
+    for name, param in model.named_parameters():
+        state[name] = param.grad if param.grad is not None else torch.zeros_like(param)
+
+    def leaves(tree, prefix=""):
+        for key, value in sorted(tree.items()):
+            if isinstance(value, dict):
+                yield from leaves(value, f"{prefix}{key}/")
+            else:
+                yield f"{prefix}{key}", np.asarray(value)
+
+    return dict(leaves(bridge(state)["params"]))
+
+
+def _gradient_errors(model, reference, bridge):
+    """(worst max|g - g_ref| / max|g_ref| over the leaves, the largest |g|
+    of the leaves that are rounding noise in the reference, over its
+    largest)."""
+    ours, ref = _gradient_leaves(model, bridge), _gradient_leaves(reference, bridge)
+    largest = max(np.abs(value).max() for value in ref.values())
+    worst = noise = 0.0
+    for path, value in ref.items():
+        scale = np.abs(value).max()
+        if scale <= 1e-9 * largest:
+            noise = max(noise, np.abs(ours[path]).max() / largest)
+        else:
+            worst = max(worst, np.abs(ours[path] - value).max() / scale)
+    return worst, noise
+
+
+def _step_on_card_and_cpu(trainer_cls, model_on, bridge, batch, **kwargs):
+    """One train step from one state on the card and on the CPU, in
+    float32 and in float64: the float32 losses within 1e-4 relative; each
+    float64 gradient leaf within 1e-3 of its largest |g| (leaves that are
+    rounding noise on the CPU below 1e-4 of the largest gradient). The
+    float32 gradients are not compared: the card's cuDNN and CUDA
+    reductions leave them up to ~5e-3 (CRNN) and ~6e-2 (CRAFT at random
+    init, where the CPU's own float32 step is 4.5e-2 off) from the float64
+    ones. Returns the float32 card trainer and its loss."""
+    card = model_on("cuda")
+    variables = bridge(card.model)
+    cpu, card64, cpu64 = (model_on(on).load_variables(variables) for on in ("cpu", "cuda", "cpu"))
+    for wide in (card64, cpu64):
+        wide.model.double()
+    trainer = trainer_cls(card, **kwargs)
+    loss = trainer.train_step(batch)
+    assert abs(loss - trainer_cls(cpu, **kwargs).train_step(batch)) <= 1e-4 * abs(loss)
+    trainer_cls(card64, **kwargs).train_step(batch)
+    trainer_cls(cpu64, **kwargs).train_step(batch)
+    worst, noise = _gradient_errors(card64.model, cpu64.model, bridge)
+    assert worst <= 1e-3 and noise <= 1e-4, (worst, noise)
+    return trainer, loss
+
+
+def test_crnn_train_step_on_card_matches_cpu(device, full_fp32):
+    """The full-width CRNN (dropout 0, STN at its identity start) at batch
+    8; 20 RMSprop steps on the batch lower the loss."""
+    from keras_ocr_tpu_torch import Recognizer, weights
+    from keras_ocr_tpu_torch.models.crnn import DEFAULT_BUILD_PARAMS
+    from keras_ocr_tpu_torch.train import RecognizerTrainer
+
+    params = dict(DEFAULT_BUILD_PARAMS, dropout=0.0)
+    rng = np.random.RandomState(11)
+    frames = 48
+    label_length = rng.randint(1, 21, size=(8, 1))
+    labels = np.full((8, frames), -1)
+    for i, n in enumerate(label_length[:, 0]):
+        labels[i, :n] = rng.randint(0, 36, size=n)
+    batch = ((rng.rand(8, 31, 200, 1).astype(np.float32), labels,
+              np.full((8, 1), frames), label_length), np.zeros((8, 1)))
+    trainer, first = _step_on_card_and_cpu(
+        RecognizerTrainer, lambda on: Recognizer(build_params=params, device=on, seed=3),
+        weights.crnn_variables, batch)
+    losses = [first] + [trainer.train_step(batch) for _ in range(19)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert not trainer.model.training
+
+
+@pytest.mark.parametrize("loss", ["mse", "ohem"])
+def test_craft_train_step_on_card_matches_cpu(device, full_fp32, loss):
+    """CRAFT at width 1.0, 2x256x256, under both losses; 20 Adam steps on
+    the batch lower the loss."""
+    from keras_ocr_tpu_torch import Detector, weights
+    from keras_ocr_tpu_torch.train import DetectorTrainer
+
+    rng = np.random.RandomState(12)
+    images = rng.randn(2, 256, 256, 3).astype(np.float32)
+    targets = (rng.rand(2, 128, 128, 2) * 0.05).astype(np.float32)
+    targets[:, 20:40, 10:70, 0] = 0.9
+    targets[:, 26:34, 10:70, 1] = 0.6
+    trainer, first = _step_on_card_and_cpu(
+        DetectorTrainer, lambda on: Detector(width=1.0, device=on, seed=4),
+        weights.craft_variables, (images, targets), loss=loss)
+    losses = [first] + [trainer.train_step((images, targets)) for _ in range(19)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
