@@ -103,9 +103,29 @@ Phases, each printing one line; any failure exits non-zero:
    ``Detector.detect`` of a golden scene must launch both sweep-kernel
    entries. The train step launches none of the three kernels.
 
+12. weights: the full-width CRAFT (seeded BatchNorm statistics) written by
+   the port's writers as ``.h5``, ``.pth`` and a legacy-format ``.pth`` in
+   clovaai's form (``module.`` keys, no ``num_batches_tracked``), and the
+   full-width CRNN (STN) as top and notop ``.h5``, under ``build/weights``
+   (removed at the end). Each file resolves through ``download_pretrained``
+   from that directory with ``urllib.request.urlopen`` refused (any call
+   fails the phase), reads back bit for bit, and loads by name
+   (``Detector(load_from_torch=...)``, standard and ``fold_bn=True``;
+   ``Recognizer()``): heatmaps at 480x640 and softmax on 8 crops identical
+   to models given the same tree; ``Recognizer(alphabet="abcdefghij")``
+   takes the notop backbone and keeps its own ``fc_12``. The ``.pth``-loaded
+   detectors' full-width ``recognize`` of 4 golden scenes at 640x480 must
+   launch both sweep-kernel entries, and the folded one both conv entries.
+   The torch twin from the ``.pth`` within 1e-4 * max(1, max|ref|) of the
+   port's CRAFT at 480x640. Then file MB, write, read+convert and
+   construction seconds (medians of 3) and the HDF5 reader's MB/s; and, if
+   ``weights_pretrained/`` holds the published ``craft_mlt_25k.h5`` and
+   ``crnn_kurapan.h5`` with the registry's sha256, ``Pipeline()`` reads
+   ``tests/fixtures/test_image.jpg``; else one line names the missing files.
+
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
-path), each run of 9 and each golden artifact's run in 10 count their
-kernel launches from zero; the kernel ops are
+path), each run of 9, each golden artifact's run in 10 and each
+``.pth``-loaded detector's run in 12 count their kernel launches from zero; the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
 JSON; the last line is ``{"ok": true, "device": {...}}``. There is no CPU
@@ -832,7 +852,7 @@ def refine_phase(card, detector, recognizer, scenes):
     with torch.inference_mode():
         timings = refine_levels(cc, cc_cuda, postprocess, refine, heatmaps)
 
-    stand_in = Detector(width=0.25, device="cuda")
+    stand_in = Detector(weights=None, width=0.25, device="cuda")
     stand_in.model = FixedCraft(heatmaps)
     images = [np.zeros((960, 1280, 3), np.uint8)] * REFINE_SHAPE[0]
     with warnings.catch_warnings(record=True) as caught:
@@ -1366,10 +1386,10 @@ def training_phase(card, golden_images, sweep_wrappers):
     # (a) One step on the card against the same step on the CPU from one
     # state, then 19 more on the same batch.
     def recognizer_on(on):
-        return Recognizer(build_params=no_dropout, device=on, seed=3)
+        return Recognizer(weights=None, build_params=no_dropout, device=on, seed=3)
 
     def detector_on(on):
-        return Detector(width=TRAIN_CRAFT_WIDTH, device=on, seed=4)
+        return Detector(weights=None, width=TRAIN_CRAFT_WIDTH, device=on, seed=4)
 
     frames = 48
     batch = crnn_batch(rng, 8, frames, 36)
@@ -1382,7 +1402,8 @@ def training_phase(card, golden_images, sweep_wrappers):
         "CRAFT", DetectorTrainer, detector_on, weights.craft_variables, (images, targets))
     detector = detector_trainer.detector
     craft_losses = [loss] + [detector_trainer.train_step((images, targets)) for _ in range(19)]
-    ohem_loss = DetectorTrainer(Detector(width=TRAIN_CRAFT_WIDTH, device=device, seed=5),
+    ohem_loss = DetectorTrainer(Detector(weights=None, width=TRAIN_CRAFT_WIDTH, device=device,
+                                         seed=5),
                                 loss="ohem").train_step((images, targets))
     for what, series in (("CRNN", crnn_losses), ("CRAFT", craft_losses)):
         if not (np.isfinite(series).all() and series[-1] < series[0]):
@@ -1399,7 +1420,7 @@ def training_phase(card, golden_images, sweep_wrappers):
 
     # (b) Times: CUDA events around whole train steps (upload, forward,
     # backward, optimiser, loss fetch), medians of 10 after a warm-up.
-    timing = Recognizer(device=device, seed=6)  # dropout 0.25, as trained
+    timing = Recognizer(weights=None, device=device, seed=6)  # dropout 0.25, as trained
     timing_trainer = RecognizerTrainer(timing)
     if timing.max_string_length() != frames:
         raise AssertionError(f"{timing.max_string_length()} CTC frames, not {frames}")
@@ -1515,6 +1536,262 @@ def training_phase(card, golden_images, sweep_wrappers):
           f"{len(boxes[0])} boxes, launches {launches}")
 
 
+# Phase 12: weights. Files go to build/weights, removed at the end.
+WEIGHTS_DIR = os.path.join(ROOT, "build", "weights")
+# The twin against the port's CRAFT on the card.
+TWIN_BAR = 1e-4
+OTHER_ALPHABET = "abcdefghij"
+
+
+def median_seconds(fn, runs=3):
+    """(median seconds, last result) of ``runs`` calls of ``fn``."""
+    times, result = [], None
+    for _ in range(runs):
+        start = time.perf_counter()
+        result = fn()
+        times.append(time.perf_counter() - start)
+    return statistics.median(times), result
+
+
+def same_tree(what, got, want, prefix=""):
+    """Every leaf of ``got`` bit for bit equal to ``want``'s."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: keys {sorted(got)} vs {sorted(want)} at {prefix!r}")
+    for key, value in want.items():
+        if isinstance(value, dict):
+            same_tree(what, got[key], value, f"{prefix}/{key}")
+        elif (np.asarray(got[key]).dtype != value.dtype
+              or np.asarray(got[key]).tobytes() != np.ascontiguousarray(value).tobytes()):
+            raise AssertionError(f"{what}: {prefix}/{key} differs")
+
+
+def exactly(what, out, ref):
+    if out.shape != ref.shape or not torch.equal(out, ref):
+        err = float((out - ref).abs().max()) if out.shape == ref.shape else None
+        raise AssertionError(f"{what}: not identical (max |diff| {err})")
+
+
+def registry_entry(path):
+    """A registry entry for ``path``: its own sha256 and an unreachable URL."""
+    name = os.path.basename(path)
+    from keras_ocr_tpu_torch import tools
+
+    return {"url": f"https://unreachable.invalid/{name}", "filename": name,
+            "sha256": tools.sha256sum(path)}
+
+
+def read_all_h5(h5, path):
+    """Open ``path`` with the port's reader and read every dataset; the
+    bytes read."""
+    arrays = []
+    h5.File(path).visititems(
+        lambda _, node: arrays.append(np.asarray(node)) if isinstance(node, h5.Dataset) else None)
+    return sum(a.nbytes for a in arrays)
+
+
+def weights_phase(card, scenes, sweep_wrappers, conv_wrappers):
+    """Phase 12: the published-weight formats on the card. The full-width
+    CRAFT (seeded BatchNorm statistics) written as ``.h5``, ``.pth`` and a
+    legacy ``.pth`` in clovaai's form, and the full-width CRNN as top and
+    notop ``.h5``, each resolved through ``download_pretrained`` from
+    ``build/weights`` with ``urlopen`` refused, read back bit for bit, and
+    loaded into ``Detector`` / ``Recognizer`` by name: heatmaps and softmax
+    identical to models given the same tree; the ``.pth``-loaded detector's
+    full-width ``recognize`` launches the sweep kernel (and the conv kernel
+    when folded); the torch twin agrees with the port's CRAFT; sizes,
+    times and the HDF5 reader's rate; then the published files, if
+    vendored."""
+    import urllib.request
+
+    from keras_ocr_tpu_torch import Detector, Pipeline, Recognizer, h5, tools, weights
+    from keras_ocr_tpu_torch.detection import build_torch_model
+
+    device = torch.device("cuda")
+    published_dir = weights.vendored_weights_dir()
+    published = {
+        "detector": dict(weights.DETECTOR_PRETRAINED),
+        "recognizer": weights.RECOGNIZER_PRETRAINED["kurapan"],
+    }
+    urls = []
+
+    def refuse(url, *args, **kwargs):
+        urls.append(url)
+        raise OSError("phase 12 resolves weight files offline")
+
+    saved = (urllib.request.urlopen, os.environ.get("KERAS_OCR_TPU_VENDORED_WEIGHTS"),
+             torch.backends.cudnn.deterministic)
+    shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+    os.makedirs(WEIGHTS_DIR)
+    urllib.request.urlopen = refuse
+    os.environ["KERAS_OCR_TPU_VENDORED_WEIGHTS"] = WEIGHTS_DIR
+    # Identical heatmaps and softmax: the same algorithms for both models.
+    torch.backends.cudnn.deterministic = True
+    sizes, write_s, read_s, build_s = {}, {}, {}, {}
+    try:
+        # (1) CRAFT: three files, each resolved offline, read back, loaded.
+        reference = Detector(weights=None, device=device, seed=0)
+        seed_batch_norm(reference.model, seed=2)
+        craft = weights.craft_variables(reference.model)
+        folded_reference = Detector(weights=None, fold_bn=True, device=device).load_variables(
+            craft)
+
+        def legacy_pth(path):
+            state = {f"module.{key}": torch.from_numpy(np.ascontiguousarray(value))
+                     for key, value in weights.craft_variables_to_torch_state_dict(craft).items()
+                     if not key.endswith("num_batches_tracked")}
+            torch.save(state, path, _use_new_zipfile_serialization=False)
+            return path
+
+        craft_files = {}
+        for label, name, write in (
+                ("h5", "craft.h5", lambda p: weights.craft_variables_to_h5(craft, p)),
+                ("pth", "craft.pth", lambda p: weights.save_craft_torch_checkpoint(craft, p)),
+                ("legacy pth", "craft_legacy.pth", legacy_pth)):
+            path = os.path.join(WEIGHTS_DIR, name)
+            write_s[label], _ = median_seconds(lambda: write(path))
+            entry = registry_entry(path)
+            if weights.download_pretrained(entry) != path:
+                raise AssertionError(f"{label}: download_pretrained did not find {path}")
+            read_s[label], tree = median_seconds(lambda: weights.load_craft_weights(path))
+            same_tree(f"CRAFT {label} read back", tree, craft)
+            sizes[label] = os.path.getsize(path) / 1e6
+            craft_files[label] = (path, entry)
+        with open(craft_files["legacy pth"][0], "rb") as f:
+            if f.read(2) == b"PK":
+                raise AssertionError("the legacy .pth was written as a zip archive")
+
+        x = torch.randn((1, 480, 640, 3), generator=torch.Generator(device="cuda").manual_seed(7),
+                        device="cuda")
+        with torch.inference_mode():
+            ref_heatmaps = {False: reference.model(x), True: folded_reference.model(x)}
+        detectors = {}
+        for label, (path, entry) in craft_files.items():
+            key = ("clovaai_general", label != "h5")
+            weights.DETECTOR_PRETRAINED[key] = entry
+            for fold in (False, True):
+                seconds, detector = median_seconds(lambda: Detector(
+                    load_from_torch=key[1], fold_bn=fold, device=device))
+                build_s[f"Detector {label}" + (", folded" if fold else "")] = seconds
+                with torch.inference_mode():
+                    exactly(f"heatmaps, Detector from {label} (fold_bn={fold})",
+                            detector.model(x), ref_heatmaps[fold])
+                detectors[label, fold] = detector
+        print(f"weights ({card}): CRAFT (width 1.0, seeded BatchNorm statistics) written as "
+              f".h5 / .pth / legacy .pth, each resolved offline by download_pretrained, read "
+              f"back bit for bit, and Detector(weights=...) heatmaps at 480x640 identical to "
+              f"the tree's, standard and fold_bn=True")
+
+        # The .pth-loaded detectors read the golden scenes at 640x480.
+        recognizer = Recognizer(weights=None, device=device, seed=1)
+        for fold in (False, True):
+            wrappers = {**sweep_wrappers, **(conv_wrappers if fold else {})}
+            for wrapper in {**sweep_wrappers, **conv_wrappers}.values():
+                wrapper.launches = 0
+            pipeline = Pipeline(detector=detectors["pth", fold], recognizer=recognizer, scale=2)
+            check_results(pipeline.recognize(scenes[:4]), 4)
+            launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+            if min(launches.values()) <= 0:
+                raise AssertionError(f"the .pth-loaded detector skipped a kernel: {launches}")
+            print(f"weights: full-width recognize of 4 golden scenes (640x480) through the "
+                  f".pth-loaded detector{' (fold_bn=True)' if fold else ''}: launches {launches}")
+
+        # (2) CRNN: top and notop files.
+        crnn_reference = Recognizer(weights=None, device=device, seed=3)
+        seed_batch_norm(crnn_reference.model, seed=4)
+        with torch.no_grad():
+            stn = crnn_reference.model.stn.dense2  # off the identity: the sampler moves
+            stn.weight.copy_(torch.randn(stn.weight.shape, generator=torch.Generator()
+                                         .manual_seed(5)) * 0.02)
+            stn.bias.copy_(torch.tensor([0.9, 0.08, 0.05, -0.06, 1.1, 0.03]))
+        crnn = weights.crnn_variables(crnn_reference.model)
+        notop_tree = {"params": {k: v for k, v in crnn["params"].items() if k != "fc_12"},
+                      "batch_stats": crnn["batch_stats"]}
+        crnn_entries = {}
+        for label, include_top in (("top", True), ("notop", False)):
+            path = os.path.join(WEIGHTS_DIR, f"crnn_{label}.h5")
+            write_s[f"CRNN {label}"], _ = median_seconds(
+                lambda: weights.crnn_variables_to_h5(crnn, path, include_top=include_top))
+            crnn_entries[label] = registry_entry(path)
+            if weights.download_pretrained(crnn_entries[label]) != path:
+                raise AssertionError(f"CRNN {label}: download_pretrained did not find {path}")
+            read_s[f"CRNN {label}"], tree = median_seconds(
+                lambda: weights.crnn_variables_from_h5(path, include_top=include_top))
+            same_tree(f"CRNN {label} read back", tree, crnn if include_top else notop_tree)
+            sizes[f"CRNN {label}"] = os.path.getsize(path) / 1e6
+        weights.RECOGNIZER_PRETRAINED["kurapan"] = {"weights": crnn_entries}
+        build_s["Recognizer top"], from_file = median_seconds(lambda: Recognizer(device=device))
+        crops = torch.rand((8, 31, 200, 1), generator=torch.Generator(device="cuda").manual_seed(8),
+                           device="cuda")
+        tree_loaded = Recognizer(weights=None, device=device).load_variables(crnn)
+        with torch.inference_mode():
+            exactly("softmax, Recognizer from the top file", from_file.model(crops),
+                    tree_loaded.model(crops))
+        build_s["Recognizer notop"], other = median_seconds(
+            lambda: Recognizer(alphabet=OTHER_ALPHABET, device=device))
+        own = Recognizer(OTHER_ALPHABET, None, device=device).model.fc_12
+        exactly("notop recognizer's own fc_12", other.model.fc_12.weight, own.weight)
+        same_tree("notop recognizer's backbone", {
+            k: v for k, v in weights.crnn_variables(other.model)["params"].items()
+            if k != "fc_12"}, notop_tree["params"])
+        print(f"weights ({card}): CRNN (DEFAULT_BUILD_PARAMS, STN) written as top and notop "
+              f".h5, resolved offline, read back bit for bit; Recognizer() softmax on 8 crops "
+              f"identical to the tree's; Recognizer(alphabet={OTHER_ALPHABET!r}) loads the "
+              f"notop backbone and keeps its own fc_12 {tuple(other.model.fc_12.weight.shape)}")
+
+        # (3) The torch twin against the port's CRAFT at 480x640.
+        twin = build_torch_model(craft_files["pth"][0])
+        twin.load_state_dict({k: v.to(device) for k, v in twin.state_dict_.items()})
+        with torch.inference_mode():
+            twin_out = twin(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        err = check_close("twin vs the port's CRAFT", twin_out, ref_heatmaps[False], TWIN_BAR)
+        print(f"weights ({card}): torch twin of CRAFT from the .pth within {err:.3e} of the "
+              f"port's CRAFT at 480x640 (max|ref| {float(ref_heatmaps[False].abs().max()):.3e}; "
+              f"bar {TWIN_BAR} * max(1, max|ref|))")
+
+        # (4) Sizes, times, the HDF5 reader's rate.
+        h5_path = craft_files["h5"][0]
+        reader_s, nbytes = median_seconds(lambda: read_all_h5(h5, h5_path))
+        print(f"weights ({card}): file MB " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sizes.items()))
+        print(f"weights ({card}): write s (median of 3) " + ", ".join(
+            f"{k} {v:.3f}" for k, v in write_s.items()))
+        print(f"weights ({card}): read+convert s (median of 3) " + ", ".join(
+            f"{k} {v:.3f}" for k, v in read_s.items()))
+        print(f"weights ({card}): construction s (median of 3) " + ", ".join(
+            f"{k} {v:.3f}" for k, v in build_s.items()))
+        print(f"weights ({card}): HDF5 reader {sizes['h5'] / reader_s:.1f} MB/s "
+              f"({nbytes / 1e6:.3f} MB of datasets in {reader_s:.3f} s, CRAFT .h5, median "
+              f"of 3; host CPU {host_cpu()})")
+        if urls:
+            raise AssertionError(f"phase 12 reached for the network: {urls}")
+    finally:
+        urllib.request.urlopen = saved[0]
+        if saved[1] is None:
+            os.environ.pop("KERAS_OCR_TPU_VENDORED_WEIGHTS", None)
+        else:
+            os.environ["KERAS_OCR_TPU_VENDORED_WEIGHTS"] = saved[1]
+        torch.backends.cudnn.deterministic = saved[2]
+        weights.DETECTOR_PRETRAINED.update(published["detector"])
+        weights.RECOGNIZER_PRETRAINED["kurapan"] = published["recognizer"]
+        shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+
+    # The published files, where they are vendored.
+    needed = [weights.DETECTOR_PRETRAINED["clovaai_general", False],
+              weights.RECOGNIZER_PRETRAINED["kurapan"]["weights"]["top"]]
+    missing = [entry["filename"] for entry in needed
+               if not os.path.isfile(os.path.join(published_dir, entry["filename"]))
+               or tools.sha256sum(os.path.join(published_dir, entry["filename"]))
+               != entry["sha256"]]
+    if missing:
+        print(f"weights: published files not in {os.path.relpath(published_dir, ROOT)}/: "
+              f"{', '.join(missing)}; Pipeline() with the default weights not run")
+        return
+    pipeline = Pipeline()
+    words = [word for word, _ in pipeline.recognize([SERVING_JPEG])[0]]
+    print(f"weights ({card}): Pipeline() with the published weights reads "
+          f"{os.path.relpath(SERVING_JPEG, ROOT)}: {words}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path", file=sys.stderr)
@@ -1577,8 +1854,8 @@ def main() -> int:
     for wrapper in all_wrappers.values():
         wrapper.launches = 0
     golden_phase("golden", golden_pipeline)
-    detector = Detector(width=1.0, device=device, seed=0)
-    recognizer = Recognizer(device=device, seed=1)
+    detector = Detector(weights=None, width=1.0, device=device, seed=0)
+    recognizer = Recognizer(weights=None, device=device, seed=1)
     pipeline = Pipeline(detector=detector, recognizer=recognizer, scale=2)
     scenes = [tools.pad(image, width=640, height=480) for image in golden_images]
     torch.cuda.reset_peak_memory_stats()
@@ -1606,7 +1883,7 @@ def main() -> int:
     if min(golden_launches.values()) <= 0:
         raise AssertionError(f"the folded golden path skipped a conv kernel: {golden_launches}")
     seed_batch_norm(detector.model, seed=2)
-    folded = Detector(width=1.0, fold_bn=True, device=device)
+    folded = Detector(weights=None, width=1.0, fold_bn=True, device=device)
     folded.model.load_state_dict(fold_bn_state_dict(detector.model.state_dict()))
     folded_pipeline = Pipeline(detector=folded, recognizer=recognizer, scale=2)
     with torch.inference_mode():
@@ -1654,6 +1931,8 @@ def main() -> int:
                   all_wrappers, pass_fraction, pipeline, scenes)
 
     training_phase(card, golden_images, sweep_wrappers)
+
+    weights_phase(card, scenes, sweep_wrappers, conv_wrappers)
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",

@@ -4,7 +4,9 @@ host oracle.
 Counterpart of ``keras_ocr_tpu/detection.py``: ``compute_input``,
 ``getBoxes`` (the reference's algorithm on the host, exact: the oracle the
 device post-processing is held to, and its fallback), ``boxes_from_mask``
-and ``Detector`` with ``heatmaps`` and ``detect``; for training
+and ``Detector`` (with the published weights, see :mod:`.weights`) with
+``heatmaps`` and ``detect``; ``build_model`` and the torch twin
+``build_torch_model``; for training
 ``get_gaussian_heatmap``, ``compute_maps`` and ``Detector.compile`` /
 ``get_batch_generator``. Where the JAX package's
 oracle calls scipy, this one labels with the plain CPU versions of
@@ -224,14 +226,28 @@ class Detector:
     """CRAFT text detector.
 
     Args:
-        weights: name of published pretrained weights. Their loaders are
-            not ported yet, so only ``None`` (seeded random weights, or a
-            variable tree passed to :meth:`load_variables`) is accepted.
-        width: channel multiplier (1.0 = the reference graph).
+        weights: name of published pretrained weights (the
+            ``DETECTOR_PRETRAINED`` registry, with ``load_from_torch``), or
+            ``None`` for seeded random weights (or a variable tree passed
+            to :meth:`load_variables`). The file is looked up offline first
+            (:func:`.weights.download_pretrained`); where it cannot be had
+            the constructor raises ``RuntimeError`` unless
+            ``allow_random_fallback`` is set, which warns and keeps the
+            random weights instead.
+        load_from_torch: take the clovaai ``.pth`` file rather than the
+            Keras ``.h5``.
+        optimizer: kept as ``optimizer_name`` (keras-ocr's argument).
+        backbone_name: ``"vgg"``; the EfficientNet backbones are not
+            ported yet.
         max_components: starting cap of the component escalation.
+        allow_random_fallback: warn and keep random weights where the
+            named file cannot be had.
         fold_bn: build the inference graph with BatchNorm folded into the
-            convolutions; on the card its convs run through the CUDA
-            chain kernel (:mod:`keras_ocr_tpu_torch.ops.conv_cuda`).
+            convolutions (loaded weights are folded on load); on the card
+            its convs run through the CUDA chain kernel
+            (:mod:`keras_ocr_tpu_torch.ops.conv_cuda`).
+        width: channel multiplier (1.0 = the reference graph; other
+            widths have no pretrained weights).
         device: where the model runs (default: the first GPU; without
             one, pass ``device="cpu"`` or the constructor raises).
         seed: seed of the random initialisation.
@@ -239,26 +255,53 @@ class Detector:
 
     def __init__(
         self,
-        weights: typing.Optional[str] = None,
-        width: float = 1.0,
+        weights: typing.Optional[str] = "clovaai_general",
+        load_from_torch: bool = False,
+        optimizer: str = "adam",
+        backbone_name: str = "vgg",
         max_components: int = 256,
+        allow_random_fallback: bool = False,
         fold_bn: bool = False,
+        width: float = 1.0,
+        *,
         device=None,
         seed: int = 0,
     ):
         if width != 1.0 and weights is not None:
             raise ValueError(f"width={width} has no pretrained weights; pass weights=None")
-        if weights is not None:
+        if backbone_name != "vgg":
+            if weights is not None:
+                raise ValueError("Pretrained weights available only for VGG.")
             raise NotImplementedError(
-                f"pretrained weights {weights!r} cannot be loaded yet; use "
-                "weights=None and load_variables()"
+                f"backbone {backbone_name!r}: the EfficientNet backbones are the next "
+                "slice of the port; use backbone_name=\"vgg\""
             )
+        key = (weights, load_from_torch)
+        if weights is not None and key not in weights_lib.DETECTOR_PRETRAINED:
+            raise ValueError(f"Selected weights configuration not found: {key}")
+        self.backbone_name = backbone_name
+        self.optimizer_name = optimizer
         self.width = width
         self.max_components = max_components
         self.fold_bn = fold_bn
         self.device = torch.device(device) if device is not None else default_device()
         model = init_parameters(CRAFT(width=width, fold_bn=fold_bn), seed=seed)
         self.model = model.to(self.device).eval()
+        if weights is None:
+            return
+        try:
+            weights_path = weights_lib.download_pretrained(weights_lib.DETECTOR_PRETRAINED[key])
+        except RuntimeError:
+            if not allow_random_fallback:
+                raise
+            warnings.warn(
+                f"Pretrained weights {weights!r} unavailable (offline, no cache); falling "
+                "back to RANDOM initialization (allow_random_fallback=True). Detection "
+                "quality will be garbage until the model is trained.",
+                stacklevel=2,
+            )
+        else:
+            self.load_variables(weights_lib.load_craft_weights(weights_path))
 
     def load_variables(self, variables: dict) -> "Detector":
         """Load a JAX-package CRAFT variable tree (numpy leaves). With
@@ -402,3 +445,38 @@ class Detector:
                 yield X, y, np.array([sample[2] for sample in batch])
             else:
                 yield X, y
+
+
+def build_model(backbone_name: str = "vgg", weights_path: typing.Optional[str] = None,
+                seed: int = 0) -> typing.Tuple[CRAFT, dict]:
+    """The CRAFT graph and its variable tree: loaded from a ``.h5`` /
+    ``.pth`` file where ``weights_path`` is given, else the seeded random
+    initialisation's. The module is on the CPU, in ``eval()``, with the
+    tree loaded."""
+    if backbone_name != "vgg":
+        raise NotImplementedError(
+            f"backbone {backbone_name!r}: the EfficientNet backbones are the next slice of "
+            "the port"
+        )
+    model = init_parameters(CRAFT(), seed=seed).eval()
+    if weights_path is None:
+        return model, weights_lib.craft_variables(model)
+    variables = weights_lib.load_craft_weights(weights_path)
+    model.load_state_dict(weights_lib.craft_state_dict(variables))
+    return model, variables
+
+
+build_keras_model = build_model
+
+
+def load_torch_weights(weights_path: str) -> dict:
+    """A clovaai ``.pth`` checkpoint -> a CRAFT variable tree."""
+    return weights_lib.load_torch_checkpoint(weights_path)
+
+
+def build_torch_model(weights_path: typing.Optional[str] = None):
+    """The independent torch twin of CRAFT over clovaai names
+    (:mod:`.weights.torch_twin`), with a ``.pth`` loaded if given."""
+    from .weights.torch_twin import build_torch_model as build
+
+    return build(weights_path)

@@ -160,9 +160,11 @@ class Pipeline:
     """A detector and a recognizer fused into one device program.
 
     Args:
-        detector / recognizer: default to seeded random-weight models on
-            the first GPU (raises without one: pass models built with
-            ``device="cpu"`` to run on the CPU).
+        detector / recognizer: default to ``Detector()`` and
+            ``Recognizer()`` with the published weights on the first GPU
+            (raises without one, and where the weight files cannot be had:
+            pass models built with ``device="cpu"`` to run on the CPU, and
+            ``weights=None`` for random weights).
         scale: the scale factor applied to input images.
         max_size: the maximum single-side dimension of scaled images.
         max_words: cap on recognized words per image.

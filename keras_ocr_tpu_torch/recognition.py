@@ -5,8 +5,9 @@ and ``Recognizer`` with ``recognize`` (one pre-cropped image) and
 ``recognize_from_boxes`` (word boxes of whole images, cropped on the host
 by :func:`..tools.warpBox`), the CRNN and the greedy CTC decode on the
 recognizer's device; ``compile`` (a :class:`..train.RecognizerTrainer`) and
-``get_batch_generator`` for training. The published-weight loaders are not
-ported yet.
+``get_batch_generator`` for training; ``build_model`` and
+``PRETRAINED_WEIGHTS``. The published weights load through
+:mod:`.weights`.
 """
 
 from __future__ import annotations
@@ -27,6 +28,45 @@ from .ops import ctc as ctc_ops
 
 DEFAULT_ALPHABET = string.digits + string.ascii_lowercase
 
+# keras-ocr's ``PRETRAINED_WEIGHTS`` shape: name -> alphabet, build
+# parameters and the registry's top / notop files.
+PRETRAINED_WEIGHTS = {
+    name: {"alphabet": DEFAULT_ALPHABET, "build_params": DEFAULT_BUILD_PARAMS,
+           "weights": entry["weights"]}
+    for name, entry in weights_lib.RECOGNIZER_PRETRAINED.items()
+}
+
+
+def build_model(
+    alphabet: str,
+    height: int = 31,
+    width: int = 200,
+    color: bool = False,
+    filters=(64, 128, 256, 256, 512, 512, 512),
+    rnn_units=(128, 128),
+    dropout: float = 0.25,
+    rnn_steps_to_discard: int = 2,
+    pool_size: int = 2,
+    stn: bool = True,
+) -> CRNN:
+    """The CRNN graph for ``alphabet`` (unseeded parameters: see
+    :func:`.models.init_parameters`). One module stands for keras-ocr's
+    four models: its forward gives the softmax, the CTC loss and decode
+    are :mod:`.ops.ctc`, and backbone-only loading is
+    ``crnn_variables_from_h5(path, include_top=False)``."""
+    return CRNN(
+        alphabet_size=len(alphabet),
+        height=height,
+        width=width,
+        color=color,
+        filters=tuple(filters),
+        rnn_units=tuple(rnn_units),
+        dropout=dropout,
+        rnn_steps_to_discard=rnn_steps_to_discard,
+        pool_size=pool_size,
+        stn=stn,
+    )
+
 
 def rgb_to_grayscale_host(image: np.ndarray) -> np.ndarray:
     """uint8 RGB -> uint8 grey in OpenCV's fixed point:
@@ -41,9 +81,13 @@ class Recognizer:
 
     Args:
         alphabet: the character set (default digits + lowercase).
-        weights: name of published pretrained weights; not loadable yet,
-            so only ``None`` (seeded random weights, or a variable tree
-            passed to :meth:`load_variables`) is accepted.
+        weights: name of published pretrained weights (the
+            ``RECOGNIZER_PRETRAINED`` registry), or ``None`` for seeded
+            random weights (or a variable tree passed to
+            :meth:`load_variables`). With the default alphabet the whole
+            model loads; with another, the backbone ("notop" file) loads
+            and the classifier ``fc_12`` keeps its random weights. A file
+            that cannot be had raises ``RuntimeError``.
         build_params: CRNN build parameters (default
             :data:`~keras_ocr_tpu_torch.models.crnn.DEFAULT_BUILD_PARAMS`).
         device: where the model runs (default: the first GPU; without
@@ -54,36 +98,39 @@ class Recognizer:
     def __init__(
         self,
         alphabet: typing.Optional[str] = None,
-        weights: typing.Optional[str] = None,
+        weights: typing.Optional[str] = "kurapan",
         build_params: typing.Optional[dict] = None,
         *,
         device=None,
         seed: int = 0,
     ):
-        if weights is not None:
-            raise NotImplementedError(
-                f"pretrained weights {weights!r} cannot be loaded yet; use "
-                "weights=None and load_variables()"
-            )
+        if weights is not None and weights not in weights_lib.RECOGNIZER_PRETRAINED:
+            raise ValueError(f"Selected weights configuration not found: {weights!r}")
         self.alphabet = alphabet or DEFAULT_ALPHABET
         self.build_params = dict(build_params or DEFAULT_BUILD_PARAMS)
         params = self.build_params
         channels = 3 if params["color"] else 1
         self.input_shape = (params["height"], params["width"], channels)
         self.device = torch.device(device) if device is not None else default_device()
-        model = CRNN(
-            alphabet_size=len(self.alphabet),
-            height=params["height"],
-            width=params["width"],
-            color=params["color"],
-            filters=tuple(params["filters"]),
-            rnn_units=tuple(params["rnn_units"]),
-            dropout=params["dropout"],
-            rnn_steps_to_discard=params["rnn_steps_to_discard"],
-            pool_size=params["pool_size"],
-            stn=params["stn"],
-        )
+        model = build_model(self.alphabet, **{key: params[key] for key in (
+            "height", "width", "color", "filters", "rnn_units", "dropout",
+            "rnn_steps_to_discard", "pool_size", "stn")})
         self.model = init_parameters(model, seed=seed).to(self.device).eval()
+        if weights is None:
+            return
+        files = weights_lib.RECOGNIZER_PRETRAINED[weights]["weights"]
+        own = weights_lib.crnn_variables(self.model)
+        if self.alphabet == DEFAULT_ALPHABET:
+            path = weights_lib.download_pretrained(files["top"])
+            loaded = weights_lib.crnn_variables_from_h5(path, include_top=True)
+        else:
+            print("Provided alphabet does not match pretrained alphabet. "
+                  "Using backbone weights only.")
+            path = weights_lib.download_pretrained(files["notop"])
+            loaded = weights_lib.crnn_variables_from_h5(path, include_top=False)
+            loaded["params"]["fc_12"] = own["params"]["fc_12"]
+        weights_lib.validate_against(loaded, own)
+        self.load_variables(loaded)
 
     def load_variables(self, variables: dict) -> "Recognizer":
         """Load a JAX-package CRNN variable tree (numpy leaves)."""

@@ -9,16 +9,23 @@ standard library only. PNG files are decoded by a small reader: colour
 types 0, 2, 3, 4 and 6 at every bit depth the format allows, not
 interlaced, to RGB uint8 as PIL's ``convert("RGB")`` gives them. JPEG files
 (sequential Huffman, 8-bit, grey or three components) are decoded by
-:func:`decode_jpeg` with the arithmetic of PIL's libjpeg-turbo.
+:func:`decode_jpeg` with the arithmetic of PIL's libjpeg-turbo. The
+download helpers (``sha256sum``, ``md5sum``, ``get_default_cache_dir``,
+``download_and_verify``, ``safe_extract_zip``, ``download_and_extract``)
+serve the weight registry (:mod:`.weights`).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import re
 import struct
 import typing
+import urllib.parse
 import urllib.request
+import warnings
+import zipfile
 import zlib
 
 import numpy as np
@@ -979,3 +986,109 @@ def fix_line(line):
     else:
         axis, orientation = 0, "horizontal"
     return [oriented[i] for i in centers[:, axis].argsort()], orientation
+
+
+# ---------------------------------------------------------------------------
+# Downloads and the cache
+# ---------------------------------------------------------------------------
+
+
+def sha256sum(filename) -> str:
+    """The sha256 hex digest of a file."""
+    return _filehash(filename, hashlib.sha256())
+
+
+def md5sum(filename) -> str:
+    """The md5 hex digest of a file, for files whose upstream publishes
+    only md5 (keras-applications' EfficientNet checkpoints)."""
+    return _filehash(filename, hashlib.md5())
+
+
+def _filehash(filename, h) -> str:
+    buffer = bytearray(128 * 1024)
+    view = memoryview(buffer)
+    with open(filename, "rb", buffering=0) as f:
+        for n in iter(lambda: f.readinto(view), 0):
+            h.update(view[:n])
+    return h.hexdigest()
+
+
+def get_default_cache_dir() -> str:
+    """The weight and asset cache: ``KERAS_OCR_TPU_CACHE_DIR``, else
+    ``KERAS_OCR_CACHE_DIR``, else ``~/.keras-ocr`` (keras-ocr's own, so
+    that files it downloaded are reused)."""
+    return os.environ.get(
+        "KERAS_OCR_TPU_CACHE_DIR",
+        os.environ.get("KERAS_OCR_CACHE_DIR", os.path.expanduser(os.path.join("~", ".keras-ocr"))),
+    )
+
+
+def download_and_verify(url, sha256=None, cache_dir=None, verbose=True, filename=None,
+                        timeout=60) -> str:
+    """The cached copy of ``url``, downloaded if it is missing or its sha256
+    differs; raises ``ValueError`` if the result does not match ``sha256``.
+
+    The transfer streams to ``<file>.partial``, renamed into place only on
+    success, so an interrupted download never passes for a cached file;
+    each socket read waits at most ``timeout`` seconds.
+    """
+    if cache_dir is None:
+        cache_dir = get_default_cache_dir()
+    if filename is None:
+        filename = os.path.basename(urllib.parse.urlparse(url).path)
+    filepath = os.path.join(cache_dir, filename)
+    os.makedirs(os.path.split(filepath)[0], exist_ok=True)
+    if verbose:
+        print("Looking for " + filepath)
+    if not os.path.isfile(filepath) or (sha256 and sha256sum(filepath) != sha256):
+        if verbose:
+            print("Downloading " + filepath)
+        partial = filepath + ".partial"
+        try:
+            with urllib.request.urlopen(url, timeout=timeout) as response:
+                with open(partial, "wb") as f:
+                    while True:
+                        chunk = response.read(1 << 20)
+                        if not chunk:
+                            break
+                        f.write(chunk)
+            os.replace(partial, filepath)
+        finally:
+            if os.path.isfile(partial):
+                os.remove(partial)
+    if sha256 is not None and sha256 != sha256sum(filepath):
+        raise ValueError(f"sha256 mismatch for {filepath} (from {url})")
+    return filepath
+
+
+def safe_extract_zip(zip_path, destination):
+    """Extract a zip archive, refusing (``ValueError``) any member that
+    would land outside ``destination`` (absolute paths, ``..``); a
+    truncated archive raises ``zipfile.BadZipFile``."""
+    destination = os.path.realpath(destination)
+    with zipfile.ZipFile(zip_path) as zfile:
+        for member in zfile.namelist():
+            target = os.path.realpath(os.path.join(destination, member))
+            if target != destination and not target.startswith(destination + os.sep):
+                raise ValueError(
+                    f"refusing to extract {member!r} from {zip_path}: escapes {destination}"
+                )
+        zfile.extractall(destination)
+
+
+def download_and_extract(url, destination, sha256=None, cache_dir=None, filename=None,
+                         verbose=True) -> str:
+    """:func:`download_and_verify`, then :func:`safe_extract_zip`; a cached
+    archive that no longer opens as a zip is deleted and downloaded once
+    more, and a second failure raises."""
+    for attempt in range(2):
+        zip_path = download_and_verify(url=url, sha256=sha256, cache_dir=cache_dir,
+                                       filename=filename, verbose=verbose)
+        try:
+            safe_extract_zip(zip_path, destination)
+            return zip_path
+        except zipfile.BadZipFile:
+            if attempt:
+                raise
+            warnings.warn(f"cached archive {zip_path} is corrupt; re-downloading")
+            os.remove(zip_path)

@@ -167,8 +167,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     device = torch.device("cuda")
     pipeline = Pipeline(
-        detector=Detector(width=1.0, device=device, seed=0),
-        recognizer=Recognizer(device=device, seed=1),
+        detector=Detector(weights=None, width=1.0, device=device, seed=0),
+        recognizer=Recognizer(weights=None, device=device, seed=1),
         scale=2,
     )
     with open(os.path.join(ARTIFACT, "expected.json"), encoding="utf8") as f:

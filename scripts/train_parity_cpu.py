@@ -72,7 +72,7 @@ def jax_gradients(variables, dtype):
 
 
 def port_gradients(variables, dtype):
-    detector = Detector(width=WIDTH, device="cpu").load_variables(variables)
+    detector = Detector(weights=None, width=WIDTH, device="cpu").load_variables(variables)
     detector.model.to(dtype)
     trainer = DetectorTrainer(detector)
     trainer.train_step(batch(0))
@@ -90,7 +90,7 @@ def jax_trajectory(variables, dtype):
 
 
 def port_trajectory(variables, dtype):
-    detector = Detector(width=WIDTH, device="cpu").load_variables(variables)
+    detector = Detector(weights=None, width=WIDTH, device="cpu").load_variables(variables)
     detector.model.to(dtype)
     trainer = DetectorTrainer(detector)
     return [trainer.train_step(batch(1)) for _ in range(3)]

@@ -102,7 +102,7 @@ def main() -> int:
         params = dict(DEFAULT_BUILD_PARAMS, dropout=0.0, stn=stn)
 
         def make(on, params=params):
-            return Recognizer(build_params=params, device=on, seed=3)
+            return Recognizer(weights=None, build_params=params, device=on, seed=3)
 
         variables = weights.crnn_variables(make("cpu").model)
         wide_acts: dict = {}
@@ -121,7 +121,7 @@ def main() -> int:
     images, targets = chip_smoke.craft_batch(rng, 2, 256, 256)
 
     def make_detector(on):
-        return Detector(width=1.0, device=on, seed=4)
+        return Detector(weights=None, width=1.0, device=on, seed=4)
 
     variables = weights.craft_variables(make_detector("cpu").model)
     reference = craft_step(fresh(make_detector, variables, "cpu", torch.float64), images, targets)

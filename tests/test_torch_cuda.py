@@ -546,7 +546,8 @@ def test_crnn_train_step_on_card_matches_cpu(device, full_fp32):
     batch = ((rng.rand(8, 31, 200, 1).astype(np.float32), labels,
               np.full((8, 1), frames), label_length), np.zeros((8, 1)))
     trainer, first = _step_on_card_and_cpu(
-        RecognizerTrainer, lambda on: Recognizer(build_params=params, device=on, seed=3),
+        RecognizerTrainer,
+        lambda on: Recognizer(weights=None, build_params=params, device=on, seed=3),
         weights.crnn_variables, batch)
     losses = [first] + [trainer.train_step(batch) for _ in range(19)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
@@ -566,7 +567,7 @@ def test_craft_train_step_on_card_matches_cpu(device, full_fp32, loss):
     targets[:, 20:40, 10:70, 0] = 0.9
     targets[:, 26:34, 10:70, 1] = 0.6
     trainer, first = _step_on_card_and_cpu(
-        DetectorTrainer, lambda on: Detector(width=1.0, device=on, seed=4),
+        DetectorTrainer, lambda on: Detector(weights=None, width=1.0, device=on, seed=4),
         weights.craft_variables, (images, targets), loss=loss)
     losses = [first] + [trainer.train_step((images, targets)) for _ in range(19)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]

@@ -117,7 +117,7 @@ def ladder_detectors():
     hm = _ladder_batch()
     jax_detector = jdetection.Detector(weights=None, width=0.25, max_components=2)
     jax_detector._forward = lambda variables, x: jnp.asarray(hm)
-    port = detection.Detector(width=0.25, max_components=2, device="cpu")
+    port = detection.Detector(weights=None, width=0.25, max_components=2, device="cpu")
     port.model = _FixedCraft(hm)
     images = [np.zeros((192, 256, 3), np.uint8)] * 3
     return jax_detector, port, images, hm

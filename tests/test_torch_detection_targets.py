@@ -156,7 +156,7 @@ def _detector_samples(seed, weighted):
 
 @pytest.mark.parametrize("weighted", [False, True])
 def test_detector_batch_generator_equals_jax(weighted):
-    ours = Detector(width=0.125, device="cpu").get_batch_generator(
+    ours = Detector(weights=None, width=0.125, device="cpu").get_batch_generator(
         _detector_samples(0, weighted), batch_size=3, heatmap_size=64)
     # The JAX generator reads nothing of its detector: no model is built.
     theirs = jdetection.Detector.get_batch_generator(

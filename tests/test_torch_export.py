@@ -221,9 +221,9 @@ def test_export_matches_live_on_multiblob_scene(tmp_path):
     from test_refine import _multiblob_heatmap
 
     hm = _multiblob_heatmap(np.random.RandomState(5), n_words=2)
-    detector = Detector(width=0.25, max_components=16, device="cpu")
+    detector = Detector(weights=None, width=0.25, max_components=16, device="cpu")
     detector.model = _FixedCraft(hm)
-    recognizer = Recognizer(alphabet=string.digits + string.ascii_lowercase,
+    recognizer = Recognizer(weights=None, alphabet=string.digits + string.ascii_lowercase,
                             build_params=golden._read_json(GOLDEN, golden.META_NAME)
                             ["recognizer_build_params"], device="cpu")
     image_height, image_width = hm.shape[0] * 2, hm.shape[1] * 2

@@ -105,8 +105,8 @@ def test_folded_detector_loads_standard_and_folded_trees():
 
     standard = read_npz(os.path.join(GOLDEN, "detector_slim.npz"))
     folded_tree = _numpy_tree(fold_bn_variables(restore_npz(os.path.join(GOLDEN, "detector_slim.npz"))))
-    a = Detector(width=0.25, fold_bn=True, device="cpu").load_variables(standard)
-    b = Detector(width=0.25, fold_bn=True, device="cpu").load_variables(folded_tree)
+    a = Detector(weights=None, width=0.25, fold_bn=True, device="cpu").load_variables(standard)
+    b = Detector(weights=None, width=0.25, fold_bn=True, device="cpu").load_variables(folded_tree)
     state_a, state_b = a.model.state_dict(), b.model.state_dict()
     assert set(state_a) == set(state_b)
     for key in state_a:

@@ -114,18 +114,42 @@ def test_recognize_many_equals_recognize(pipelines):
                 np.testing.assert_allclose(box, ref_box, atol=1e-3)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """Named weights resolve offline or raise, as in the JAX package: with
+    nothing vendored or cached and the network refused, ``Detector()`` and
+    ``Recognizer()`` raise ``RuntimeError`` naming the file, and
+    ``allow_random_fallback=True`` warns and keeps the random weights. A
+    width other than 1.0 or a non-VGG backbone with named weights raises
+    ``ValueError``; a non-VGG backbone without them is not ported yet."""
+    import urllib.request
+
     from keras_ocr_tpu_torch import Detector, Pipeline, Recognizer
 
+    def refuse(*args, **kwargs):
+        raise OSError("no network in the tests")
+
+    monkeypatch.setattr(urllib.request, "urlopen", refuse)
+    monkeypatch.setenv("KERAS_OCR_TPU_VENDORED_WEIGHTS", str(tmp_path / "vendored"))
+    monkeypatch.setenv("KERAS_OCR_TPU_CACHE_DIR", str(tmp_path / "cache"))
+    monkeypatch.delenv("KERAS_OCR_TPU_WEIGHTS_MIRROR", raising=False)
     with pytest.raises(ValueError):
         Detector(weights="clovaai_general", width=0.5, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Detector(weights="clovaai_general", device="cpu")
-    with pytest.raises(NotImplementedError):
-        Recognizer(weights="kurapan", device="cpu")
+    with pytest.raises(ValueError):
+        Detector(backbone_name="efficientnetb0", device="cpu")
+    with pytest.raises(NotImplementedError, match="EfficientNet"):
+        Detector(weights=None, backbone_name="efficientnetb0", device="cpu")
+    with pytest.raises(RuntimeError, match="craft_mlt_25k.h5"):
+        Detector(device="cpu")
+    with pytest.raises(RuntimeError, match="craft_mlt_25k.pth"):
+        Detector(load_from_torch=True, device="cpu")
+    with pytest.raises(RuntimeError, match="crnn_kurapan.h5"):
+        Recognizer(device="cpu")
+    with pytest.warns(UserWarning, match="RANDOM initialization"):
+        fallback = Detector(device="cpu", allow_random_fallback=True)
+    assert fallback.width == 1.0
     pipeline = Pipeline(
-        detector=Detector(width=0.25, device="cpu"),
-        recognizer=Recognizer(build_params=dict(META_SLIM), device="cpu"),
+        detector=Detector(weights=None, width=0.25, device="cpu"),
+        recognizer=Recognizer(weights=None, build_params=dict(META_SLIM), device="cpu"),
         max_size=64,
     )
     # 48 x 2 > max_size: the non-uniform path, ported now, runs.
@@ -141,8 +165,9 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         getattr(keras_ocr_tpu_torch, entry)()
-    detector = keras_ocr_tpu_torch.Detector(width=0.25, device="cpu")
-    recognizer = keras_ocr_tpu_torch.Recognizer(build_params=dict(META_SLIM), device="cpu")
+    detector = keras_ocr_tpu_torch.Detector(weights=None, width=0.25, device="cpu")
+    recognizer = keras_ocr_tpu_torch.Recognizer(weights=None, build_params=dict(META_SLIM),
+                                                device="cpu")
     built = {
         "Detector": detector,
         "Recognizer": recognizer,

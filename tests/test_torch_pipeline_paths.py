@@ -99,7 +99,7 @@ def test_refine_ladder_matches_jax_pipeline(pipelines):
     jax_golden, port_golden = pipelines
     jax_detector = JaxDetector(weights=None, width=0.25, max_components=16)
     jax_detector.model = FakeCraft()
-    detector = Detector(width=0.25, max_components=16, device="cpu")
+    detector = Detector(weights=None, width=0.25, max_components=16, device="cpu")
     detector.model = _FixedCraft(hm)
     size = (hm.shape[0] * 2, hm.shape[1] * 2)
     kwargs = dict(scale=1, max_words=8, pad_to=size)

@@ -296,9 +296,19 @@ def test_two_stage_shape_policy_and_kwargs(golden_pipelines):
                            recognition_kwargs={"nonsense_option": 1})
 
 
-def test_recognizer_positional_order_and_device():
+def test_recognizer_positional_order_and_device(tmp_path, monkeypatch):
     """``(alphabet, weights, build_params)`` as in JAX; ``device`` and
-    ``seed`` keyword-only."""
+    ``seed`` keyword-only. Named weights for another alphabet take the
+    notop file, which offline (network refused) raises ``RuntimeError``."""
+    import urllib.request
+
+    def refuse(*args, **kwargs):
+        raise OSError("no network in the tests")
+
+    monkeypatch.setattr(urllib.request, "urlopen", refuse)
+    monkeypatch.setenv("KERAS_OCR_TPU_VENDORED_WEIGHTS", str(tmp_path / "vendored"))
+    monkeypatch.setenv("KERAS_OCR_TPU_CACHE_DIR", str(tmp_path / "cache"))
+    monkeypatch.delenv("KERAS_OCR_TPU_WEIGHTS_MIRROR", raising=False)
     params = dict(jrecognition.DEFAULT_BUILD_PARAMS, filters=(4,) * 7, rnn_units=(4, 4),
                   stn=False)
     recognizer = Recognizer("abc", None, params, device="cpu")
@@ -306,5 +316,5 @@ def test_recognizer_positional_order_and_device():
     assert recognizer.device == torch.device("cpu")
     with pytest.raises(TypeError):
         Recognizer("abc", None, params, "cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="crnn_kurapan_notop.h5"):
         Recognizer("abc", "kurapan", device="cpu")

@@ -57,7 +57,7 @@ def _jax_detector():
 
 
 def _port_detector(variables, **kwargs):
-    return Detector(width=WIDTH, device="cpu", **kwargs).load_variables(variables)
+    return Detector(weights=None, width=WIDTH, device="cpu", **kwargs).load_variables(variables)
 
 
 def _batch(seed=0):

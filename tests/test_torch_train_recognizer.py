@@ -418,7 +418,7 @@ def test_multi_device_arguments_and_missing_card_raise():
         RecognizerTrainer(recognizer, tensor_parallel=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            RecognizerTrainer(Recognizer())
+            RecognizerTrainer(Recognizer(weights=None))
 
 
 def test_pipeline_reads_with_the_trained_weights():
