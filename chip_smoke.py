@@ -137,16 +137,44 @@ Phases, each printing one line; any failure exits non-zero:
    rectangles part from the oracle's by more than phase 8's 3 px); the
    CRAFT forward of B0, B3 and
    B7 beside the VGG graph's at 960x1280, batch 1 and 8 (CUDA events,
-   median of 10, peak memory); the B0 train step on the card against the
+   median of 10, peak memory), and the VGG and B0 forwards at every batch
+   1-8 (medians of 5 between), each row printed whole: no batch may take
+   more than 2x batch 1's time per image; the B0 train step on the card against the
    CPU (as phase 11) and three ``DetectorTrainer`` steps at 640x640, batch
    8, whose loss must fall, with step ms and peak memory; and, if
    ``weights_pretrained/efficientnetb0_notop.h5`` is there, its taps.
 
+14. data: the committed ``tests/fixtures/progressive.jpg`` and
+   ``interlaced.png`` read with the port's ``tools.read`` must decode to the
+   sha256 of PIL's decode, with the median decode ms of both beside the
+   baseline ``test_image.jpg``'s; with ``urllib.request.urlopen`` refused
+   for the whole phase (any call fails it), an offline cache under
+   ``build/data`` (removed at the end) in the layouts the loaders take:
+   229 ICDAR 2013 images (the baseline and the progressive JPEG in turn,
+   hard-linked) with GT files of seeded words inside each image, and 3567
+   BornDigital crops (the interlaced PNG) with their ``gt.txt``;
+   ``get_icdar_2013_detector_dataset`` -> ``get_detector_image_generator``
+   (``Affine``, ``GaussianBlur``, ``Multiply``; 640x640) ->
+   ``Detector.get_batch_generator(8)`` -> ``DetectorTrainer.fit`` of three
+   steps on the full-width VGG CRAFT, and
+   ``get_born_digital_recognizer_dataset`` ->
+   ``get_recognizer_image_generator`` -> ``Recognizer.get_batch_generator(8)``
+   -> ``RecognizerTrainer.fit`` of three steps on the full-width CRNN:
+   finite losses, each batch's host ms split into ``read``, ``augment``,
+   ``compute_maps`` and the rest, beside the step ms (CUDA events), and
+   each ``fit``'s wall ms beside the device's busy ms in it
+   (``torch.profiler``) and the idle share; then the data-trained
+   detector's ``Detector.detect`` of the progressive fixture, at thresholds
+   set by quantiles of its heatmaps, must launch both sweep-kernel entries
+   (counted from zero), each call equal to its plain version on the same
+   tensors, and find boxes within 1e-3 px of the CPU run of the device path
+   on the card's heatmaps.
+
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
-``.pth``-loaded detector's run in 12 and the EfficientNet pipeline of 13
-count their kernel launches from zero; the kernel line's launches are
-those of phases 5-7 and 13; the kernel ops are
+``.pth``-loaded detector's run in 12, the EfficientNet pipeline of 13 and
+the ``detect`` of 14 count their kernel launches from zero; the kernel
+line's launches are those of phases 5-7, 13 and 14; the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
 JSON; the last line is ``{"ok": true, "device": {...}}``. There is no CPU
@@ -162,6 +190,7 @@ import gc
 import math
 import os
 import platform
+import random
 import shutil
 import statistics
 import subprocess
@@ -1853,6 +1882,10 @@ def offline(cache_dir=EFFICIENTNET_CACHE):
 # on torch's generator), and its detection threshold; the ImageNet file
 # phase 13 reads if it is vendored.
 EFFICIENTNET_TIMED = ("efficientnetb0", "efficientnetb3", "efficientnetb7")
+# The CRAFT forwards timed at every batch 1-8, and the most time per image
+# any batch may take, as a multiple of batch 1's.
+BATCH_SWEPT = ("vgg", "efficientnetb0")
+BATCH_SWEEP_BAR = 2.0
 DETECT_QUANTILES = ((0.9, 0.95), (0.8, 0.9), (0.7, 0.9), (0.6, 0.9), (0.5, 0.9))
 DETECT_QUANTILE = 0.97
 IMAGENET_B0 = os.path.join(ROOT, "weights_pretrained", "efficientnetb0_notop.h5")
@@ -1870,11 +1903,32 @@ def efficientnet_detector(name, device, seed=0):
     return detector, any("ImageNet initialization" in str(w.message) for w in caught)
 
 
+def quantile_thresholds(heatmaps):
+    """``detect``'s thresholds at quantiles of (B, H, W, 2) ``heatmaps``:
+    the first text and link pair of ``DETECT_QUANTILES`` under which no
+    image has more components than the device cap's ceiling. Returns
+    ((text, link) quantiles, thresholds, components per image)."""
+    from scipy import ndimage
+
+    from keras_ocr_tpu_torch import detection
+
+    for q_text, q_link in DETECT_QUANTILES:
+        thresholds = dict(
+            text_threshold=float(np.quantile(heatmaps[..., 0], q_text)),
+            link_threshold=float(np.quantile(heatmaps[..., 1], q_link)),
+            detection_threshold=float(np.quantile(heatmaps[..., 0], DETECT_QUANTILE)))
+        counts = [ndimage.label((h[..., 0] > thresholds["text_threshold"])
+                                | (h[..., 1] > thresholds["link_threshold"]))[1]
+                  for h in heatmaps]
+        if max(counts) <= detection.MAX_COMPONENTS_CEILING:
+            return (q_text, q_link), thresholds, counts
+    raise AssertionError(f"no quantiles in {DETECT_QUANTILES} keep the components "
+                         f"under the cap: {counts}")
+
+
 def efficientnet_phase(card, scenes, vgg, recognizer, sweep_wrappers):
     """Phase 13: the EfficientNet CRAFT on the card. Returns the sweep
     kernel's launches on its pipeline path."""
-    from scipy import ndimage
-
     from keras_ocr_tpu_torch import Pipeline, detection, weights
     from keras_ocr_tpu_torch.ops.image import compute_input
     from keras_ocr_tpu_torch.train import DetectorTrainer
@@ -1920,19 +1974,7 @@ def efficientnet_phase(card, scenes, vgg, recognizer, sweep_wrappers):
         batch = torch.from_numpy(np.stack(scenes[:8])).to(device)
         with torch.inference_mode():
             heatmaps = detector.model(compute_input(batch)).cpu().numpy()
-        for q_text, q_link in DETECT_QUANTILES:
-            thresholds = dict(
-                text_threshold=float(np.quantile(heatmaps[..., 0], q_text)),
-                link_threshold=float(np.quantile(heatmaps[..., 1], q_link)),
-                detection_threshold=float(np.quantile(heatmaps[..., 0], DETECT_QUANTILE)))
-            counts = [ndimage.label((h[..., 0] > thresholds["text_threshold"])
-                                    | (h[..., 1] > thresholds["link_threshold"]))[1]
-                      for h in heatmaps]
-            if max(counts) <= detection.MAX_COMPONENTS_CEILING:
-                break
-        else:
-            raise AssertionError(f"no quantiles in {DETECT_QUANTILES} keep the components "
-                                 f"under the cap: {counts}")
+        (q_text, q_link), thresholds, counts = quantile_thresholds(heatmaps)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             start = time.perf_counter()
@@ -1969,19 +2011,35 @@ def efficientnet_phase(card, scenes, vgg, recognizer, sweep_wrappers):
     for name in EFFICIENTNET_TIMED:
         models[name] = detector.model if name == "efficientnetb0" else efficientnet_detector(
             name, device)[0].model
+    # VGG and B0 at every batch 1-8 (medians of 5 between 1 and 8): no
+    # batch may take more than BATCH_SWEEP_BAR x batch 1's time per image
+    # (cuDNN's float32 FFT pick took 14x at batch 2, PerImageConv2d).
     with torch.inference_mode():
-        for batch_size in (1, 8):
+        for batch_size in range(1, 9):
             x = torch.randn((batch_size, 960, 1280, 3), device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(batch_size))
             for name, model in models.items():
+                if batch_size not in (1, 8) and name not in BATCH_SWEPT:
+                    continue
                 torch.cuda.reset_peak_memory_stats()
-                forward_ms[name, batch_size] = cuda_median_ms(lambda: model(x), runs=10)
+                forward_ms[name, batch_size] = cuda_median_ms(
+                    lambda: model(x), runs=10 if batch_size in (1, 8) else 5)
                 forward_gb[name, batch_size] = torch.cuda.max_memory_allocated() / 1e9
             del x
     print(f"efficientnet ({card}): CRAFT forward at 960x1280, float32, median of 10 (peak "
           f"GB): " + "; ".join(
               f"{name} batch {b} {forward_ms[name, b]:.3f} ms ({forward_gb[name, b]:.2f})"
               for b in (1, 8) for name in models))
+    for name in BATCH_SWEPT:
+        per_image = {b: forward_ms[name, b] / b for b in range(1, 9)}
+        print(f"efficientnet ({card}): {name} CRAFT forward at 960x1280, batch 1-8, ms (per "
+              "image; per image / batch 1's): " + ", ".join(
+                  f"b{b} {forward_ms[name, b]:.3f} ({per_image[b]:.3f}; "
+                  f"{per_image[b] / per_image[1]:.2f})" for b in range(1, 9)))
+        slow = [b for b in range(2, 9) if per_image[b] > BATCH_SWEEP_BAR * per_image[1]]
+        if slow:
+            raise AssertionError(f"{name} CRAFT forward at batches {slow} exceeds "
+                                 f"{BATCH_SWEEP_BAR}x batch 1's time per image")
     for name in EFFICIENTNET_TIMED[1:]:
         del models[name]
     gc.collect()
@@ -2036,10 +2094,277 @@ def efficientnet_phase(card, scenes, vgg, recognizer, sweep_wrappers):
     return launches
 
 
+# Phase 14: data. The offline dataset cache goes to build/data, removed at
+# the end; the committed fixtures it is made of, with the sha256 of PIL's RGB
+# decode of each (tests/test_torch_tools.py asserts the same values).
+DATA_DIR = os.path.join(ROOT, "build", "data")
+DATA_FIXTURES = {
+    "progressive.jpg": "c0adb0d001a6217014b32289dbbfc0b1e3e218bc49d92e2d1eab662f007c3e55",
+    "interlaced.png": "0f3f1d71318e7985d8194f853fd77ac71aab2c8b1608d14fda74dfe7fdba36b9",
+}
+# The loaders' offline counts: ICDAR 2013 images and GT files, BornDigital
+# train images (its gt.txt makes 3568 files).
+ICDAR_2013_COUNT = 229
+BORN_DIGITAL_TRAIN = 3567
+DATA_STEPS = 3
+DATA_BATCH = 8
+
+
+def fixture_path(name):
+    return os.path.join(ROOT, "tests", "fixtures", name)
+
+
+def place(source, target):
+    """``target`` as a hard link to ``source`` (a copy where links fail)."""
+    try:
+        os.link(source, target)
+    except OSError:
+        shutil.copyfile(source, target)
+
+
+def data_cache(root, words):
+    """The ICDAR 2013 detector set and the BornDigital train set in the
+    layouts their loaders take offline, made of the committed fixtures:
+    ICDAR images alternate the baseline and the progressive JPEG, each with
+    a GT file of 1-3 seeded words whose character boxes lie inside the
+    image; BornDigital images are the interlaced PNG, labelled with words."""
+    rng = np.random.RandomState(14)
+    images = os.path.join(root, "icdar2013", "Challenge2_Training_Task12_Images")
+    gts = os.path.join(root, "icdar2013", "Challenge2_Training_Task2_GT")
+    train = os.path.join(root, "borndigital", "train")
+    for folder in (images, gts, train):
+        os.makedirs(folder)
+    for i in range(ICDAR_2013_COUNT):
+        progressive = i % 2 == 1
+        place(fixture_path("progressive.jpg" if progressive else "test_image.jpg"),
+              os.path.join(images, f"{100 + i}.jpg"))
+        width, height = (320, 240) if progressive else (640, 480)
+        rows = []
+        for _ in range(rng.randint(1, 4)):
+            word = words[rng.randint(len(words))][:10]
+            size = rng.randint(10, 24)
+            x = rng.randint(0, width - size * len(word))
+            y = rng.randint(0, height - size)
+            for j, char in enumerate(word):
+                x1 = x + j * size
+                rows.append(f"0 0 0 {x1 + size // 2} {y + size // 2} {x1} {y} "
+                            f"{x1 + size - 2} {y + size} \"{char}\"")
+            rows.append("")
+        with open(os.path.join(gts, f"{100 + i}_GT.txt"), "w", encoding="utf8") as f:
+            f.write("\n".join(rows) + "\n")
+    with open(os.path.join(train, "gt.txt"), "w", encoding="utf-8-sig") as f:
+        for i in range(BORN_DIGITAL_TRAIN):
+            place(fixture_path("interlaced.png"), os.path.join(train, f"word_{i + 1}.png"))
+            f.write(f'word_{i + 1}.png, "{words[rng.randint(len(words))]}"\n')
+
+
+@contextlib.contextmanager
+def timed_calls(spans):
+    """Wrap ``module.name`` (a module's function or an object's method) for
+    each ``label: (module, name)`` of ``spans`` so that its calls add their
+    host seconds to ``totals[label]``; yields ``totals``."""
+    totals = dict.fromkeys(spans, 0.0)
+    # What each object held itself (a method lives on its class: None).
+    owned = {label: vars(module).get(name) for label, (module, name) in spans.items()}
+
+    def wrap(label, fn):
+        def call(*args, **kwargs):
+            start = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                totals[label] += time.perf_counter() - start
+        return call
+
+    for label, (module, name) in spans.items():
+        setattr(module, name, wrap(label, getattr(module, name)))
+    try:
+        yield totals
+    finally:
+        for label, (module, name) in spans.items():
+            if owned[label] is None:
+                delattr(module, name)
+            else:
+                setattr(module, name, owned[label])
+
+
+def fed_steps(trainer, batches, spans):
+    """``trainer.fit`` over ``DATA_STEPS`` steps of ``batches``, under the
+    profiler: (losses, host ms of each batch split by ``spans``, step ms by
+    CUDA events, fit's wall ms, the device's busy ms in it)."""
+    losses, host, step_ms, wall_ms = [], [], [], []
+
+    def timed_batches():
+        while True:
+            with timed_calls(spans) as totals:
+                start = time.perf_counter()
+                batch = next(batches)
+                total = time.perf_counter() - start
+            host.append({"batch": total * 1e3, **{k: v * 1e3 for k, v in totals.items()}})
+            yield batch
+
+    train_step = trainer.train_step
+
+    def timed_step(*args):
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        losses.append(train_step(*args))
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(begin.elapsed_time(end))
+        return losses[-1]
+
+    def fit():
+        start = time.perf_counter()
+        trainer.fit(timed_batches(), steps_per_epoch=DATA_STEPS)
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - start) * 1e3)
+
+    trainer.train_step = timed_step
+    try:
+        busy_ms = device_busy(fit)[0]
+    finally:
+        del trainer.train_step
+    if len(losses) != DATA_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"data-fed train losses {losses}")
+    return losses, host, step_ms, wall_ms[0], busy_ms
+
+
+def fit_line(result, digits):
+    """One line of a ``fed_steps`` result."""
+    losses, host, step_ms, wall_ms, busy_ms = result
+    return (f"losses {[round(l, digits) for l in losses]}; step ms "
+            f"{[round(t, 3) for t in step_ms]}; host ms of a generator batch (median): "
+            f"{host_split(host)}; fit {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms "
+            f"(torch.profiler), idle {100 * (1 - busy_ms / wall_ms):.1f}%")
+
+
+def host_split(host):
+    """Median host ms of a batch and of each span, 'other' the rest."""
+    med = {key: statistics.median(h[key] for h in host) for key in host[0]}
+    med["other"] = med["batch"] - sum(v for k, v in med.items() if k != "batch")
+    return ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+
+
+def data_phase(card, sweep_wrappers):
+    """Phase 14: files on disk through the dataset loaders, ``tools.read``,
+    the augmenters and both image generators into data-fed train steps on
+    the card, with the network refused; then the trained detector's
+    ``detect`` of the progressive fixture. Returns the sweep kernel's
+    launches in that ``detect``."""
+    from keras_ocr_tpu_torch import Detector, Recognizer, datasets, detection, tools
+    from keras_ocr_tpu_torch.data import augmentation, wordlist
+    from keras_ocr_tpu_torch.ops import cc, cc_cuda
+    from keras_ocr_tpu_torch.ops.image import compute_input
+    from keras_ocr_tpu_torch.train import DetectorTrainer, RecognizerTrainer
+
+    device = torch.device("cuda")
+    phase_start = time.perf_counter()
+    decoded = {}
+    for name, digest in DATA_FIXTURES.items():
+        image = tools.read(fixture_path(name))
+        got = hashlib.sha256(image.tobytes()).hexdigest()
+        if got != digest:
+            raise AssertionError(f"{name}: sha256 of the decode {got}, PIL's {digest}")
+        decoded[name] = image.shape
+    decode_ms = {name: median_seconds(lambda: tools.read(fixture_path(name)), runs=5)[0] * 1e3
+                 for name in ("test_image.jpg", *DATA_FIXTURES)}
+    print(f"data ({card}): tools.read of the committed fixtures equal to PIL's decode (sha256): "
+          + ", ".join(f"{name} {shape}" for name, shape in decoded.items())
+          + "; median decode ms of 5: " + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
+          + f" (host CPU {host_cpu()})")
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    with offline(cache_dir=DATA_DIR) as urls:
+        data_cache(DATA_DIR, wordlist.WORDS)
+        icdar = datasets.get_icdar_2013_detector_dataset(cache_dir=DATA_DIR)
+        born = datasets.get_born_digital_recognizer_dataset(cache_dir=DATA_DIR)
+        if len(icdar) != ICDAR_2013_COUNT or len(born) != BORN_DIGITAL_TRAIN:
+            raise AssertionError(f"loaders read {len(icdar)} / {len(born)} records")
+
+        # The detector: ICDAR 2013 images, augmented, 640x640, batch 8.
+        detector = Detector(weights=None, width=1.0, device=device, seed=14)
+        augmenter = augmentation.Sequential([
+            augmentation.Affine(rotate=(-10, 10), scale=(0.9, 1.1)),
+            augmentation.GaussianBlur((0, 0.5)), augmentation.Multiply((0.9, 1.1))], seed=14)
+        random.seed(14)
+        np.random.seed(14)
+        samples = datasets.get_detector_image_generator(icdar, width=640, height=640,
+                                                        augmenter=augmenter)
+        batches = detector.get_batch_generator(samples, batch_size=DATA_BATCH)
+        craft = fed_steps(DetectorTrainer(detector), batches,
+                          {"read": (tools, "read"), "augment": (tools, "augment"),
+                           "compute_maps": (detection, "compute_maps")})
+        print(f"data ({card}): get_icdar_2013_detector_dataset ({len(icdar)} images) -> "
+              f"get_detector_image_generator (Affine, GaussianBlur, Multiply; 640x640) -> "
+              f"Detector.get_batch_generator({DATA_BATCH}) -> DetectorTrainer.fit, "
+              f"{DATA_STEPS} steps, full-width VGG CRAFT: {fit_line(craft, 6)}")
+
+        # The recognizer: BornDigital crops, augmented, 31x200, batch 8.
+        recognizer = Recognizer(weights=None, device=device, seed=14)
+        augmenter = augmentation.Sequential([augmentation.GaussianBlur((0, 0.5)),
+                                             augmentation.Multiply((0.8, 1.2))], seed=15)
+        random.seed(15)
+        np.random.seed(15)
+        crops = datasets.get_recognizer_image_generator(
+            born, height=31, width=200, alphabet=recognizer.alphabet, augmenter=augmenter)
+        crnn = fed_steps(RecognizerTrainer(recognizer),
+                         recognizer.get_batch_generator(crops, batch_size=DATA_BATCH),
+                         {"read": (tools, "read"), "augment": (augmenter, "augment_image")})
+        print(f"data ({card}): get_born_digital_recognizer_dataset ({len(born)} crops) -> "
+              f"get_recognizer_image_generator (GaussianBlur, Multiply; 31x200) -> "
+              f"Recognizer.get_batch_generator({DATA_BATCH}) -> RecognizerTrainer.fit, "
+              f"{DATA_STEPS} steps, full-width CRNN: {fit_line(crnn, 4)}")
+    if urls:
+        raise AssertionError(f"phase 14 reached for the network: {urls}")
+
+    # The trained detector reads the progressive fixture through the kernels,
+    # at thresholds set by its heatmaps' quantiles (three steps from random
+    # weights leave no text at the defaults). Every sweep-kernel call is held
+    # exactly to its plain version on the same tensors, and the boxes to the
+    # CPU run of the device path on the card's heatmaps (phase 8's bar).
+    image = tools.read(fixture_path("progressive.jpg"))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # detect's forward = this one
+    try:
+        with torch.inference_mode():
+            heatmaps = detector.model(compute_input(
+                torch.from_numpy(image[None]).to(device))).cpu().numpy()
+        quantiles, thresholds, components = quantile_thresholds(heatmaps)
+        for wrapper in sweep_wrappers.values():
+            wrapper.launches = 0
+        record = []
+        undo = checked_sweeps(cc, cc_cuda, record)
+        try:
+            boxes = detector.detect([image], **thresholds)
+        finally:
+            undo()
+        launches = {name: wrapper.launches for name, wrapper in sweep_wrappers.items()}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"data-trained detector's detect launched {launches}")
+    cpu = Detector(weights=None, width=1.0, device="cpu", seed=14)
+    cpu.model = FixedCraft(torch.from_numpy(heatmaps))
+    got, want = boxes[0], cpu.detect([image], **thresholds)[0]
+    err = float(np.abs(got - want).max()) if len(got) and got.shape == want.shape else 0.0
+    if len(boxes) != 1 or not len(got) or got.shape != want.shape or not err <= REFINE_BAR:
+        raise AssertionError(f"data-trained detect: {len(boxes)} results, boxes "
+                             f"{got.shape} on the card, {want.shape} on the CPU, {err} px")
+    print(f"data ({card}): Detector.detect of progressive.jpg by the data-trained detector at "
+          f"its heatmaps' quantiles {quantiles} / {DETECT_QUANTILE} ("
+          f"{', '.join(f'{k} {v:.5f}' for k, v in thresholds.items())}; {components} "
+          f"components): {len(got)} boxes, within {err:.2e} px of the CPU run (bar "
+          f"{REFINE_BAR}); launches {launches}, each of the {len(record)} calls equal to its "
+          f"plain version; phase 14 took {time.perf_counter() - phase_start:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     sys.path.insert(0, ROOT)
     from keras_ocr_tpu_torch import Detector, Pipeline, Recognizer, kernels, tools
     from keras_ocr_tpu_torch.models.craft import fold_bn_state_dict
@@ -2182,6 +2507,9 @@ def main() -> int:
                                           sweep_wrappers).items():
         launches[name] += count
 
+    for name, count in data_phase(card, sweep_wrappers).items():
+        launches[name] += count
+
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",
         # An XLA loop in the JAX package, not a Pallas kernel.
@@ -2193,6 +2521,7 @@ def main() -> int:
         "cc_sweeps": cc_cuda.SOURCE, "cc_keyed_rows_cols": cc_cuda.SOURCE,
         "conv_chain": conv_cuda.SOURCE, "conv3x3_bias_act": conv_cuda.SOURCE,
     }
+    print(f"chip_smoke: all phases in {time.perf_counter() - started:.1f} s")
     print(card)
     print(json.dumps({"kernels": [
         {

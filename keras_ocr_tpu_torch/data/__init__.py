@@ -1,5 +1,6 @@
-"""Training data of the port: the detector's target heatmaps."""
+"""Training data of the port: augmentation, dataset loaders and image
+generators, synthetic-text helpers, and the detector's target heatmaps."""
 
-from . import detection_targets
+from . import augmentation, datasets, detection_targets, generation
 
-__all__ = ["detection_targets"]
+__all__ = ["augmentation", "datasets", "detection_targets", "generation"]

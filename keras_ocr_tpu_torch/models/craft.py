@@ -92,13 +92,35 @@ def _scaled(filters: int, width: float) -> int:
     return max(8, int(filters * width) // 8 * 8)
 
 
+class PerImageConv2d(nn.Conv2d):
+    """``nn.Conv2d`` that convolves a batch one image at a time.
+
+    For ``upconv2.block1`` (3x3, 256 -> 128 channels) cuDNN 9's float32
+    heuristics pick an FFT convolution at some batch sizes, NCHW and NHWC
+    alike: at 120x160 (a 960x1280 input) batches 2-7 take 270-504 ms
+    against 0.58 ms at batch 1, and batch 8 17.3 ms; at 64x80 batches 5-7
+    (``scripts/craft_batch_sweep.py``, an H100). One image at a time keeps
+    batch 1's implicit GEMM at every batch (3.9 ms at batch 8), with each
+    image's output bit for bit what it is alone. Same parameters and keys
+    as ``nn.Conv2d``; training, autograd and the BatchNorm after it see the
+    whole batch as before."""
+
+    def forward(self, x):
+        if x.shape[0] <= 1:
+            return super().forward(x)
+        return torch.cat([self._conv_forward(image, self.weight, self.bias)
+                          for image in x.split(1)])
+
+
 class ConvBN(nn.Module):
     """Conv + BatchNorm (eps 1e-5) + optional ReLU; ``fold_bn`` drops the BN
-    (its affine is then folded into the conv's weight and bias)."""
+    (its affine is then folded into the conv's weight and bias);
+    ``per_image`` makes the conv a :class:`PerImageConv2d`."""
 
-    def __init__(self, in_ch, out_ch, kernel=3, relu=True, fold_bn=False):
+    def __init__(self, in_ch, out_ch, kernel=3, relu=True, fold_bn=False, per_image=False):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel, padding="same")
+        conv = PerImageConv2d if per_image else nn.Conv2d
+        self.conv = conv(in_ch, out_ch, kernel, padding="same")
         self.bn = None if fold_bn else BatchNorm2d(out_ch, eps=1e-5)
         self.relu = relu
 
@@ -165,12 +187,12 @@ class VGG16BN(nn.Module):
 
 class UpConv(nn.Module):
     """1x1 conv-BN-ReLU + 3x3 conv-BN-ReLU decoder block (``filters // 2``
-    output channels)."""
+    output channels); ``per_image`` runs the 3x3 conv one image at a time."""
 
-    def __init__(self, in_ch, filters, fold_bn=False):
+    def __init__(self, in_ch, filters, fold_bn=False, per_image=False):
         super().__init__()
         self.block0 = ConvBN(in_ch, filters, 1, fold_bn=fold_bn)
-        self.block1 = ConvBN(filters, filters // 2, 3, fold_bn=fold_bn)
+        self.block1 = ConvBN(filters, filters // 2, 3, fold_bn=fold_bn, per_image=per_image)
 
     def forward(self, x):
         return self.block1(self.block0(x))
@@ -207,7 +229,8 @@ class CRAFT(nn.Module):
         self.slice5_2 = nn.Conv2d(c5, c5, 1)
         up = [_scaled(f, width) for f in (512, 256, 128, 64)]
         self.upconv1 = UpConv(c5 + ch["s4"], up[0], fold_bn)
-        self.upconv2 = UpConv(up[0] // 2 + ch["s3"], up[1], fold_bn)
+        # cuDNN's float32 FFT pick (PerImageConv2d) hits this block's 3x3 conv.
+        self.upconv2 = UpConv(up[0] // 2 + ch["s3"], up[1], fold_bn, per_image=True)
         self.upconv3 = UpConv(up[1] // 2 + ch["s2"], up[2], fold_bn)
         self.upconv4 = UpConv(up[2] // 2 + ch["s1"], up[3], fold_bn)
         self.conv_cls_0 = nn.Conv2d(up[3] // 2, 32, 3, padding="same")

@@ -3,13 +3,16 @@
 Counterparts of ``keras_ocr_tpu/tools.py`` (``read``, ``pad``,
 ``resize_image``, ``fit``, ``read_and_fit``, ``polygon_area``,
 ``convex_hull``, ``min_area_rect``, ``get_perspective_transform``,
-``warp_perspective``, ``get_rotated_box``, ``warpBox``, and the line
-helpers ``flatten``, ``combine_line``, ``adjust_boxes``, ``fix_line``) with numpy and the
-standard library only. PNG files are decoded by a small reader: colour
-types 0, 2, 3, 4 and 6 at every bit depth the format allows, not
-interlaced, to RGB uint8 as PIL's ``convert("RGB")`` gives them. JPEG files
-(sequential Huffman, 8-bit, grey or three components) are decoded by
-:func:`decode_jpeg` with the arithmetic of PIL's libjpeg-turbo. The
+``warp_perspective``, ``get_rotated_box``, ``warpBox``, the line
+helpers ``flatten``, ``combine_line``, ``adjust_boxes``, ``fix_line``, and
+``augment``, which moves boxes through a
+:mod:`keras_ocr_tpu_torch.data.augmentation` augmenter with their image)
+with numpy and the standard library only. PNG files are decoded by a small
+reader: colour types 0, 2, 3, 4 and 6 at every bit depth the format
+allows, plain or Adam7-interlaced, to RGB uint8 as PIL's ``convert("RGB")``
+gives them. JPEG files (sequential or progressive Huffman, 8-bit, grey or
+three components) are decoded by :func:`decode_jpeg` with the arithmetic
+of PIL's libjpeg-turbo. The
 download helpers (``sha256sum``, ``md5sum``, ``get_default_cache_dir``,
 ``download_and_verify``, ``safe_extract_zip``, ``download_and_extract``)
 serve the weight registry (:mod:`.weights`).
@@ -17,6 +20,7 @@ serve the weight registry (:mod:`.weights`).
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import re
@@ -37,6 +41,10 @@ _JPEG_SIGNATURE = b"\xff\xd8\xff"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 _URL_RE = re.compile(r"^https?://", re.IGNORECASE)
+# The seven Adam7 passes of an interlaced PNG: (x0, y0, dx, dy) of the
+# pixels each one holds.
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +295,11 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _stride(width: int, channels: int, depth: int) -> int:
+    """Bytes of a scanline's samples (without its filter byte)."""
+    return (width * channels * depth + 7) // 8
+
+
 def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
     """Unfiltered scanlines -> (H, W, channels) samples (uint8, or uint16
     at depth 16)."""
@@ -303,7 +316,7 @@ def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndar
 
 
 def decode_png(blob: bytes, name: str = "image") -> np.ndarray:
-    """Decode a non-interlaced PNG into (H, W, 3) uint8, as PIL's
+    """Decode a PNG, plain or Adam7-interlaced, into (H, W, 3) uint8, as PIL's
     ``Image.open(...).convert("RGB")`` gives it: alpha is dropped, grey is
     repeated over the three channels, a palette is looked up, grey of 1-4
     bits is scaled to 0-255, 16-bit grey is clipped to 255 and 16-bit
@@ -331,17 +344,32 @@ def decode_png(blob: bytes, name: str = "image") -> np.ndarray:
     width, height, depth, color, _, _, interlace = header
     if color not in _CHANNELS or depth not in _DEPTHS[color]:
         raise ValueError(f"{name}: invalid PNG colour type {color} at depth {depth}")
-    if interlace != 0:
-        raise NotImplementedError(f"{name}: interlaced (Adam7) PNG is not supported yet")
+    if interlace not in (0, 1):
+        raise ValueError(f"{name}: unknown PNG interlace method {interlace}")
     if color == 3 and palette is None:
         raise ValueError(f"{name}: palette PNG without a PLTE chunk")
     channels = _CHANNELS[color]
-    bits = width * channels * depth
-    stride = (bits + 7) // 8
-    rows = _unfilter(
-        zlib.decompress(b"".join(idat)), height, stride, max(1, channels * depth // 8)
-    )
-    samples = _samples(rows, width, channels, depth)
+    raw = zlib.decompress(b"".join(idat))
+    bpp = max(1, channels * depth // 8)
+    if interlace == 0:
+        samples = _samples(_unfilter(raw, height, _stride(width, channels, depth), bpp),
+                           width, channels, depth)
+    else:
+        samples = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            # A pass of a small image may hold no pixel: then it has no
+            # scanline, not even a filter byte. Each pass is filtered alone.
+            sub_w, sub_h = _ceil_div(width - x0, dx), _ceil_div(height - y0, dy)
+            if sub_w <= 0 or sub_h <= 0:
+                continue
+            stride = _stride(sub_w, channels, depth)
+            size = sub_h * (stride + 1)
+            if pos + size > len(raw):
+                raise ValueError(f"{name}: truncated PNG image data")
+            rows = _unfilter(raw[pos : pos + size], sub_h, stride, bpp)
+            samples[y0::dy, x0::dx] = _samples(rows, sub_w, channels, depth)
+            pos += size
     if color == 3:
         return np.ascontiguousarray(palette[samples[..., 0]])
     if depth == 16:
@@ -380,7 +408,7 @@ def _zigzag():
 _NATURAL = _zigzag()
 # The frame types this decoder refuses, by SOF marker.
 _UNSUPPORTED_SOF = {
-    0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical (differential sequential)",
+    0xC3: "lossless", 0xC5: "hierarchical (differential sequential)",
     0xC6: "hierarchical (differential progressive)", 0xC7: "hierarchical (differential lossless)",
     0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
     0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical",
@@ -586,15 +614,21 @@ def _ycc_to_rgb(y, cb, cr):
 
 
 def decode_jpeg(blob: bytes, name: str = "image") -> np.ndarray:
-    """Decode a sequential Huffman-coded JPEG (SOF0 baseline or SOF1
-    extended, 8-bit) of 1 or 3 components, sampling factors 1-2 on each
-    axis, into (H, W, 3) uint8 as PIL's ``Image.open(...).convert("RGB")``
+    """Decode a Huffman-coded JPEG (SOF0 baseline, SOF1 extended sequential
+    or SOF2 progressive, 8-bit) of 1 or 3 components, sampling factors 1-2
+    on each axis, into (H, W, 3) uint8 as PIL's ``Image.open(...).convert("RGB")``
     gives it: libjpeg-turbo's islow IDCT, fancy upsampling and YCbCr
     tables; grey repeated over three channels; no colour conversion for an
     Adobe transform 0 or component ids R, G, B (a JFIF marker means
     YCbCr). The EXIF orientation is not applied, as PIL's ``open`` does not.
 
-    Raises NotImplementedError naming the kind of a progressive, lossless,
+    A progressive file's scans (DC first and refinement, AC spectral bands
+    with successive approximation and EOB runs, restart intervals) fill the
+    coefficients; they then take the sequential path, as libjpeg's output
+    does once the whole file is read (no block smoothing: every coefficient
+    is complete).
+
+    Raises NotImplementedError naming the kind of a lossless,
     hierarchical, arithmetic-coded, 12-bit or 4-component JPEG, and
     ValueError on a truncated or corrupt stream.
     """
@@ -668,8 +702,8 @@ def decode_jpeg(blob: bytes, name: str = "image") -> np.ndarray:
             if len(segment) < 2:
                 raise ValueError(f"{name}: corrupt JPEG: bad DRI segment")
             (restart,) = struct.unpack(">H", segment[:2])
-        elif marker in (0xC0, 0xC1):
-            frame = _read_frame(segment, name)
+        elif marker in (0xC0, 0xC1, 0xC2):
+            frame = _read_frame(segment, name, progressive=marker == 0xC2)
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError(f"{name}: corrupt JPEG: a scan before the frame header")
@@ -682,8 +716,8 @@ def decode_jpeg(blob: bytes, name: str = "image") -> np.ndarray:
     return _assemble(frame, jfif, adobe_transform, name)
 
 
-def _read_frame(segment, name):
-    """The SOF0/SOF1 header: image size and, per component, its id,
+def _read_frame(segment, name, progressive=False):
+    """The SOF0/SOF1/SOF2 header: image size and, per component, its id,
     sampling factors and block grid (padded to whole MCUs)."""
     if len(segment) < 6:
         raise ValueError(f"{name}: corrupt JPEG: bad SOF segment")
@@ -714,15 +748,32 @@ def _read_frame(segment, name):
         c["coefs"] = [0] * (mcus_y * c["v"] * mcus_x * c["h"] * 64)
         c["q"] = None
     return {"width": width, "height": height, "hmax": hmax, "vmax": vmax,
-            "mcus": (mcus_y, mcus_x), "components": components}
+            "mcus": (mcus_y, mcus_x), "components": components, "progressive": progressive}
 
 
 def _decode_scan(frame, header, data, quant, tables, restart, name):
-    """Decode one sequential scan: its components interleaved in MCUs, or
-    one component in its own block grid."""
+    """Decode one scan: its components interleaved in MCUs, or one
+    component in its own block grid. A sequential scan carries whole
+    blocks; a progressive one (SOF2) carries the DC coefficient or a band
+    ``Ss``-``Se`` of AC coefficients, first at bit ``Al`` (``Ah`` 0) or as
+    one refinement bit of it (``Ah`` = ``Al`` + 1), as ``jdphuff.c``
+    decodes them."""
     count = header[0] if header else 0
     if not 1 <= count <= len(frame["components"]) or len(header) < 1 + 2 * count + 3:
         raise ValueError(f"{name}: corrupt JPEG: bad SOS segment")
+    start, end, approx = header[1 + 2 * count : 4 + 2 * count]
+    high, low = approx >> 4, approx & 15
+    progressive = frame["progressive"]
+    if progressive and (
+        (start == 0 and end != 0) or (start > 0 and (count != 1 or not start <= end <= 63))
+        or low > 13 or (high and high != low + 1)
+    ):
+        raise ValueError(f"{name}: corrupt JPEG: bad progressive scan parameters "
+                         f"Ss={start} Se={end} Ah={high} Al={low}")
+    # The tables this scan reads: DC for a sequential scan and a first DC
+    # scan, AC for a sequential scan and any AC scan; none for DC refinement.
+    need_dc = not progressive or (start == 0 and high == 0)
+    need_ac = not progressive or start > 0
     by_id = {c["id"]: c for c in frame["components"]}
     members = []
     preds = [0] * count
@@ -730,7 +781,7 @@ def _decode_scan(frame, header, data, quant, tables, restart, name):
         ident, selectors = header[1 + 2 * slot : 3 + 2 * slot]
         component = by_id.get(ident)
         dc, ac = tables.get((0, selectors >> 4)), tables.get((1, selectors & 15))
-        if component is None or dc is None or ac is None:
+        if component is None or (need_dc and dc is None) or (need_ac and ac is None):
             raise ValueError(f"{name}: corrupt JPEG: a scan names a missing component or table")
         if component["q"] is None:
             if component["quant"] not in quant:
@@ -758,15 +809,165 @@ def _decode_scan(frame, header, data, quant, tables, restart, name):
                             block = (my * component["v"] + v) * grid_w + mx * component["h"] + h
                             mcu.append((component["coefs"], block * 64, dc, ac, slot, preds))
                 order.append(mcu)
+    if not progressive:
+        decode = _decode_interval
+    elif start == 0:
+        decode = functools.partial(_decode_dc_interval, refine=high > 0, low=low)
+    else:
+        decode = functools.partial(_decode_ac_first if high == 0 else _decode_ac_refine,
+                                   start=start, end=end, low=low)
     per_interval = restart or len(order)
     pieces = re.split(rb"\xff[\xd0-\xd7]", data) if restart else [data]
     intervals = _ceil_div(len(order), per_interval)
     if len(pieces) < intervals:
         raise ValueError(f"{name}: truncated JPEG: {len(pieces)} of {intervals} restart intervals")
     for i in range(intervals):
+        # A restart interval starts afresh: DC predictions, the EOB run and
+        # the bit position.
         preds[:] = [0] * count
         blocks = [b for mcu in order[i * per_interval : (i + 1) * per_interval] for b in mcu]
-        _decode_interval(pieces[i].replace(b"\xff\x00", b"\xff"), blocks, name)
+        decode(pieces[i].replace(b"\xff\x00", b"\xff"), blocks, name)
+
+
+def _receive(win, pos, size):
+    """The ``size``-bit value at bit ``pos``, sign-extended as a JPEG
+    magnitude category (``HUFF_EXTEND``)."""
+    w = win[pos >> 3]
+    value = (w >> (40 - (pos & 7) - size)) & ((1 << size) - 1)
+    return value - (1 << size) + 1 if value < 1 << (size - 1) else value
+
+
+def _huffman(win, pos, table, name):
+    """(code length, symbol) of the Huffman code at bit ``pos``."""
+    entry = table[(win[pos >> 3] >> (24 - (pos & 7))) & 0xFFFF]
+    if not entry:
+        raise ValueError(f"{name}: corrupt JPEG: bad Huffman code")
+    return entry >> 8, entry & 0xFF
+
+
+def _bit(win, pos):
+    return (win[pos >> 3] >> (39 - (pos & 7))) & 1
+
+
+def _check_end(pos, data, name):
+    if pos > 8 * len(data):
+        raise ValueError(f"{name}: truncated JPEG: the scan data ends inside a block")
+
+
+def _decode_dc_interval(data, blocks, name, refine, low):
+    """A progressive DC scan's restart interval: the first scan adds each
+    block's difference to its component's prediction and stores it shifted
+    up by ``low``; a refinement scan ORs one bit at ``low`` into it."""
+    win = _windows(data)
+    pos = 0
+    if refine:
+        bit = 1 << low
+        for coefs, base, _, _, _, _ in blocks:
+            if _bit(win, pos):
+                coefs[base] |= bit
+            pos += 1
+    else:
+        for coefs, base, dc, _, slot, preds in blocks:
+            length, size = _huffman(win, pos, dc, name)
+            pos += length
+            if size:
+                if size > 16:
+                    raise ValueError(f"{name}: corrupt JPEG: DC difference of {size} bits")
+                preds[slot] += _receive(win, pos, size)
+                pos += size
+            coefs[base] = preds[slot] << low
+    _check_end(pos, data, name)
+
+
+def _decode_ac_first(data, blocks, name, start, end, low):
+    """A first progressive AC scan's restart interval over the band
+    ``start``-``end`` of one component: coefficients shifted up by
+    ``low``, and EOB runs that end the band in several blocks at once."""
+    win = _windows(data)
+    natural = _NATURAL
+    pos = eob_run = 0
+    for coefs, base, _, ac, _, _ in blocks:
+        if eob_run:
+            eob_run -= 1
+            continue
+        k = start
+        while k <= end:
+            length, rs = _huffman(win, pos, ac, name)
+            pos += length
+            run, size = rs >> 4, rs & 15
+            if size:
+                k += run
+                coefs[base + natural[k]] = _receive(win, pos, size) << low
+                pos += size
+            elif run == 15:
+                k += 15
+            else:
+                eob_run = 1 << run
+                if run:
+                    eob_run += (win[pos >> 3] >> (40 - (pos & 7) - run)) & ((1 << run) - 1)
+                    pos += run
+                eob_run -= 1
+                break
+            k += 1
+    _check_end(pos, data, name)
+
+
+def _decode_ac_refine(data, blocks, name, start, end, low):
+    """A progressive AC refinement scan's restart interval: each
+    coefficient of the band that is already nonzero takes one correction
+    bit (1: its magnitude grows by ``1 << low``), and new coefficients of
+    magnitude ``1 << low`` appear after their runs of still-zero ones."""
+    win = _windows(data)
+    natural = _NATURAL
+    plus, minus = 1 << low, -1 << low
+    pos = eob_run = 0
+    for coefs, base, _, ac, _, _ in blocks:
+        k = start
+        if not eob_run:
+            while k <= end:
+                length, rs = _huffman(win, pos, ac, name)
+                pos += length
+                run, size = rs >> 4, rs & 15
+                value = 0
+                if size:
+                    # A new coefficient is always of magnitude 1 << low.
+                    value = plus if _bit(win, pos) else minus
+                    pos += 1
+                elif run != 15:
+                    eob_run = 1 << run
+                    if run:
+                        eob_run += (win[pos >> 3] >> (40 - (pos & 7) - run)) & ((1 << run) - 1)
+                        pos += run
+                    break
+                # Pass over the nonzero coefficients (each takes a correction
+                # bit) and ``run`` zero ones, stopping at the zero one after.
+                while k <= end:
+                    index = base + natural[k]
+                    coef = coefs[index]
+                    if coef:
+                        if _bit(win, pos) and not coef & plus:
+                            coefs[index] = coef + (plus if coef >= 0 else minus)
+                        pos += 1
+                    else:
+                        run -= 1
+                        if run < 0:
+                            break
+                    k += 1
+                if value:
+                    coefs[base + natural[k]] = value
+                k += 1
+        if eob_run:
+            # The rest of the band: correction bits for the nonzero ones.
+            while k <= end:
+                index = base + natural[k]
+                coef = coefs[index]
+                if coef:
+                    if _bit(win, pos) and not coef & plus:
+                        coefs[index] = coef + (plus if coef >= 0 else minus)
+                    pos += 1
+                k += 1
+            eob_run -= 1
+    _check_end(pos, data, name)
 
 
 def _assemble(frame, jfif, adobe_transform, name):
@@ -971,6 +1172,80 @@ def adjust_boxes(boxes, scale=1, boxes_format: str = "boxes"):
     if boxes_format == "predictions":
         return [(word, np.array(box) * scale) for word, box in boxes]
     raise NotImplementedError(f"Unsupported boxes format: {boxes_format}")
+
+
+def augment(
+    boxes,
+    augmenter,
+    image=None,
+    boxes_format="boxes",
+    image_shape=None,
+    area_threshold=0.5,
+    min_area=None,
+):
+    """Augment an image and its boxes together with one frozen draw of an
+    :class:`keras_ocr_tpu_torch.data.augmentation.Augmenter`; returns the
+    augmented image (None without ``image``) and the boxes that survive, in
+    ``boxes_format`` (``"boxes"``, ``"lines"`` or ``"predictions"``),
+    clipped to the augmented canvas. A box survives when its clipped area is
+    at least ``area_threshold`` of its augmented area (both by the shoelace
+    formula on int32-truncated corners) and, with ``min_area``, more than
+    ``min_area``; a line whose every box is dropped disappears. Without an
+    image, ``image_shape`` gives the canvas, whose new extent is where its
+    bottom-right corner lands."""
+    if image is None and image_shape is None:
+        raise ValueError('One of "image" or "image_shape" must be provided.')
+    augmenter = augmenter.to_deterministic()
+
+    if image is not None:
+        image_augmented = augmenter(image=image)
+        image_shape = image.shape[:2]
+        new_shape = image_augmented.shape[:2]
+    else:
+        image_augmented = None
+        corner = augmenter.augment_keypoints(
+            np.array([[image_shape[1], image_shape[0]]], dtype="float32"), image_shape
+        )[0]
+        new_shape = (corner[1], corner[0])
+
+    def transform(box):
+        """(keep, clipped) of one quad moved through the augmenter."""
+        moved = augmenter.augment_keypoints(np.asarray(box, dtype="float32"), image_shape)
+        full_area = polygon_area(moved.astype("int32"))
+        if full_area == 0:
+            return False, moved
+        clipped = np.stack(
+            [moved[:, 0].clip(0, new_shape[1]), moved[:, 1].clip(0, new_shape[0])], axis=1
+        )
+        visible_area = polygon_area(clipped.astype("int32"))
+        keep = visible_area / full_area >= area_threshold and (
+            min_area is None or visible_area > min_area
+        )
+        return keep, clipped
+
+    if boxes_format == "boxes":
+        survivors = [box for keep, box in map(transform, boxes) if keep]
+    elif boxes_format == "lines":
+        survivors = []
+        for line in boxes:
+            kept = [
+                (box, character)
+                for (keep, box), character in (
+                    (transform(box), character) for box, character in line
+                )
+                if keep
+            ]
+            if kept:
+                survivors.append(kept)
+    elif boxes_format == "predictions":
+        survivors = []
+        for word, box in boxes:
+            keep, clipped = transform(box)
+            if keep:
+                survivors.append((word, clipped))
+    else:
+        raise NotImplementedError(f"Unsupported boxes format: {boxes_format}")
+    return image_augmented, survivors
 
 
 def fix_line(line):

@@ -673,3 +673,88 @@ def test_efficientnet_detect_on_card_matches_cpu(device, tmp_path, monkeypatch):
     for got, want in zip(found, expected):
         assert got.shape == want.shape
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+# Every cell of a sweep-kernel output must be written. The kernel returns
+# early for an image at its fixpoint and a pass stores only the cells of its
+# tile's lines, so a hole in the tiling would leave the wrapper's
+# ``torch.empty_like`` memory as it was: here it holds a poison value.
+POISON = -1_234_567_891
+# (batch, height, width): batch 1-9, odd heights and widths, widths that are
+# no multiple of the 8-32-column band, single rows and columns, a map taller
+# than a 32-column band holds (711 rows), and the main path's heatmap size.
+COVERAGE_SHAPES = [(1, 1, 1), (2, 7, 9), (3, 33, 65), (4, 1, 301), (5, 299, 1),
+                   (6, 121, 37), (7, 712, 41), (8, 240, 321), (9, 480, 640)]
+COVERAGE_MAPS = ["all_foreground", "all_background", "serpentine", "random"]
+
+
+def _coverage_maps(kind, batch, height, width):
+    rng = np.random.RandomState(batch * 1000 + height + width)
+    if kind == "all_foreground":
+        fg = np.ones((batch, height, width), bool)
+    elif kind == "all_background":
+        fg = np.zeros((batch, height, width), bool)
+    elif kind == "serpentine":
+        # Across the longer side: a map one column wide snakes down its rows.
+        snake = _serpentine(height, width) if width >= 5 else _serpentine(width, height).T
+        fg = np.stack([snake] * batch)
+    else:
+        fg = rng.rand(batch, height, width) < 0.6
+    sentinel = height * width
+    values = np.where(fg, np.arange(sentinel).reshape(height, width), sentinel)
+    return torch.from_numpy(values.astype(np.int32)), torch.from_numpy(fg), sentinel
+
+
+@pytest.mark.parametrize("kind", COVERAGE_MAPS)
+@pytest.mark.parametrize("shape", COVERAGE_SHAPES, ids=str)
+def test_kernel_writes_every_output_cell(device, shape, kind):
+    """Both entries called through the library, ``dst`` poisoned first:
+    after ``num_sweeps`` 0, 1 and 8 (with and without the convergence
+    sweep) and after the keyed row/column pass no cell holds the poison,
+    and the maps equal the plain versions'."""
+    lib = cc_cuda._library()
+    values, fg, sentinel = _coverage_maps(kind, *shape)
+    dev_values = values.to(device)
+    barrier = (~fg).to(torch.uint8).to(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for sweeps in (0, 1, 8):
+        for check in (False, True):
+            out = torch.full_like(dev_values, POISON)
+            flags = torch.zeros((sweeps + 1) * shape[0], dtype=torch.int32, device=device)
+            rc = lib.cc_sweeps(dev_values.data_ptr(), out.data_ptr(), barrier.data_ptr(),
+                               *shape, sentinel, sweeps, int(check), flags.data_ptr(), stream)
+            torch.cuda.synchronize()
+            assert rc == 0
+            out = out.cpu()
+            assert not bool((out == POISON).any()), (sweeps, check)
+            ref = cc_cuda.segmented_min_sweeps_plain(values, ~fg, sentinel, sweeps + check)
+            assert torch.equal(out, ref), (sweeps, check)
+    key = torch.from_numpy(np.random.RandomState(shape[0]).randint(0, 3, size=shape)
+                           .astype(np.int32))
+    key = torch.where(fg, key, -1)
+    # Held in names until the kernel has run: the allocator may hand a
+    # temporary's memory to the next tensor before the launch executes.
+    dev_fg, dev_key = fg.to(torch.uint8).to(device), key.to(device)
+    out = torch.full_like(dev_values, POISON)
+    rc = lib.cc_keyed_rows_cols(dev_values.data_ptr(), out.data_ptr(), dev_fg.data_ptr(),
+                                dev_key.data_ptr(), *shape, sentinel, stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    out = out.cpu()
+    assert not bool((out == POISON).any())
+    assert torch.equal(out, cc_cuda.keyed_rows_cols_plain(values, key, fg, sentinel))
+
+
+@pytest.mark.parametrize("backbone", ["vgg", "efficientnetb0"])
+def test_craft_batch_2_forward_keeps_batch_1_numbers(device, backbone):
+    """cuDNN's float32 heuristics picked an FFT convolution for
+    ``upconv2.block1.conv`` at batches 2-7 (14x batch 1's time per image at
+    2x960x1280). The full-width CRAFT at batch 2 gives each image's batch-1
+    heatmaps within 1e-4 * max(1, max|ref|). Its time per image against
+    batch 1's is gated by ``chip_smoke.py`` phase 13 at every batch 1-8."""
+    model = init_parameters(CRAFT(backbone), seed=0).to(device).eval()
+    x = torch.randn((2, 960, 1280, 3), generator=torch.Generator().manual_seed(2)).to(device)
+    with torch.inference_mode():
+        ref = torch.cat([model(x[i : i + 1]) for i in range(2)])
+        out = model(x)
+    assert float((out - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))

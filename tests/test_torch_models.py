@@ -213,3 +213,36 @@ def test_forwards_run_in_full_float32_and_restore_the_flags():
     finally:
         torch.backends.cudnn.allow_tf32 = saved[0]
         torch.set_float32_matmul_precision(saved[1])
+
+
+@pytest.mark.parametrize("backbone", ["vgg", "efficientnetb0"])
+def test_craft_per_image_conv_keeps_the_batched_forward(backbone):
+    """``upconv2.block1.conv`` runs its batch one image at a time (cuDNN's
+    float32 FFT pick at batches 2-7 on the card): the heatmaps of a batch of
+    3 stay within 1e-4 * max(1, max|ref|) of the same model with a batched
+    ``nn.Conv2d`` there and of each image's forward alone; the state_dict
+    keys and the training step's gradients are those of the batched conv."""
+    from keras_ocr_tpu_torch.models.craft import PerImageConv2d
+
+    kwargs = dict(width=0.25) if backbone == "vgg" else {}
+    model = init_parameters(CRAFT(backbone, **kwargs), seed=0).eval()
+    assert isinstance(model.upconv2.block1.conv, PerImageConv2d)
+    batched = init_parameters(CRAFT(backbone, **kwargs), seed=0).eval()
+    per_image = batched.upconv2.block1.conv
+    plain = torch.nn.Conv2d(per_image.in_channels, per_image.out_channels, 3, padding="same")
+    plain.load_state_dict(per_image.state_dict())
+    batched.upconv2.block1.conv = plain
+    assert list(batched.state_dict()) == list(model.state_dict())
+    x = torch.from_numpy(np.random.RandomState(5).randn(3, 64, 96, 3).astype(np.float32))
+    with torch.no_grad():
+        out, ref = model(x), batched(x)
+        alone = torch.cat([model(x[i : i + 1]) for i in range(3)])
+    bar = 1e-4 * max(1.0, float(ref.abs().max()))
+    assert float((out - ref).abs().max()) <= bar
+    assert float((out - alone).abs().max()) <= bar
+    grads = []
+    for net in (model, batched):
+        net.train()
+        net(x).square().mean().backward()
+        grads.append(net.upconv2.block1.conv.weight.grad)
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-4 * float(grads[1].abs().max())

@@ -1,9 +1,14 @@
 """Port parity: the host tools ``read`` and ``resize_image`` vs the JAX package.
 
 PNGs of every colour type the reader takes (grey, RGB, palette, grey +
-alpha, RGBA), at 1-16 bits, are written here with numpy + zlib and read
-from a path and from ``io.BytesIO``: the port must give what JAX ``read``
-(PIL's ``convert("RGB")``) gives, bit for bit. JPEGs (the repository's
+alpha, RGBA), at 1-16 bits, plain and Adam7-interlaced (every filter type,
+sizes down to 1x1 whose passes are partly empty), are written here with
+numpy + zlib and read from a path and from ``io.BytesIO``: the port must
+give what JAX ``read`` (PIL's ``convert("RGB")``) gives, bit for bit.
+Progressive JPEGs PIL writes here (quality 50, 90 and 95; grey, 4:2:0,
+4:2:2 and 4:4:4; restart intervals; odd sizes) must equal JAX ``read`` bit
+for bit, and the committed fixtures ``progressive.jpg`` and
+``interlaced.png`` must decode to the recorded sha256 of PIL's decode. JPEGs (the repository's
 ``tests/fixtures/test_image.jpg``, and JPEGs PIL writes here: 4:4:4, 4:2:2
 and 4:2:0, quality 50 and 95, optimised Huffman tables, grey, odd sizes,
 restart intervals; a 4:4:0 one from OpenCV) must come within 1 count of
@@ -33,23 +38,72 @@ def _chunk(kind, body):
     )
 
 
+def _packed_rows(samples, depth):
+    """(H, W[, C]) integer samples as (H, bytes) scanlines."""
+    height, width = samples.shape[:2]
+    if depth == 16:
+        return samples.astype(">u2").reshape(height, -1).view(np.uint8)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(height, -1)
+    per = 8 // depth
+    packed = np.pad(samples.reshape(height, width).astype(np.uint8),
+                    ((0, 0), (0, -width % per))).reshape(height, -1, per)
+    shifts = (np.arange(per)[::-1] * depth).astype(np.uint8)
+    return (packed << shifts).sum(-1).astype(np.uint8)
+
+
 def _png(samples, color, depth, palette=None, interlace=0):
     """A PNG of (H, W[, C]) integer samples, every row filter 0."""
     height, width = samples.shape[:2]
-    if depth == 16:
-        rows = samples.astype(">u2").reshape(height, -1).view(np.uint8)
-    elif depth == 8:
-        rows = samples.astype(np.uint8).reshape(height, -1)
-    else:
-        per = 8 // depth
-        packed = np.pad(samples.reshape(height, width).astype(np.uint8),
-                        ((0, 0), (0, -width % per))).reshape(height, -1, per)
-        shifts = (np.arange(per)[::-1] * depth).astype(np.uint8)
-        rows = (packed << shifts).sum(-1).astype(np.uint8)
-    data = b"".join(b"\x00" + row.tobytes() for row in rows)
+    data = b"".join(b"\x00" + row.tobytes() for row in _packed_rows(samples, depth))
     blob = b"\x89PNG\r\n\x1a\n" + _chunk(
         b"IHDR", struct.pack(">IIBBBBB", width, height, depth, color, 0, 0, interlace)
     )
+    if palette is not None:
+        blob += _chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+    return blob + _chunk(b"IDAT", zlib.compress(data)) + _chunk(b"IEND", b"")
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+
+
+def _filtered(rows, bpp, first_filter):
+    """Scanlines with their filter bytes, the filter types cycling 0-4 from
+    ``first_filter``; the first line's prior line is zeros."""
+    out = []
+    prior = np.zeros(rows.shape[1], np.int64)
+    for r, row in enumerate(rows.astype(np.int64)):
+        kind = (first_filter + r) % 5
+        line = bytearray()
+        for i, x in enumerate(row):
+            a = int(row[i - bpp]) if i >= bpp else 0
+            b, c = int(prior[i]), int(prior[i - bpp]) if i >= bpp else 0
+            line.append((int(x) - (0, a, b, (a + b) >> 1, _paeth(a, b, c))[kind]) & 0xFF)
+        out.append(bytes([kind]) + bytes(line))
+        prior = row
+    return b"".join(out)
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _adam7_png(samples, color, depth, palette=None):
+    """An Adam7-interlaced PNG of (H, W[, C]) integer samples: each pass
+    packed and filtered alone (a pass with no pixel has no scanline), the
+    filters of pass i starting at type i % 5."""
+    height, width = samples.shape[:2]
+    bpp = max(1, CHANNELS[color] * depth // 8)
+    data = b""
+    for index, (x0, y0, dx, dy) in enumerate(ADAM7):
+        sub = samples[y0::dy, x0::dx]
+        if sub.shape[0] and sub.shape[1]:
+            data += _filtered(_packed_rows(sub, depth), bpp, index)
+    blob = b"\x89PNG\r\n\x1a\n" + _chunk(
+        b"IHDR", struct.pack(">IIBBBBB", width, height, depth, color, 0, 0, 1))
     if palette is not None:
         blob += _chunk(b"PLTE", palette.astype(np.uint8).tobytes())
     return blob + _chunk(b"IDAT", zlib.compress(data)) + _chunk(b"IEND", b"")
@@ -81,6 +135,25 @@ def test_read_png_kinds_match_jax(tmp_path, color, depth):
         np.testing.assert_array_equal(out, ref)
 
 
+@pytest.mark.parametrize("color,depth", KINDS)
+def test_read_adam7_png_kinds_match_jax(tmp_path, color, depth):
+    """Adam7 at sizes whose later passes are empty (1x1, 2x3) or partial."""
+    for height, width in ((1, 1), (2, 3), (5, 11), (9, 17)):
+        rng = np.random.RandomState(color * 100 + depth + height)
+        shape = (height, width) if CHANNELS[color] == 1 else (height, width, CHANNELS[color])
+        samples = rng.randint(0, 2**depth, size=shape)
+        palette = rng.randint(0, 256, size=(2**depth, 3)) if color == 3 else None
+        blob = _adam7_png(samples, color, depth, palette)
+        path = str(tmp_path / f"x{height}.png")
+        with open(path, "wb") as f:
+            f.write(blob)
+        ref = jtools.read(path)
+        for source in (path, io.BytesIO(blob)):
+            out = tools.read(source)
+            assert out.dtype == np.uint8 and out.shape == (height, width, 3)
+            np.testing.assert_array_equal(out, ref)
+
+
 def test_read_buffer_of_a_golden_scene_matches_jax():
     import os
 
@@ -92,10 +165,10 @@ def test_read_buffer_of_a_golden_scene_matches_jax():
 
 def test_read_refuses_what_it_cannot_decode():
     grey = np.zeros((3, 4), np.uint8)
-    with pytest.raises(NotImplementedError, match="interlaced"):
+    with pytest.raises(ValueError, match="interlace method 2"):
+        tools.read(io.BytesIO(_png(grey, 0, 8, interlace=2)))
+    with pytest.raises(ValueError, match="truncated"):
         tools.read(io.BytesIO(_png(grey, 0, 8, interlace=1)))
-    with pytest.raises(NotImplementedError, match="progressive"):
-        tools.read(io.BytesIO(_pil_jpeg(_scene_crop(16, 24), progressive=True)))
     with pytest.raises(ValueError):
         tools.read(io.BytesIO(b"GIF89a"))
     with pytest.raises(ValueError):
@@ -198,6 +271,53 @@ def test_read_h1v2_jpeg_matches_jax(shape):
     _assert_jpeg_close(tools.read(io.BytesIO(blob)), jtools.read(io.BytesIO(blob)))
 
 
+PROGRESSIVE_CASES = {
+    "444_q95": ((37, 53), "RGB", dict(subsampling=0, quality=95)),
+    "422_q90": ((37, 53), "RGB", dict(subsampling=1, quality=90)),
+    "420_q50": ((37, 53), "RGB", dict(subsampling=2, quality=50)),
+    "444_q50": ((37, 53), "RGB", dict(subsampling=0, quality=50)),
+    "420_q95": ((64, 80), "RGB", dict(subsampling=2, quality=95)),
+    "grey_q90": ((37, 53), "L", dict(quality=90)),
+    "grey_1x1": ((1, 1), "L", {}),
+    "420_1x1": ((1, 1), "RGB", dict(subsampling=2)),
+    "422_17x200": ((17, 200), "RGB", dict(subsampling=1, quality=90)),
+    "420_restart_blocks": ((48, 70), "RGB", dict(subsampling=2, restart_marker_blocks=3)),
+    "444_restart_rows": ((33, 41), "RGB", dict(subsampling=0, restart_marker_rows=1)),
+    "grey_restart_rows": ((33, 41), "L", dict(quality=95, restart_marker_rows=2)),
+}
+
+
+@pytest.mark.parametrize("case", list(PROGRESSIVE_CASES))
+def test_read_progressive_jpeg_matches_jax(case):
+    """Progressive JPEGs (libjpeg's scan script: DC first and refinement,
+    spectral bands, successive approximation, EOB runs) bit for bit."""
+    shape, mode, options = PROGRESSIVE_CASES[case]
+    blob = _pil_jpeg(_scene_crop(*shape, mode), progressive=True, **options)
+    assert blob[blob.index(b"\xff\xc2") : blob.index(b"\xff\xc2") + 2] == b"\xff\xc2"
+    np.testing.assert_array_equal(tools.read(io.BytesIO(blob)), jtools.read(io.BytesIO(blob)))
+
+
+# The committed fixtures of the data slice (scripts/make_data_fixtures.py)
+# and the sha256 of PIL's RGB decode of each: chip_smoke.py holds the
+# port's decode on the card's machine, which has no PIL, to the same values.
+DATA_FIXTURES = {
+    "progressive.jpg": ((240, 320, 3),
+                        "c0adb0d001a6217014b32289dbbfc0b1e3e218bc49d92e2d1eab662f007c3e55"),
+    "interlaced.png": ((42, 220, 3),
+                       "0f3f1d71318e7985d8194f853fd77ac71aab2c8b1608d14fda74dfe7fdba36b9"),
+}
+
+
+@pytest.mark.parametrize("name", list(DATA_FIXTURES))
+def test_read_data_fixtures_match_recorded_sha256(name):
+    path = os.path.join(os.path.dirname(FIXTURE_JPEG), name)
+    shape, digest = DATA_FIXTURES[name]
+    ref = jtools.read(path)
+    assert ref.shape == shape and hashlib.sha256(ref.tobytes()).hexdigest() == digest
+    out = tools.read(path)
+    assert hashlib.sha256(out.tobytes()).hexdigest() == digest
+
+
 def _with_sof(blob, marker=None, precision=None):
     """A baseline JPEG with its SOF0 marker or sample precision replaced."""
     at = blob.index(b"\xff\xc0")
@@ -212,7 +332,6 @@ def _with_sof(blob, marker=None, precision=None):
 def test_read_jpeg_refuses_what_it_cannot_decode():
     baseline = _pil_jpeg(_scene_crop(16, 24))
     kinds = {
-        "progressive": _pil_jpeg(_scene_crop(16, 24), progressive=True),
         "lossless": _with_sof(baseline, marker=0xC3),
         "arithmetic-coded": _with_sof(baseline, marker=0xC9),
         "12-bit": _with_sof(baseline, precision=12),

@@ -362,10 +362,13 @@ def test_validate_against_names_the_mismatch():
 def test_weight_round_trips_with_h5py_and_jax_blocked(tmp_path):
     """The port's ``.h5`` and ``.pth`` writers and loaders, the twin, and
     the EfficientNet CRAFT's tree bridge and ImageNet module, with h5py,
-    jax, flax, PIL, tensorflow and the JAX package unimportable."""
+    jax, flax, PIL, matplotlib, fontTools, tensorflow and the JAX package
+    unimportable (the port's package, data modules included, imports none
+    of them)."""
     code = (
         "import sys\n"
-        "for name in ('h5py', 'jax', 'jaxlib', 'flax', 'PIL', 'tensorflow', 'keras_ocr_tpu'):\n"
+        "for name in ('h5py', 'jax', 'jaxlib', 'flax', 'PIL', 'matplotlib', 'fontTools',\n"
+        "             'tensorflow', 'keras_ocr_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import numpy as np, torch\n"
         "torch.set_num_threads(2)\n"
@@ -396,8 +399,8 @@ def test_weight_round_trips_with_h5py_and_jax_blocked(tmp_path):
         "assert same(imagenet.graft_backbone_variables(b0, {'params': b0['params']['basenet']}),"
         " b0)\n"
         "assert out.shape == (1, 2, 16, 16), out.shape\n"
-        "assert not any(m.split('.')[0] in ('h5py', 'jax', 'flax', 'PIL', 'tensorflow', "
-        "'keras_ocr_tpu') "
+        "assert not any(m.split('.')[0] in ('h5py', 'jax', 'flax', 'PIL', 'matplotlib', "
+        "'fontTools', 'tensorflow', 'keras_ocr_tpu') "
         "for m in sys.modules if sys.modules[m] is not None)\n"
         "print('round trips ok')\n"
     )
