@@ -170,11 +170,34 @@ Phases, each printing one line; any failure exits non-zero:
    tensors, and find boxes within 1e-3 px of the CPU run of the device path
    on the card's heatmaps.
 
+15. bfloat16: the conv kernel's bf16 mode against its plain bf16 version
+   (float32 conv of the bf16-rounded operands, one rounding per layer) on
+   the 12 CRAFT chains at 960x1280 and ``conv3x3_bias_act`` at C3 and at an
+   odd size: a single layer within one bf16 ulp, a chain within 1.6e-2 *
+   max(1, max|plain|) with 99% of its values within one ulp; median of 20,
+   the rate as a share of the 989 TFLOP/s dense bf16 rate, beside phase 3's
+   float32 mode and a cuDNN bf16 ``F.conv2d`` with bias. The golden
+   artifact through ``load_golden_pipeline(dir, torch.bfloat16)``, standard
+   and folded, must reach ``pass_fraction``, the scenes whose words differ
+   from the float32 run printed (its export is a card test); the
+   full-width pipelines in bfloat16 (the float32 run's weights; standard
+   and folded): enqueued without a host synchronisation, ``recognize`` p50
+   and ``recognize_many`` images/s beside float32's, the peak memory of a
+   ``recognize_many`` above the resident models for both dtypes, with the
+   bf16 mode's launches counted from zero; the bf16 CRAFT forwards (VGG,
+   folded VGG, B0) at 960x1280, batch 1 and 8, failing past 2x batch 1's
+   time per image; and the graft entry's configuration
+   (``__graft_entry__.py``: max_components 64, max_words 32, digits +
+   lowercase, one 256x256 float image) through the port's device program,
+   whose packed output must be well formed.
+
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
-``.pth``-loaded detector's run in 12, the EfficientNet pipeline of 13 and
-the ``detect`` of 14 count their kernel launches from zero; the kernel
-line's launches are those of phases 5-7, 13 and 14; the kernel ops are
+``.pth``-loaded detector's run in 12, the EfficientNet pipeline of 13,
+the ``detect`` of 14 and the bfloat16 full-width pipelines of 15 count
+their kernel launches from zero; the kernel line's launches are those of
+phases 5-7, 13 and 14, and for the bf16 mode's two entries those of 15;
+the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
 JSON; the last line is ``{"ok": true, "device": {...}}``. There is no CPU
@@ -242,7 +265,8 @@ SERVING_JPEG_SHA256 = "f5cb48dc1b0a224b4e16c418b92a2e0b851364882e21645efdd244d0f
 SERVING_DIR = os.path.join(ROOT, "build", "serving")
 # Each kernel's op in torch.ops.keras_ocr_tpu_torch.
 OPS = {"cc_sweeps": "cc_sweeps", "cc_keyed_rows_cols": "cc_keyed_rows_cols",
-       "conv_chain": "conv_layer", "conv3x3_bias_act": "conv_layer"}
+       "conv_chain": "conv_layer", "conv3x3_bias_act": "conv_layer",
+       "conv_chain_bf16": "conv_layer", "conv3x3_bias_act_bf16": "conv_layer"}
 
 
 def card_line() -> str:
@@ -597,6 +621,7 @@ def conv_phase(conv_cuda):
         ms, plain_ms = cuda_median_ms(kernel), cuda_median_ms(plain)
         chain["ms"] += ms
         chain["plain_ms"] += plain_ms
+        chain.setdefault("per_chain", {})[name] = ms
         flop = conv_flop(1, height, width, cin, plan)
         total_flop += flop
         total_bytes += conv_bytes(1, height, width, cin, plan, pool, tap)
@@ -1891,7 +1916,7 @@ DETECT_QUANTILE = 0.97
 IMAGENET_B0 = os.path.join(ROOT, "weights_pretrained", "efficientnetb0_notop.h5")
 
 
-def efficientnet_detector(name, device, seed=0):
+def efficientnet_detector(name, device, seed=0, compute_dtype=torch.float32):
     """``Detector(weights=None, backbone_name=name)`` with the network
     refused; (detector, whether it warned that the ImageNet file is
     missing)."""
@@ -1899,7 +1924,8 @@ def efficientnet_detector(name, device, seed=0):
 
     with offline(), warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        detector = Detector(weights=None, backbone_name=name, device=device, seed=seed)
+        detector = Detector(weights=None, backbone_name=name, compute_dtype=compute_dtype,
+                            device=device, seed=seed)
     return detector, any("ImageNet initialization" in str(w.message) for w in caught)
 
 
@@ -2360,6 +2386,273 @@ def data_phase(card, sweep_wrappers):
     return launches
 
 
+# Phase 15: bfloat16. The bf16 mode's bound: the H100 SXM's dense bf16
+# tensor-core rate, TFLOP/s; its bars against the plain bf16 version: one
+# bf16 ulp for a single layer, and for a chain BF16_CHAIN_BAR * max(1,
+# max|plain|) with BF16_ULP_SHARE of the values within one ulp.
+BF16_TFLOPS = 989
+BF16_CHAIN_BAR = 1.6e-2
+BF16_ULP_SHARE = 0.99
+# The JAX package's graft entry configuration (__graft_entry__.py:21-45).
+ENTRY_SHAPE = (1, 256, 256, 3)
+ENTRY_MAX_COMPONENTS = 64
+ENTRY_MAX_WORDS = 32
+
+
+def bf16_bytes(batch, height, width, cin, plan, pool=False, tap=False):
+    """Bytes a bf16-mode chain must move: its bf16 activations in and out
+    (pooled a quarter, and the tap as well) and the float32 weights and
+    biases it is given."""
+    total = 0
+    for i, (k, cout, _) in enumerate(plan):
+        out = batch * height * width * cout
+        if pool and i == len(plan) - 1:
+            out = out // 4 + (out if tap else 0)
+        total += 2 * (batch * height * width * cin + out) + 4 * (k * k * cin * cout + cout)
+        cin = cout
+    return total
+
+
+def bf16_bound_ms(flop, nbytes):
+    """The larger of the operations at the dense bf16 rate and the bytes at
+    the HBM rate."""
+    return max(flop / (BF16_TFLOPS * 1e9), nbytes / (HBM_TBS * 1e9))
+
+
+def check_bf16(conv_cuda, what, out, ref, layers):
+    """The bf16 mode's bars; returns (max |diff|, share within one ulp)."""
+    if out.dtype != torch.bfloat16 or out.shape != ref.shape:
+        raise AssertionError(f"{what}: {out.dtype} {tuple(out.shape)} vs {tuple(ref.shape)}")
+    ulps = conv_cuda.bf16_ulps(out, ref)
+    err = float((out.float() - ref.float()).abs().max())
+    share = float((ulps <= 1.0).float().mean())
+    if layers == 1 and float(ulps.max()) > 1.0:
+        raise AssertionError(f"{what}: {float(ulps.max())} ulps from the plain version")
+    bar = BF16_CHAIN_BAR * max(1.0, float(ref.float().abs().max()))
+    if layers > 1 and not (err <= bar and share >= BF16_ULP_SHARE):
+        raise AssertionError(f"{what}: max |diff| {err} (bar {bar}), {share} within one ulp")
+    return err, share
+
+
+def bf16_kernels(card, conv_cuda, fp32_ms):
+    """(1) The conv kernel's bf16 mode against its plain version at the
+    CRAFT shapes; returns its two kernel-line entries."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    chain = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_by": "operations",
+             "library_ms": None}
+    single = {"max_abs_err": 0.0, "bound_by": "operations"}
+    total_flop = total_bytes = 0
+    for name, height, width, cin, plan, pool, tap in CRAFT_CHAINS:
+        x, convs = seeded_chain(gen, 1, height, width, cin, plan)
+        x = x.to(torch.bfloat16)
+
+        def kernel():
+            return conv_cuda.conv_chain(x, convs, pool=pool, tap_prepool=tap)
+
+        def plain():
+            return conv_cuda.conv_chain_plain(x, convs, pool=pool, tap_prepool=tap)
+
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        pairs = list(zip(out, ref, ("output", "tap"))) if tap else [(out, ref, "output")]
+        checks = [check_bf16(conv_cuda, f"bf16 conv_chain {name} {what}", o, r, len(plan))
+                  for o, r, what in pairs]
+        err, share = max(c[0] for c in checks), min(c[1] for c in checks)
+        chain["max_abs_err"] = max(chain["max_abs_err"], err)
+        ms, plain_ms = cuda_median_ms(kernel), cuda_median_ms(plain)
+        chain["ms"] += ms
+        chain["plain_ms"] += plain_ms
+        flop = conv_flop(1, height, width, cin, plan)
+        total_flop += flop
+        total_bytes += bf16_bytes(1, height, width, cin, plan, pool, tap)
+        tflops = flop / ms / 1e9
+        print(f"bfloat16 kernel vs plain ({card}): conv_chain {name}: max |diff| {err:.3e}, "
+              f"{100 * share:.3f}% within one ulp; kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s, "
+              f"{100 * tflops / BF16_TFLOPS:.1f}% of {BF16_TFLOPS} TFLOP/s; float32 mode "
+              f"{fp32_ms[name]:.4f} ms), plain {plain_ms:.4f} ms (median of 20)")
+    chain["bound_ms"] = bf16_bound_ms(total_flop, total_bytes)
+    print(f"bfloat16 kernel vs plain ({card}): conv_chain, the 12 chains at 960x1280: "
+          f"{total_flop / 1e9:.2f} GFLOP, {total_bytes / 1e9:.3f} GB, kernel {chain['ms']:.4f} ms "
+          f"({total_flop / chain['ms'] / 1e9:.2f} TFLOP/s, "
+          f"{100 * total_flop / chain['ms'] / 1e9 / BF16_TFLOPS:.1f}% of {BF16_TFLOPS}; bound "
+          f"{chain['bound_ms']:.4f} ms, {100 * chain['bound_ms'] / chain['ms']:.1f}% of it), "
+          f"float32 mode {sum(fp32_ms[c[0]] for c in CRAFT_CHAINS):.4f} ms, plain "
+          f"{chain['plain_ms']:.4f} ms")
+    for batch, height, width, cin, cout in CONV3X3_SHAPES:
+        x, ((w, b, _),) = seeded_chain(gen, batch, height, width, cin, ((3, cout, True),))
+        x = x.to(torch.bfloat16)
+        for relu in (True, False):
+            out = conv_cuda.conv3x3_bias_act(x, w, b, relu=relu)
+            ref = conv_cuda.conv3x3_bias_act_plain(x, w, b, relu=relu)
+            torch.cuda.synchronize()
+            err, _ = check_bf16(conv_cuda, f"bf16 conv3x3_bias_act {(batch, height, width, cin)}",
+                                out, ref, 1)
+            single["max_abs_err"] = max(single["max_abs_err"], err)
+        ms = cuda_median_ms(lambda: conv_cuda.conv3x3_bias_act(x, w, b))
+        plain_ms = cuda_median_ms(lambda: conv_cuda.conv3x3_bias_act_plain(x, w, b))
+        # The library call: one cuDNN bf16 convolution with its bias, NCHW.
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        w_oihw = w.permute(3, 2, 0, 1).contiguous().to(torch.bfloat16)
+        b16 = b.to(torch.bfloat16)
+        library_ms = cuda_median_ms(lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, b16,
+                                                                       padding=1))
+        flop = conv_flop(batch, height, width, cin, ((3, cout, True),))
+        bound_ms = bf16_bound_ms(flop, bf16_bytes(batch, height, width, cin, ((3, cout, True),)))
+        if "ms" not in single:
+            single.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms)
+        print(f"bfloat16 kernel vs plain ({card}): conv3x3_bias_act {(batch, height, width, cin)} "
+              f"-> {cout}: max |diff| {err:.3e} (within one ulp); kernel {ms:.4f} ms "
+              f"({flop / ms / 1e9:.2f} TFLOP/s; bound {bound_ms:.4f} ms, "
+              f"{100 * bound_ms / ms:.1f}% of it), plain {plain_ms:.4f} ms, F.conv2d bf16 with "
+              f"bias {library_ms:.4f} ms (median of 20)")
+    return {"conv_chain_bf16": chain, "conv3x3_bias_act_bf16": single}
+
+
+def bf16_phase(card, conv_cuda, fp32, scenes, pass_fraction, wrappers):
+    """Phase 15: the bfloat16 path. ``fp32`` holds this run's float32
+    numbers and models. Returns the kernel-line entries of the bf16 mode
+    and their launches on the bf16 main path."""
+    from keras_ocr_tpu_torch import Detector, Pipeline, Recognizer
+    from keras_ocr_tpu_torch.models.craft import fold_bn_state_dict
+    from keras_ocr_tpu_torch.utils import golden
+
+    phase_start = time.perf_counter()
+    device = torch.device("cuda")
+    bf16 = torch.bfloat16
+    report = bf16_kernels(card, conv_cuda, fp32["chain_ms"])
+
+    # (2) The golden artifact in bfloat16, standard and folded; the words
+    # that differ from the float32 run. (Its export: the card test
+    # test_bf16_golden_on_card_live_and_exported.)
+    for fold_bn in (False, True):
+        label = "golden, bfloat16" + (", folded" if fold_bn else "")
+        pipe = golden.load_golden_pipeline(ARTIFACT, bf16, device=device, fold_bn=fold_bn)[0]
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        result = golden.run_golden_check(ARTIFACT, pipeline=pipe)
+        live = {name: wrapper.launches for name, wrapper in wrappers.items()}
+        if not result["pass"]:
+            raise AssertionError(f"{label} check failed: {result}")
+        if fold_bn and min(live["conv_chain"], live["conv3x3_bias_act"]) <= 0:
+            raise AssertionError(f"{label}: the conv kernel was not launched: {live}")
+        differ = [(a["image"], b["predicted"], a["predicted"]) for a, b in zip(
+            result["per_scene"], fp32["golden"][fold_bn]["per_scene"])
+            if a["predicted"] != b["predicted"]]
+        print(f"{label} ({card}): fraction {result['fraction']} over {result['n_words']} words "
+              f"/ {result['n_scenes']} scenes (pass >= {pass_fraction}); launches {live}; "
+              f"scenes whose words differ from the float32 run (float32, bfloat16): "
+              f"{differ or 'none'}")
+        del pipe
+
+    # (3) Full width in bfloat16, standard and folded, on the float32 run's
+    # weights (seeded BatchNorm statistics).
+    state = fp32["detector"].model.state_dict()
+    detector = Detector(weights=None, width=1.0, compute_dtype=bf16, device=device)
+    detector.model.load_state_dict(state)
+    folded = Detector(weights=None, width=1.0, fold_bn=True, compute_dtype=bf16, device=device)
+    folded.model.load_state_dict(fold_bn_state_dict(state))
+    recognizer = Recognizer(weights=None, compute_dtype=bf16, device=device, seed=1)
+    pipelines = {"standard": Pipeline(detector=detector, recognizer=recognizer, scale=2),
+                 "folded": Pipeline(detector=folded, recognizer=recognizer, scale=2)}
+    with torch.inference_mode():
+        x = craft_input(pipelines["standard"], scenes[:2])
+        ref = fp32["detector"].model(x)
+        for label, model in (("standard", detector.model), ("folded", folded.model)):
+            heatmaps = model(x)
+            if heatmaps.dtype != torch.float32 or not torch.isfinite(heatmaps).all():
+                raise AssertionError(f"bf16 {label} heatmaps: {heatmaps.dtype}, not finite")
+            print(f"full width, bfloat16 ({card}): {label} heatmaps of 2 scenes (960x1280) "
+                  f"{float((heatmaps - ref).abs().max()):.3e} max, "
+                  f"{float((heatmaps - ref).abs().mean()):.3e} mean from the float32 "
+                  f"unfolded graph (max|ref| {float(ref.abs().max()):.3e})")
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    times = {}
+    for label, pipe in pipelines.items():
+        check_results(pipe.recognize([scenes[0]]), 1)
+        enqueue_without_sync(pipe, scenes[:8])
+        times[label] = time_pipeline(pipe, scenes)
+    launches = {f"{name}_bf16": wrappers[name].launches
+                for name in ("conv_chain", "conv3x3_bias_act")}
+    # Peak memory above what is resident (every model of the run stays
+    # allocated), for one recognize_many of 32 images at batch 8 of each
+    # pipeline, float32's included.
+    peaks = {}
+    for label, pipe in (*((f"bfloat16 {k}", p) for k, p in pipelines.items()),
+                        *((f"float32 {k}", p) for k, p in fp32["pipelines"].items())):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        check_results(pipe.recognize_many((scenes * 3)[:32], batch_size=8), 32)
+        torch.cuda.synchronize()
+        peaks[label] = (torch.cuda.max_memory_allocated() - resident) / 1e9
+    print(f"full width, bfloat16 ({card}): device programs of 8 images enqueued with no host "
+          f"synchronisation; recognize p50 {times['standard'][0]:.2f} ms standard, "
+          f"{times['folded'][0]:.2f} ms folded (float32 {fp32['times']['unfolded'][0]:.2f} / "
+          f"{fp32['times']['folded'][0]:.2f} ms); recognize_many {times['standard'][1]:.2f} / "
+          f"{times['folded'][1]:.2f} images/s (float32 {fp32['times']['unfolded'][1]:.2f} / "
+          f"{fp32['times']['folded'][1]:.2f}); peak memory above the resident models in one "
+          f"recognize_many of 32 images at batch 8: " + ", ".join(
+              f"{label} {gb:.3f} GB" for label, gb in peaks.items())
+          + f"; conv kernel launches in bf16 {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the bf16 path skipped a conv kernel: {launches}")
+
+    # (4) CRAFT forwards in bfloat16 at 960x1280, batch 1 and 8.
+    b0 = efficientnet_detector("efficientnetb0", device, compute_dtype=bf16)[0]
+    models = {"vgg": detector.model, "vgg folded": folded.model, "efficientnetb0": b0.model}
+    forward_ms = {}
+    with torch.inference_mode():
+        for batch_size, runs in ((1, 10), (8, 5)):
+            x = torch.randn((batch_size, 960, 1280, 3), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(batch_size))
+            for name, model in models.items():
+                forward_ms[name, batch_size] = cuda_median_ms(lambda: model(x), runs=runs)
+            del x
+    print(f"CRAFT forward, bfloat16 ({card}), 960x1280 (median of 10 / 5): " + "; ".join(
+        f"{name} batch 1 {forward_ms[name, 1]:.3f} ms, batch 8 {forward_ms[name, 8]:.3f} ms "
+        f"({forward_ms[name, 8] / 8 / forward_ms[name, 1]:.2f} of batch 1's per image)"
+        for name in models) + f"; float32 VGG {fp32['forward_ms']['unfolded', 1]:.3f} / "
+        f"{fp32['forward_ms']['unfolded', 8]:.3f} ms, folded "
+        f"{fp32['forward_ms']['folded', 1]:.3f} / {fp32['forward_ms']['folded', 8]:.3f} ms")
+    slow = [name for name in models
+            if forward_ms[name, 8] / 8 > BATCH_SWEEP_BAR * forward_ms[name, 1]]
+    if slow:
+        raise AssertionError(f"bf16 CRAFT forwards {slow} exceed {BATCH_SWEEP_BAR}x batch 1's "
+                             "time per image at batch 8")
+    del pipelines, detector, folded, b0, models
+
+    # (5) The graft entry's configuration (__graft_entry__.py) through the
+    # port's Pipeline.
+    import string
+
+    entry_detector = Detector(weights=None, max_components=ENTRY_MAX_COMPONENTS,
+                              compute_dtype=bf16, device=device)
+    entry_recognizer = Recognizer(weights=None, alphabet=string.digits + string.ascii_lowercase,
+                                  compute_dtype=bf16, device=device)
+    entry = Pipeline(detector=entry_detector, recognizer=entry_recognizer, scale=2,
+                     max_words=ENTRY_MAX_WORDS)
+    images = np.random.RandomState(0).uniform(0, 255, ENTRY_SHAPE).astype(np.float32)
+    with torch.inference_mode():
+        packed = entry._device_pipeline(torch.from_numpy(images).to(device), 0.7, 0.4, 0.4,
+                                        10.0, ENTRY_MAX_COMPONENTS, ENTRY_MAX_WORDS)
+    torch.cuda.synchronize()
+    build = entry_recognizer.build_params
+    frames = build["width"] // build["pool_size"] ** 2 - build["rnn_steps_to_discard"]
+    want = (1, ENTRY_MAX_WORDS, 8 + 1 + frames + 2)
+    if tuple(packed.shape) != want or packed.dtype != torch.float32 or not bool(
+            torch.isfinite(packed).all()):
+        raise AssertionError(f"entry configuration: packed {packed.dtype} "
+                             f"{tuple(packed.shape)}, want {want}, finite")
+    results = entry.recognize([images[0].astype(np.uint8)])
+    check_results(results, 1)
+    print(f"entry configuration, bfloat16 ({card}): {ENTRY_SHAPE} float32 images, "
+          f"max_components {ENTRY_MAX_COMPONENTS}, max_words {ENTRY_MAX_WORDS}, digits + "
+          f"lowercase: packed {tuple(packed.shape)} float32, finite; recognize gave "
+          f"{len(results[0])} words; phase 15 in {time.perf_counter() - phase_start:.1f} s")
+    return report, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path", file=sys.stderr)
@@ -2418,11 +2711,12 @@ def main() -> int:
               f"{result['run_stats']}")
         if not result["pass"]:
             raise AssertionError(f"{label} check failed: {result}")
+        return result
 
     # The default path (BatchNorm unfolded, cuDNN): count its launches.
     for wrapper in all_wrappers.values():
         wrapper.launches = 0
-    golden_phase("golden", golden_pipeline)
+    fp32_golden = {False: golden_phase("golden", golden_pipeline)}
     detector = Detector(weights=None, width=1.0, device=device, seed=0)
     recognizer = Recognizer(weights=None, device=device, seed=1)
     pipeline = Pipeline(detector=detector, recognizer=recognizer, scale=2)
@@ -2447,7 +2741,7 @@ def main() -> int:
     for wrapper in all_wrappers.values():
         wrapper.launches = 0
     golden_folded = golden.load_golden_pipeline(ARTIFACT, device=device, fold_bn=True)[0]
-    golden_phase("golden, folded", golden_folded)
+    fp32_golden[True] = golden_phase("golden, folded", golden_folded)
     golden_launches = {name: w.launches for name, w in conv_wrappers.items()}
     if min(golden_launches.values()) <= 0:
         raise AssertionError(f"the folded golden path skipped a conv kernel: {golden_launches}")
@@ -2510,16 +2804,28 @@ def main() -> int:
     for name, count in data_phase(card, sweep_wrappers).items():
         launches[name] += count
 
+    fp32 = {"chain_ms": report["conv_chain"]["per_chain"], "golden": fp32_golden,
+            "times": times, "forward_ms": forward_ms, "detector": detector,
+            "pipelines": {"standard": pipeline, "folded": folded_pipeline}}
+    bf16_report, bf16_launches = bf16_phase(card, conv_cuda, fp32, scenes, pass_fraction,
+                                            all_wrappers)
+    report.update(bf16_report)
+    launches.update(bf16_launches)
+
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",
         # An XLA loop in the JAX package, not a Pallas kernel.
         "cc_keyed_rows_cols": "keras_ocr_tpu/ops/cc.py:210",
         "conv_chain": "keras_ocr_tpu/ops/conv_pallas.py:141",
         "conv3x3_bias_act": "keras_ocr_tpu/ops/conv_pallas.py:302",
+        # The same TPU kernels on a bfloat16 input.
+        "conv_chain_bf16": "keras_ocr_tpu/ops/conv_pallas.py:141",
+        "conv3x3_bias_act_bf16": "keras_ocr_tpu/ops/conv_pallas.py:302",
     }
     sources = {
         "cc_sweeps": cc_cuda.SOURCE, "cc_keyed_rows_cols": cc_cuda.SOURCE,
         "conv_chain": conv_cuda.SOURCE, "conv3x3_bias_act": conv_cuda.SOURCE,
+        "conv_chain_bf16": conv_cuda.SOURCE, "conv3x3_bias_act_bf16": conv_cuda.SOURCE,
     }
     print(f"chip_smoke: all phases in {time.perf_counter() - started:.1f} s")
     print(card)
@@ -2534,7 +2840,7 @@ def main() -> int:
             **{key: report[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         }
-        for name in all_wrappers
+        for name in (*all_wrappers, *bf16_launches)
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

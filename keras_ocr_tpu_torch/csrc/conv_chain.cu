@@ -10,8 +10,9 @@
 //   out[b, y, x, n] = act(bias[n] + sum_{dy, dx, c} in[b, y+dy-p, x+dx-p, c]
 //                                               * w[n, dy*k + dx, c])
 //
-// on NHWC fp32 tensors, with zero padding p = k/2, fp32 in, out and sums.
-// In the pooled mode the epilogue also takes the 2x2/2 max (floored like
+// on NHWC tensors, with zero padding p = k/2: fp32 in, out and sums, or
+// in the bf16 mode (below) bf16 in and out with fp32 sums. In the pooled
+// mode the epilogue also takes the 2x2/2 max (floored like
 // F.max_pool2d(2, 2)) and can write the pre-pool activation as a tap.
 //
 // What bounds it: the tensor cores' rate. The CRAFT layers do 2*9*Cin FLOP
@@ -54,31 +55,70 @@
 //   2x2 window lies in one tile; partial windows at odd edges go to the tap
 //   only.
 //
+// The bf16 mode is the TPU kernels' arithmetic on a bfloat16 input
+// (conv_pallas.py: operands in the input's dtype, weights cast to it,
+// float32 sums, float32 bias, the pool taken on float32, one rounding of
+// each layer's output, its tap and the next layer's input to the buffer
+// dtype). Here: bf16 activations and bf16 K-major weights (cast by the
+// wrapper), one wgmma.mma_async m64nBNk16.f32.bf16.bf16 per 16 channels
+// with A as well as B read from the swizzled slab by descriptor (no
+// split, no registers for A), 64-channel slabs (128 bytes again, so the
+// same boxes, swizzle and descriptors), Cin padded to a multiple of 8 for
+// TMA's 16-byte strides, float32 bias, ReLU and pool in the epilogue and
+// one __float2bfloat16_rn per stored value. Its ceiling is the 989 TFLOP/s
+// dense bf16 rate.
+//
 // The TPU chain keeps a row strip of the whole chain in VMEM; here each
 // layer's output goes through device memory (fusing the chain on chip is
-// left for later, as is bf16).
+// left for later).
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kConsumers = 256;              // two warpgroups
 constexpr int kThreads = kConsumers + 128;   // and a producer warpgroup
 constexpr int kTileH = 8, kTileW = 16;       // the pixel patch of a tile
 constexpr int kBM = kTileH * kTileW;         // 128 GEMM rows
-constexpr int kSlab = 32;                    // input channels per K step
+constexpr int kRowBytes = 128;               // a pixel's (or weight row's) slab
 constexpr int kStages = 4;
-constexpr int kABytes = kBM * kSlab * 4;     // 16 KB activation slab
+constexpr int kABytes = kBM * kRowBytes;     // 16 KB activation slab
 constexpr int kEncodeError = 10000;          // + CUresult of a failed encode
 // try_wait polls before a wedged pipeline traps instead of hanging.
 constexpr long long kMaxPolls = 1LL << 24;
 
-template <int BN>
+// The operand type of a mode: a K step is a slab of kSlab input channels,
+// 128 bytes either way.
+template <typename T>
+struct Operand;
+
+template <>
+struct Operand<float> {
+  static constexpr int kSlab = 32;
+  static constexpr int kWeightParts = 2;  // the tf32 hi and lo parts
+  static constexpr int kCinMultiple = 4;  // 16-byte TMA strides
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+
+template <>
+struct Operand<bf16> {
+  static constexpr int kSlab = 64;
+  static constexpr int kWeightParts = 1;
+  static constexpr int kCinMultiple = 8;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+
+template <typename T, int BN>
 struct Tile {
-  static constexpr int kBBytes = 2 * BN * kSlab * 4;  // hi and lo weights
+  static constexpr int kBBytes = Operand<T>::kWeightParts * BN * kRowBytes;
   static constexpr int kStageBytes = kABytes + kBBytes;
   static constexpr int kPitch = BN + 4;               // staged output row
   static constexpr int kPipeBytes = kStages * kStageBytes;
@@ -96,7 +136,7 @@ constexpr int conv_tile_n_for(int cout) {
 
 struct Shape {
   int batch, height, width, cin, cout, ksize, relu;
-  int tiles_w, tiles_h, n_tiles, chunks;  // chunks: 32-channel slabs per tap
+  int tiles_w, tiles_h, n_tiles, chunks;  // chunks: slabs per tap
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -263,40 +303,152 @@ __device__ __forceinline__ void mma<128>(float* d, const uint32_t* a, uint64_t b
 }
 
 
+// d (64 x BN, fp32) = a (64 x 16 bf16, K-major in shared memory) *
+// b (BN x 16 bf16, K-major in shared memory) (+ d if accumulate).
+template <int BN>
+__device__ __forceinline__ void mma_bf16(float* d, uint64_t a, uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void mma_bf16<8>(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16<16>(float* d, uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16<32>(float* d, uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16<64>(float* d, uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16<128>(float* d, uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 __device__ __forceinline__ float activate(float v, int relu) {
   return relu ? fmaxf(v, 0.0f) : v;
 }
 
+// Four values at p (vec) or the first `count` of them, in the output type:
+// bf16 outputs take their one rounding here.
+__device__ __forceinline__ void store4(float* p, const float4& v, bool vec, int count) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = v;
+    return;
+  }
+  const float vs[4] = {v.x, v.y, v.z, v.w};
+  for (int j = 0; j < count; ++j) p[j] = vs[j];
+}
+
+__device__ __forceinline__ void store4(bf16* p, const float4& v, bool vec, int count) {
+  if (vec) {
+    reinterpret_cast<__nv_bfloat162*>(p)[0] = __floats2bfloat162_rn(v.x, v.y);
+    reinterpret_cast<__nv_bfloat162*>(p)[1] = __floats2bfloat162_rn(v.z, v.w);
+    return;
+  }
+  const float vs[4] = {v.x, v.y, v.z, v.w};
+  for (int j = 0; j < count; ++j) p[j] = __float2bfloat16_rn(vs[j]);
+}
+
 // Stores the staged rows (pixel m of the patch at m * kPitch) to a
 // (batch, height, width, cout) tensor, masked at the edges.
-template <int BN>
-__device__ __forceinline__ void store_pixels(const float* staged, float* dst,
+template <typename T, int BN>
+__device__ __forceinline__ void store_pixels(const float* staged, T* dst,
                                              const Shape& s, int b, int y0,
                                              int x0, int n0, int tid) {
   constexpr int kVecs = BN / 4;
+  constexpr int kPitch = Tile<T, BN>::kPitch;
   const bool vec = s.cout % 4 == 0;
   for (int idx = tid; idx < kBM * kVecs; idx += kConsumers) {
     const int m = idx / kVecs, c = (idx % kVecs) * 4;
     const int y = y0 + m / kTileW, x = x0 + m % kTileW, n = n0 + c;
     if (y >= s.height || x >= s.width || n >= s.cout) continue;
-    const float4 v = *reinterpret_cast<const float4*>(staged + m * Tile<BN>::kPitch + c);
-    float* p = dst + ((static_cast<long long>(b) * s.height + y) * s.width + x) * s.cout + n;
-    if (vec) {
-      *reinterpret_cast<float4*>(p) = v;
-    } else {
-      const float vs[4] = {v.x, v.y, v.z, v.w};
-      for (int j = 0; j < 4 && n + j < s.cout; ++j) p[j] = vs[j];
-    }
+    const float4 v = *reinterpret_cast<const float4*>(staged + m * kPitch + c);
+    T* p = dst + ((static_cast<long long>(b) * s.height + y) * s.width + x) * s.cout + n;
+    store4(p, v, vec, min(4, s.cout - n));
   }
 }
 
 // The 2x2/2 max of the staged patch, floored like F.max_pool2d(2, 2): a
 // window that reaches past an odd edge is not stored.
-template <int BN>
-__device__ __forceinline__ void store_pooled(const float* staged, float* dst,
+template <typename T, int BN>
+__device__ __forceinline__ void store_pooled(const float* staged, T* dst,
                                              const Shape& s, int b, int y0,
                                              int x0, int n0, int tid) {
   constexpr int kVecs = BN / 4;
+  constexpr int kPitch = Tile<T, BN>::kPitch;
   constexpr int kWinW = kTileW / 2;
   const bool vec = s.cout % 4 == 0;
   const int pooled_h = s.height / 2, pooled_w = s.width / 2;
@@ -305,31 +457,27 @@ __device__ __forceinline__ void store_pooled(const float* staged, float* dst,
     const int wy = win / kWinW, wx = win % kWinW;
     const int y = y0 / 2 + wy, x = x0 / 2 + wx, n = n0 + c;
     if (y >= pooled_h || x >= pooled_w || n >= s.cout) continue;
-    const float* q = staged + (2 * wy * kTileW + 2 * wx) * Tile<BN>::kPitch + c;
+    const float* q = staged + (2 * wy * kTileW + 2 * wx) * kPitch + c;
     const float4 v00 = *reinterpret_cast<const float4*>(q);
-    const float4 v01 = *reinterpret_cast<const float4*>(q + Tile<BN>::kPitch);
-    const float4 v10 = *reinterpret_cast<const float4*>(q + kTileW * Tile<BN>::kPitch);
-    const float4 v11 = *reinterpret_cast<const float4*>(q + (kTileW + 1) * Tile<BN>::kPitch);
+    const float4 v01 = *reinterpret_cast<const float4*>(q + kPitch);
+    const float4 v10 = *reinterpret_cast<const float4*>(q + kTileW * kPitch);
+    const float4 v11 = *reinterpret_cast<const float4*>(q + (kTileW + 1) * kPitch);
     const float4 v = make_float4(fmaxf(fmaxf(v00.x, v01.x), fmaxf(v10.x, v11.x)),
                                  fmaxf(fmaxf(v00.y, v01.y), fmaxf(v10.y, v11.y)),
                                  fmaxf(fmaxf(v00.z, v01.z), fmaxf(v10.z, v11.z)),
                                  fmaxf(fmaxf(v00.w, v01.w), fmaxf(v10.w, v11.w)));
-    float* p = dst + ((static_cast<long long>(b) * pooled_h + y) * pooled_w + x) * s.cout + n;
-    if (vec) {
-      *reinterpret_cast<float4*>(p) = v;
-    } else {
-      const float vs[4] = {v.x, v.y, v.z, v.w};
-      for (int j = 0; j < 4 && n + j < s.cout; ++j) p[j] = vs[j];
-    }
+    T* p = dst + ((static_cast<long long>(b) * pooled_h + y) * pooled_w + x) * s.cout + n;
+    store4(p, v, vec, min(4, s.cout - n));
   }
 }
 
-template <int BN, bool kPool>
+template <typename E, int BN, bool kPool>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_tc(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtensorMap wts,
-        const float* __restrict__ bias, float* __restrict__ out,
-        float* __restrict__ tap, Shape s) {
-  using T = Tile<BN>;
+        const float* __restrict__ bias, E* __restrict__ out,
+        E* __restrict__ tap, Shape s) {
+  using T = Tile<E, BN>;
+  constexpr int kSlab = Operand<E>::kSlab;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -382,8 +530,8 @@ conv_tc(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtenso
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int wg = tid / 128, q = (tid / 32) % 4, g = lane / 4, t = lane % 4;
   const int row0 = wg * 64 + q * 16 + g;
-  // Each slab's 12 products go to a fresh partial sum, added to acc in
-  // fp32 (see the head of the file).
+  // Each slab's products go to a fresh partial sum, added to acc in fp32
+  // (see the head of the file).
   float acc[BN / 2], part[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.0f;
@@ -392,43 +540,58 @@ conv_tc(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtenso
     const int stage = step % kStages;
     mbar_wait(full0 + 8 * stage, (step / kStages) & 1);
     const uint8_t* a_tile = smem + stage * T::kStageBytes;
-    const uint32_t b_hi = smem_u32(a_tile + kABytes);
-    const uint32_t b_lo = b_hi + BN * kSlab * 4;
-    // Fragment of k8 block kk: a0 (row g, col t), a1 (row g+8, col t),
-    // a2 (row g, col t+4), a3 (row g+8, col t+4); 16-byte chunk c of row r
-    // lies at chunk c ^ (r % 8) under the 128-byte swizzle.
-    uint32_t hi[4][4], lo[4][4];
+    if constexpr (std::is_same<E, bf16>::value) {
+      // Both operands by descriptor: the warpgroup's 64 rows of the slab,
+      // and the weights; 16 channels (32 bytes) per product.
+      const uint32_t a_rows = smem_u32(a_tile) + wg * 64 * kRowBytes;
+      const uint32_t b_rows = smem_u32(a_tile + kABytes);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+      for (int i = 0; i < BN / 2; ++i) fence_reg(part[i]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = row0 + (r & 1) * 8;
-        const int chunk = 2 * kk + (r >> 1);
-        const float v = *reinterpret_cast<const float*>(
-            a_tile + row * 128 + ((chunk ^ (row & 7)) << 4) + t * 4);
-        split_tf32(v, hi[kk][r], lo[kk][r]);
+      for (int kk = 0; kk < kSlab / 16; ++kk)
+        mma_bf16<BN>(part, sw128_desc(a_rows + kk * 32), sw128_desc(b_rows + kk * 32), kk > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    } else {
+      const uint32_t b_hi = smem_u32(a_tile + kABytes);
+      const uint32_t b_lo = b_hi + BN * kRowBytes;
+      // Fragment of k8 block kk: a0 (row g, col t), a1 (row g+8, col t),
+      // a2 (row g, col t+4), a3 (row g+8, col t+4); 16-byte chunk c of row r
+      // lies at chunk c ^ (r % 8) under the 128-byte swizzle.
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = row0 + (r & 1) * 8;
+          const int chunk = 2 * kk + (r >> 1);
+          const float v = *reinterpret_cast<const float*>(
+              a_tile + row * 128 + ((chunk ^ (row & 7)) << 4) + t * 4);
+          split_tf32(v, hi[kk][r], lo[kk][r]);
+        }
       }
-    }
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) fence_reg(part[i]);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      for (int i = 0; i < BN / 2; ++i) fence_reg(part[i]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t d_hi = sw128_desc(b_hi + kk * 32);
-      const uint64_t d_lo = sw128_desc(b_lo + kk * 32);
-      mma<BN>(part, lo[kk], d_hi, kk > 0);  // the small terms first
-      mma<BN>(part, hi[kk], d_lo, 1);
-      mma<BN>(part, hi[kk], d_hi, 1);
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        fence_reg(hi[kk][r]);
-        fence_reg(lo[kk][r]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t d_hi = sw128_desc(b_hi + kk * 32);
+        const uint64_t d_lo = sw128_desc(b_lo + kk * 32);
+        mma<BN>(part, lo[kk], d_hi, kk > 0);  // the small terms first
+        mma<BN>(part, hi[kk], d_lo, 1);
+        mma<BN>(part, hi[kk], d_hi, 1);
       }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          fence_reg(hi[kk][r]);
+          fence_reg(lo[kk][r]);
+        }
+    }
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) fence_reg(part[i]);
     __syncwarp();
@@ -455,10 +618,10 @@ conv_tc(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtenso
   }
   consumers_sync();
   if (kPool) {
-    if (tap != nullptr) store_pixels<BN>(staged, tap, s, b, y0, x0, n0, tid);
-    store_pooled<BN>(staged, out, s, b, y0, x0, n0, tid);
+    if (tap != nullptr) store_pixels<E, BN>(staged, tap, s, b, y0, x0, n0, tid);
+    store_pooled<E, BN>(staged, out, s, b, y0, x0, n0, tid);
   } else {
-    store_pixels<BN>(staged, out, s, b, y0, x0, n0, tid);
+    store_pixels<E, BN>(staged, out, s, b, y0, x0, n0, tid);
   }
 }
 
@@ -479,23 +642,25 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D fp32 tensor map, innermost dimension first, 128-byte swizzle,
-// zeros outside the tensor.
-CUresult encode_4d(CUtensorMap* map, const float* base, const cuuint64_t dims[4],
+// A 4-D tensor map of the mode's element type, innermost dimension first,
+// 128-byte swizzle, zeros outside the tensor.
+template <typename E>
+CUresult encode_4d(CUtensorMap* map, const E* base, const cuuint64_t dims[4],
                    const cuuint32_t box[4]) {
-  const cuuint64_t strides[3] = {dims[0] * 4, dims[0] * dims[1] * 4,
-                                 dims[0] * dims[1] * dims[2] * 4};
+  constexpr cuuint64_t kBytes = sizeof(E);
+  const cuuint64_t strides[3] = {dims[0] * kBytes, dims[0] * dims[1] * kBytes,
+                                 dims[0] * dims[1] * dims[2] * kBytes};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base),
-                        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return encode_tiled()(map, Operand<E>::kMapType, 4, const_cast<E*>(base), dims, strides, box,
+                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int BN, bool kPool>
-int launch(const float* in, const float* w, const float* bias, float* out, float* tap,
-           Shape s, cudaStream_t stream) {
+template <typename E, int BN, bool kPool>
+int launch(const E* in, const E* w, const float* bias, E* out, E* tap, Shape s,
+           cudaStream_t stream) {
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  constexpr int kSlab = Operand<E>::kSlab, kParts = Operand<E>::kWeightParts;
   CUtensorMap act, wts;
   const cuuint64_t act_dims[4] = {static_cast<cuuint64_t>(s.cin), static_cast<cuuint64_t>(s.width),
                                   static_cast<cuuint64_t>(s.height), static_cast<cuuint64_t>(s.batch)};
@@ -504,8 +669,8 @@ int launch(const float* in, const float* w, const float* bias, float* out, float
   if (res != CUDA_SUCCESS) return kEncodeError + static_cast<int>(res);
   const cuuint64_t w_dims[4] = {static_cast<cuuint64_t>(s.cin),
                                 static_cast<cuuint64_t>(s.ksize * s.ksize),
-                                static_cast<cuuint64_t>(s.cout), 2};
-  const cuuint32_t w_box[4] = {kSlab, 1, BN, 2};
+                                static_cast<cuuint64_t>(s.cout), kParts};
+  const cuuint32_t w_box[4] = {kSlab, 1, BN, kParts};
   res = encode_4d(&wts, w, w_dims, w_box);
   if (res != CUDA_SUCCESS) return kEncodeError + static_cast<int>(res);
 
@@ -515,25 +680,39 @@ int launch(const float* in, const float* w, const float* bias, float* out, float
   s.chunks = (s.cin + kSlab - 1) / kSlab;
   const long long blocks = static_cast<long long>(s.batch) * s.tiles_h * s.tiles_w * s.n_tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto kernel = conv_tc<BN, kPool>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BN>::kSmemBytes);
+  auto kernel = conv_tc<E, BN, kPool>;
+  constexpr int kSmem = Tile<E, BN>::kSmemBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, Tile<BN>::kSmemBytes, stream>>>(
-      act, wts, bias, out, tap, s);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, kSmem, stream>>>(act, wts, bias, out, tap, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kPool>
-int launch_tiled(const float* in, const float* w, const float* bias, float* out,
-                 float* tap, const Shape& s, cudaStream_t stream) {
+template <typename E, bool kPool>
+int launch_tiled(const E* in, const E* w, const float* bias, E* out, E* tap, const Shape& s,
+                 cudaStream_t stream) {
   switch (conv_tile_n_for(s.cout)) {
-    case 8: return launch<8, kPool>(in, w, bias, out, tap, s, stream);
-    case 16: return launch<16, kPool>(in, w, bias, out, tap, s, stream);
-    case 32: return launch<32, kPool>(in, w, bias, out, tap, s, stream);
-    case 64: return launch<64, kPool>(in, w, bias, out, tap, s, stream);
-    default: return launch<128, kPool>(in, w, bias, out, tap, s, stream);
+    case 8: return launch<E, 8, kPool>(in, w, bias, out, tap, s, stream);
+    case 16: return launch<E, 16, kPool>(in, w, bias, out, tap, s, stream);
+    case 32: return launch<E, 32, kPool>(in, w, bias, out, tap, s, stream);
+    case 64: return launch<E, 64, kPool>(in, w, bias, out, tap, s, stream);
+    default: return launch<E, 128, kPool>(in, w, bias, out, tap, s, stream);
   }
+}
+
+template <typename E>
+int conv_layer_of(const E* in, const E* w, const float* bias, E* out, E* tap, int batch,
+                  int height, int width, int cin, int cout, int ksize, int relu, int pool,
+                  cudaStream_t stream) {
+  if ((ksize != 1 && ksize != 3) || batch < 0 || height < 0 || width < 0 || cin <= 0 ||
+      cin % Operand<E>::kCinMultiple != 0 || cout <= 0 || (tap != nullptr && !pool) ||
+      reinterpret_cast<uintptr_t>(in) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(batch) * height * width == 0) return 0;
+  Shape s{batch, height, width, cin, cout, ksize, relu != 0, 0, 0, 0, 0};
+  return pool ? launch_tiled<E, true>(in, w, bias, out, tap, s, stream)
+              : launch_tiled<E, false>(in, w, bias, out, tap, s, stream);
 }
 
 }  // namespace
@@ -555,12 +734,17 @@ extern "C" int conv_layer(const float* in, const float* w, const float* bias,
                           float* out, float* tap, int batch, int height,
                           int width, int cin, int cout, int ksize, int relu,
                           int pool, cudaStream_t stream) {
-  if ((ksize != 1 && ksize != 3) || batch < 0 || height < 0 || width < 0 ||
-      cin <= 0 || cin % 4 != 0 || cout <= 0 || (tap != nullptr && !pool) ||
-      reinterpret_cast<uintptr_t>(in) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<long long>(batch) * height * width == 0) return 0;
-  Shape s{batch, height, width, cin, cout, ksize, relu != 0, 0, 0, 0, 0};
-  return pool ? launch_tiled<true>(in, w, bias, out, tap, s, stream)
-              : launch_tiled<false>(in, w, bias, out, tap, s, stream);
+  return conv_layer_of<float>(in, w, bias, out, tap, batch, height, width, cin, cout, ksize,
+                              relu, pool, stream);
+}
+
+// The bf16 mode of conv_layer: `in`, `out` and `tap` bf16 with cin a
+// multiple of 8, `w` (cout, ksize*ksize, cin) bf16 K-major (one part, no
+// split), `bias` fp32; float32 sums, each stored value rounded once to bf16.
+extern "C" int conv_layer_bf16(const void* in, const void* w, const float* bias, void* out,
+                               void* tap, int batch, int height, int width, int cin, int cout,
+                               int ksize, int relu, int pool, cudaStream_t stream) {
+  return conv_layer_of<bf16>(static_cast<const bf16*>(in), static_cast<const bf16*>(w), bias,
+                             static_cast<bf16*>(out), static_cast<bf16*>(tap), batch, height,
+                             width, cin, cout, ksize, relu, pool, stream);
 }

@@ -253,8 +253,11 @@ class Detector:
             the ImageNet file (:mod:`.weights.efficientnet`, looked up
             offline first) and, where that cannot be had, from random
             weights with a warning.
-        compute_dtype: ``torch.float32`` (the JAX package's fifth
-            argument; other dtypes raise ``NotImplementedError``).
+        compute_dtype: ``torch.float32`` or ``torch.bfloat16`` (the JAX
+            package's fifth argument): CRAFT computes in it with float32
+            parameters (the folded graph through the conv kernel's bf16
+            mode) and gives float32 heatmaps; other dtypes raise
+            ``NotImplementedError``.
         max_components: starting cap of the component escalation.
         allow_random_fallback: warn and keep random weights where the
             named file cannot be had.
@@ -298,7 +301,8 @@ class Detector:
         self.max_components = max_components
         self.fold_bn = fold_bn
         self.device = torch.device(device) if device is not None else default_device()
-        model = init_parameters(CRAFT(backbone_name, fold_bn=fold_bn, width=width), seed=seed)
+        model = init_parameters(CRAFT(backbone_name, fold_bn=fold_bn, width=width,
+                                      dtype=compute_dtype), seed=seed)
         self.model = model.to(self.device).eval()
         if weights is None:
             if backbone_name != "vgg":
@@ -500,10 +504,11 @@ def build_model(backbone_name: str = "vgg", weights_path: typing.Optional[str] =
                 seed: int = 0) -> typing.Tuple[CRAFT, dict]:
     """The CRAFT graph of ``backbone_name`` and its variable tree: loaded
     from a ``.h5`` / ``.pth`` file where ``weights_path`` is given, else the
-    seeded random initialisation's. ``compute_dtype`` is float32 only. The
+    seeded random initialisation's. ``compute_dtype`` (float32 or
+    bfloat16) is the module's ``dtype``; its parameters stay float32. The
     module is on the CPU, in ``eval()``, with the tree loaded."""
     check_compute_dtype(compute_dtype)
-    model = init_parameters(CRAFT(backbone_name), seed=seed).eval()
+    model = init_parameters(CRAFT(backbone_name, dtype=compute_dtype), seed=seed).eval()
     if weights_path is None:
         return model, weights_lib.craft_variables(model)
     variables = weights_lib.load_craft_weights(weights_path)

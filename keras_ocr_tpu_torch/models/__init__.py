@@ -62,14 +62,13 @@ def init_parameters(model: nn.Module, seed: int = 0) -> nn.Module:
 
 
 def check_compute_dtype(compute_dtype) -> None:
-    """The facades' ``compute_dtype`` (the JAX package's argument): float32
-    only, until the bfloat16 path is ported."""
+    """The facades' ``compute_dtype`` (the JAX package's argument): float32,
+    or bfloat16 with float32 parameters (the JAX package's two)."""
     if not isinstance(compute_dtype, torch.dtype):
         raise TypeError(f"compute_dtype must be a torch.dtype, got {compute_dtype!r}")
-    if compute_dtype != torch.float32:
+    if compute_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
-            f"compute_dtype={compute_dtype}: the port computes in float32 only; a "
-            "bfloat16 path is ROADMAP item 1.5")
+            f"compute_dtype={compute_dtype}: the port computes in float32 or bfloat16")
 
 
 __all__ = ["CRAFT", "CRNN", "check_compute_dtype", "craft", "crnn", "efficientnet",

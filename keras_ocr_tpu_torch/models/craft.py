@@ -34,7 +34,7 @@ from torch.nn import functional as F
 from ..ops import conv_cuda
 from ..ops.image import resize_bilinear
 from .efficientnet import EfficientNetBackbone
-from .layers import BatchNorm2d, full_float32
+from .layers import BatchNorm2d, Conv2d, float32_output, full_float32, sigmoid
 
 # (slice name, reference layer index of the conv, filters, pool after block)
 VGG_BLOCKS: typing.Tuple[typing.Tuple[str, int, int, bool], ...] = (
@@ -92,7 +92,7 @@ def _scaled(filters: int, width: float) -> int:
     return max(8, int(filters * width) // 8 * 8)
 
 
-class PerImageConv2d(nn.Conv2d):
+class PerImageConv2d(Conv2d):
     """``nn.Conv2d`` that convolves a batch one image at a time.
 
     For ``upconv2.block1`` (3x3, 256 -> 128 channels) cuDNN 9's float32
@@ -119,7 +119,7 @@ class ConvBN(nn.Module):
 
     def __init__(self, in_ch, out_ch, kernel=3, relu=True, fold_bn=False, per_image=False):
         super().__init__()
-        conv = PerImageConv2d if per_image else nn.Conv2d
+        conv = PerImageConv2d if per_image else Conv2d
         self.conv = conv(in_ch, out_ch, kernel, padding="same")
         self.bn = None if fold_bn else BatchNorm2d(out_ch, eps=1e-5)
         self.relu = relu
@@ -206,14 +206,21 @@ class CRAFT(nn.Module):
 
     ``backbone_name`` is ``"vgg"`` or one of ``efficientnetb0`` ..
     ``efficientnetb7`` (any case); ``fold_bn`` and ``width`` apply to the
-    VGG graph only, as in the JAX module.
+    VGG graph only, as in the JAX module. ``dtype`` is the JAX module's:
+    ``torch.bfloat16`` computes in bfloat16 with float32 parameters,
+    rounding where Flax does (:mod:`.layers`; the BN-folded graph where the
+    TPU conv kernel does, once per layer), and returns float32 heatmaps;
+    otherwise the graph computes in its parameters' dtype (float32 unless
+    converted, e.g. ``model.double()`` for a float64 reference).
     """
 
-    def __init__(self, backbone_name: str = "vgg", fold_bn: bool = False, width: float = 1.0):
+    def __init__(self, backbone_name: str = "vgg", fold_bn: bool = False, width: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.backbone_name = backbone_name
         self.width = width
         self.fold_bn = fold_bn
+        self.dtype = dtype
         if backbone_name == "vgg":
             self.basenet = VGG16BN(width=width, fold_bn=fold_bn)
         elif "efficientnet" in backbone_name.lower():
@@ -225,19 +232,19 @@ class CRAFT(nn.Module):
             raise NotImplementedError(backbone_name)
         ch = self.basenet.channels
         c5 = _scaled(1024, width)
-        self.slice5_1 = nn.Conv2d(ch["s4"], c5, 3, padding="same", dilation=6)
-        self.slice5_2 = nn.Conv2d(c5, c5, 1)
+        self.slice5_1 = Conv2d(ch["s4"], c5, 3, padding="same", dilation=6)
+        self.slice5_2 = Conv2d(c5, c5, 1)
         up = [_scaled(f, width) for f in (512, 256, 128, 64)]
         self.upconv1 = UpConv(c5 + ch["s4"], up[0], fold_bn)
         # cuDNN's float32 FFT pick (PerImageConv2d) hits this block's 3x3 conv.
         self.upconv2 = UpConv(up[0] // 2 + ch["s3"], up[1], fold_bn, per_image=True)
         self.upconv3 = UpConv(up[1] // 2 + ch["s2"], up[2], fold_bn)
         self.upconv4 = UpConv(up[2] // 2 + ch["s1"], up[3], fold_bn)
-        self.conv_cls_0 = nn.Conv2d(up[3] // 2, 32, 3, padding="same")
-        self.conv_cls_2 = nn.Conv2d(32, 32, 3, padding="same")
-        self.conv_cls_4 = nn.Conv2d(32, 16, 3, padding="same")
-        self.conv_cls_6 = nn.Conv2d(16, 16, 1)
-        self.conv_cls_8 = nn.Conv2d(16, 2, 1)
+        self.conv_cls_0 = Conv2d(up[3] // 2, 32, 3, padding="same")
+        self.conv_cls_2 = Conv2d(32, 32, 3, padding="same")
+        self.conv_cls_4 = Conv2d(32, 16, 3, padding="same")
+        self.conv_cls_6 = Conv2d(16, 16, 1)
+        self.conv_cls_8 = Conv2d(16, 2, 1)
 
     @full_float32()
     def forward(self, x):
@@ -247,9 +254,8 @@ class CRAFT(nn.Module):
             return self._forward_folded(x)
         # contiguous(): from a permuted NHWC tensor cuDNN runs every conv in
         # its channels-last fp32 kernels (CRAFT at batch 8 x 960x1280
-        # measured 903 ms instead of 235 ms on an H100). The standard graph
-        # computes in its parameters' dtype (float32 unless converted).
-        x = x.to(self.slice5_1.weight.dtype).permute(0, 3, 1, 2).contiguous()
+        # measured 903 ms instead of 235 ms on an H100).
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2).contiguous()
         s1, s2, s3, s4 = self.basenet(x)
         s5 = F.max_pool2d(s4, 3, 1, padding=1)
         s5 = self.slice5_2(self.slice5_1(s5))
@@ -267,14 +273,22 @@ class CRAFT(nn.Module):
         y = F.relu(self.conv_cls_6(y))
         y = self.conv_cls_8(y)
         if self.backbone_name != "vgg":
-            y = torch.sigmoid(y)
-        return y.permute(0, 2, 3, 1)
+            y = sigmoid(y)
+        return float32_output(y.permute(0, 2, 3, 1))
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """bfloat16 where ``dtype`` asks for it, else the parameters'."""
+        if self.dtype == torch.bfloat16:
+            return self.dtype
+        return self.slice5_1.weight.dtype
 
     def _forward_folded(self, x):
         """Inference graph with BatchNorm folded: NHWC throughout, 12 conv
         chains; the s5 head (a dilated conv neither kernel takes) stays
-        cuDNN on a contiguous NCHW copy."""
-        x = x.to(torch.float32).contiguous()
+        cuDNN on a contiguous NCHW copy (in bfloat16 with Flax's two
+        roundings, :class:`.layers.Conv2d`)."""
+        x = x.to(self.compute_dtype).contiguous()
         s1, s2, s3, s4 = self.basenet.forward_folded(x)
         s5 = F.max_pool2d(s4.permute(0, 3, 1, 2).contiguous(), 3, 1, padding=1)
         s5 = self.slice5_2(self.slice5_1(s5)).permute(0, 2, 3, 1).contiguous()
@@ -288,4 +302,5 @@ class CRAFT(nn.Module):
         y = self.upconv4.forward_folded(torch.cat([resize_to(y, s1), s1], -1))
         head = [(self.conv_cls_0, True), (self.conv_cls_2, True), (self.conv_cls_4, True),
                 (self.conv_cls_6, True), (self.conv_cls_8, False)]
-        return conv_cuda.conv_chain(y, [_chain_conv(conv, relu) for conv, relu in head])
+        y = conv_cuda.conv_chain(y, [_chain_conv(conv, relu) for conv, relu in head])
+        return float32_output(y)

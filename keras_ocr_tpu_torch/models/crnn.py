@@ -35,7 +35,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .layers import BatchNorm2d, full_float32
+from .layers import BatchNorm2d, Conv2d, Linear, float32_output, full_float32, sigmoid
 
 DEFAULT_BUILD_PARAMS = {
     "height": 31,
@@ -50,16 +50,50 @@ DEFAULT_BUILD_PARAMS = {
 }
 
 
+def bilstm_steps(lstm, x):
+    """A bidirectional ``nn.LSTM`` layer on a bfloat16 input, step by step
+    as the JAX package's ``fused_bilstm`` computes it in bf16: the float32
+    weights cast to bf16, the input projections and their bias (two
+    roundings), then per step ``z = z_t + h @ R`` and each gate, ``c`` and
+    ``h`` rounded to bf16 after every op, ``h`` and ``c`` carried in bf16;
+    the sigmoid is :func:`.layers.sigmoid`. Returns the forward and the
+    backward outputs, the backward one in processing order (Keras's
+    ``go_backwards``). The reference the tests hold the CRNN's ``nn.LSTM``
+    path to; the model does not call it."""
+    units, dtype = lstm.hidden_size, x.dtype
+
+    def stream(suffix, inputs):
+        kernel = getattr(lstm, f"weight_ih_l0{suffix}").to(dtype)
+        recurrent = getattr(lstm, f"weight_hh_l0{suffix}").to(dtype)
+        bias = getattr(lstm, f"bias_ih_l0{suffix}").to(dtype)
+        return F.linear(inputs, kernel) + bias, recurrent.T
+
+    proj_f, rec_f = stream("", x)
+    proj_b, rec_b = stream("_reverse", x.flip(1))
+    proj = torch.stack([proj_f, proj_b])  # (2, B, T, 4u)
+    recurrent = torch.stack([rec_f, rec_b])  # (2, u, 4u)
+    h = c = x.new_zeros((2, x.shape[0], units))
+    outputs = []
+    for t in range(x.shape[1]):
+        z = proj[:, :, t] + torch.bmm(h, recurrent)
+        i, f, g, o = z.split(units, -1)
+        c = sigmoid(f) * c + sigmoid(i) * torch.tanh(g)
+        h = sigmoid(o) * torch.tanh(c)
+        outputs.append(h)
+    out = torch.stack(outputs, 2)  # (2, B, T, u)
+    return out[0], out[1]
+
+
 class SpatialTransformer(nn.Module):
     """Affine STN with the reference's grid and sampling arithmetic, on
     NHWC features."""
 
     def __init__(self, channels: int, height: int, width: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(channels, 16, 5, padding="same")
-        self.conv2 = nn.Conv2d(16, 32, 5, padding="same")
-        self.dense1 = nn.Linear(height * width * 32, 64)
-        self.dense2 = nn.Linear(64, 6)
+        self.conv1 = Conv2d(channels, 16, 5, padding="same")
+        self.conv2 = Conv2d(16, 32, 5, padding="same")
+        self.dense1 = Linear(height * width * 32, 64)
+        self.dense2 = Linear(64, 6)
 
     def forward(self, x):
         batch, height, width, channels = x.shape
@@ -68,6 +102,10 @@ class SpatialTransformer(nn.Module):
         y = y.permute(0, 2, 3, 1).reshape(batch, -1)  # flatten in (h, w, c)
         y = F.relu(self.dense1(y))
         theta = self.dense2(y).reshape(batch, 2, 3)
+        # A bfloat16 net samples in float32 (the JAX module's theta and its
+        # HIGHEST-precision sampling) and rounds the result once.
+        if theta.dtype == torch.bfloat16:
+            theta = theta.float()
         dtype = theta.dtype
 
         def linspace(n):
@@ -95,7 +133,7 @@ class SpatialTransformer(nn.Module):
         wy_lo = (y1c.to(dtype) - sy)[..., None]
         wy_hi = (sy - y0c.to(dtype))[..., None]
 
-        feats = x.reshape(batch, height * width, channels)
+        feats = x.reshape(batch, height * width, channels).to(dtype)
 
         def tap(yy, xx):
             index = (yy * width + xx)[..., None].expand(-1, -1, channels)
@@ -104,13 +142,17 @@ class SpatialTransformer(nn.Module):
         left = wy_lo * tap(y0c, x0c) + wy_hi * tap(y1c, x0c)
         right = wy_lo * tap(y0c, x1c) + wy_hi * tap(y1c, x1c)
         out = wx_lo * left + wx_hi * right
-        return out.reshape(batch, height, width, channels)
+        return out.reshape(batch, height, width, channels).to(x.dtype)
 
 
 class CRNN(nn.Module):
     """Full CRNN graph: (B, H, W, C) crops in [0, 1] -> (B, T, classes)
     softmax frames, the first ``rnn_steps_to_discard`` dropped (``forward``
-    says what else it returns)."""
+    says what else it returns). ``dtype`` is the JAX module's:
+    ``torch.bfloat16`` computes in bfloat16 with float32 parameters
+    (:mod:`.layers`; the STN samples in float32; the LSTMs are ``nn.LSTM``
+    on bf16 weights) and returns float32 frames; otherwise the graph
+    computes in its parameters' dtype."""
 
     def __init__(
         self,
@@ -124,8 +166,10 @@ class CRNN(nn.Module):
         rnn_steps_to_discard: int = 2,
         pool_size: int = 2,
         stn: bool = True,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.dtype = dtype
         if len(filters) != 7:
             raise ValueError("7 CNN filters must be provided.")
         if len(rnn_units) != 2:
@@ -136,7 +180,7 @@ class CRNN(nn.Module):
         self.dropout = dropout
         in_ch = 3 if color else 1
         for i, out_ch in enumerate(filters, start=1):
-            self.add_module(f"conv_{i}", nn.Conv2d(in_ch, out_ch, 3, padding="same"))
+            self.add_module(f"conv_{i}", Conv2d(in_ch, out_ch, 3, padding="same"))
             in_ch = out_ch
         # Flax momentum 0.99 = torch momentum 0.01.
         self.bn_3 = BatchNorm2d(filters[2], eps=1e-3, momentum=0.01)
@@ -146,17 +190,31 @@ class CRNN(nn.Module):
         rows = height // pool_size**2
         self.stn = SpatialTransformer(filters[6], steps, rows) if stn else None
         u1, u2 = rnn_units
-        self.fc_9 = nn.Linear(rows * filters[6], u1)
+        self.fc_9 = Linear(rows * filters[6], u1)
         self.lstm_10 = nn.LSTM(u1, u1, batch_first=True, bidirectional=True)
         self.lstm_11 = nn.LSTM(u1, u2, batch_first=True, bidirectional=True)
-        self.fc_12 = nn.Linear(2 * u2, alphabet_size + 1)
+        self.fc_12 = Linear(2 * u2, alphabet_size + 1)
         for lstm in (self.lstm_10, self.lstm_11):
             for name, param in lstm.named_parameters():
                 if name.startswith("bias_hh"):
                     param.requires_grad_(False)
 
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """bfloat16 where ``dtype`` asks for it, else the parameters'."""
+        if self.dtype == torch.bfloat16:
+            return self.dtype
+        return self.fc_9.weight.dtype
+
     def _bilstm(self, lstm, x):
-        out, _ = lstm(x)
+        if x.dtype != lstm.weight_ih_l0.dtype:
+            # bfloat16: the layer with its float32 weights cast to bf16. On
+            # the card cuDNN keeps the cell arithmetic in float32 and rounds
+            # what it writes; bilstm_steps is the JAX package's rounding.
+            bf16 = {name: p.to(x.dtype) for name, p in lstm.named_parameters()}
+            out, _ = torch.func.functional_call(lstm, bf16, (x,))
+        else:
+            out, _ = lstm(x)
         units = lstm.hidden_size
         # PyTorch aligns the backward stream with input time; Keras's
         # go_backwards output stays in processing order.
@@ -173,8 +231,7 @@ class CRNN(nn.Module):
         training-mode dropout mask; training mode with dropout needs one.
         """
         # NHWC (B, H, W, C) -> NCHW (B, C, W, H), flipped along H.
-        # The graph computes in its parameters' dtype (float32 unless converted).
-        x = x.to(self.fc_9.weight.dtype).permute(0, 3, 2, 1).flip(3).contiguous()
+        x = x.to(self.compute_dtype).permute(0, 3, 2, 1).flip(3).contiguous()
         p = self.pool_size
         x = F.relu(self.conv_1(x))
         x = F.relu(self.conv_2(x))
@@ -194,8 +251,10 @@ class CRNN(nn.Module):
         fwd, bwd = self._bilstm(self.lstm_11, fwd + bwd)
         features = torch.cat([fwd, bwd], -1)
         if return_backbone:
-            return features
-        x = self.fc_12(self._dropout(features, generator))
+            return float32_output(features)
+        # The logits are float32 from a bfloat16 graph, as in the JAX
+        # module, and so is the softmax.
+        x = float32_output(self.fc_12(self._dropout(features, generator)))
         if not return_logits:
             x = torch.softmax(x, -1)
         return x[:, self.rnn_steps_to_discard :]

@@ -22,6 +22,9 @@ Three things follow the Flax modules rather than torch's defaults:
   stage 5, whose output no tap reads, in training only, for the running
   statistics those Flax calls update.
 
+A bfloat16 input runs the whole backbone in bfloat16 with float32
+parameters, rounding as the Flax modules do (:mod:`.layers`).
+
 Module names follow the Flax tree (``stem.Conv_0``, ``block2a.expand_conv``,
 ``block2a.dw_bn``, ...), so a ``state_dict`` key is the Flax path joined
 with dots. Stages 6-7 are never built.
@@ -35,7 +38,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .layers import BatchNorm2d
+from .layers import BatchNorm2d, Conv2d, sigmoid, swish
 
 # (width_multiplier, depth_multiplier) per variant.
 SCALING = {
@@ -93,7 +96,7 @@ def _bn(channels):
     return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
-class SameConv2d(nn.Conv2d):
+class SameConv2d(Conv2d):
     """``nn.Conv2d`` with TF/Flax "SAME" padding: the output has
     ``ceil(size / stride)`` rows and columns, and a strided conv pads
     ``total // 2`` before and the rest after, from the input's size."""
@@ -123,7 +126,7 @@ class ConvBNSwish(nn.Module):
         self.BatchNorm_0 = _bn(features)
 
     def forward(self, x):
-        return F.silu(self.BatchNorm_0(self.Conv_0(x)))
+        return swish(self.BatchNorm_0(self.Conv_0(x)))
 
 
 class MBConv(nn.Module):
@@ -150,15 +153,15 @@ class MBConv(nn.Module):
         self.dw_bn = _bn(expanded)
         # The squeeze width comes from the block's input channels.
         se_channels = max(1, int(in_ch * se_ratio))
-        self.se_reduce = nn.Conv2d(expanded, se_channels, 1)
-        self.se_expand = nn.Conv2d(se_channels, expanded, 1)
+        self.se_reduce = Conv2d(expanded, se_channels, 1)
+        self.se_expand = Conv2d(se_channels, expanded, 1)
         self.project_conv = SameConv2d(expanded, filters_out, 1)
         self.project_bn = _bn(filters_out)
 
     def expand(self, x):
         if self.expand_conv is None:
             return x
-        return F.silu(self.expand_bn(self.expand_conv(x)))
+        return swish(self.expand_bn(self.expand_conv(x)))
 
     def forward(self, x):
         expanded = self.expand(x)
@@ -167,9 +170,9 @@ class MBConv(nn.Module):
     def rest(self, expanded, x):
         """The block's output from its input ``x`` and its expand
         activation."""
-        y = F.silu(self.dw_bn(self.dwconv(expanded)))
-        se = F.silu(self.se_reduce(y.mean(dim=(2, 3), keepdim=True)))
-        y = y * torch.sigmoid(self.se_expand(se))
+        y = swish(self.dw_bn(self.dwconv(expanded)))
+        se = swish(self.se_reduce(y.mean(dim=(2, 3), keepdim=True)))
+        y = y * sigmoid(self.se_expand(se))
         y = self.project_bn(self.project_conv(y))
         if self.residual:
             y = y + x

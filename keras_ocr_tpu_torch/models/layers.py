@@ -1,5 +1,25 @@
 """Layers the port's models share, and the float32 guard of their
-forwards."""
+forwards.
+
+The layers compute in their input's dtype. Parameters stay float32 (Flax's
+``param_dtype``); a bfloat16 input rounds where Flax's modules with
+``dtype=jnp.bfloat16`` round:
+
+- :class:`Conv2d` / :class:`Linear` (``nn.Conv`` / ``nn.Dense``): kernel
+  and bias are cast to bf16, the conv or product writes bf16 (float32
+  sums) and ``y += bias`` rounds a second time;
+- :class:`BatchNorm2d` (``nn.BatchNorm``): the statistics and the affine
+  stay float32, and the normalised result is rounded once to bf16;
+- elementwise ops (ReLU, swish, sigmoid, products, sums) round after each
+  op, as the JAX modules applied op by op do.
+
+That is the rounding of the JAX modules run op by op (``model.apply``);
+a jitted program fuses some elementwise chains and skips their inner
+roundings. Either way a bf16 result also depends on the order of each
+float32 sum, which no port reproduces: two conv algorithms that sum in
+another order round some values to the neighbouring bf16 number, and the
+network amplifies those flips (PERF.md §6).
+"""
 
 from __future__ import annotations
 
@@ -11,6 +31,54 @@ from torch import nn
 from torch.nn import functional as F
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that takes a bfloat16 input with float32 parameters as
+    Flax's ``nn.Conv(dtype=jnp.bfloat16)`` does: the conv of the input and
+    the bf16-rounded kernel writes bf16, then the bf16 bias is added (a
+    second rounding). Inputs of the parameters' dtype run as
+    ``nn.Conv2d``."""
+
+    def _conv_forward(self, x, weight, bias):
+        if x.dtype == weight.dtype:
+            return super()._conv_forward(x, weight, bias)
+        y = super()._conv_forward(x, weight.to(x.dtype), None)
+        return y if bias is None else y + bias.to(x.dtype).reshape(-1, 1, 1)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with :class:`Conv2d`'s rule for a bfloat16 input
+    (Flax's ``nn.Dense(dtype=jnp.bfloat16)``)."""
+
+    def forward(self, x):
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+
+
+def float32_output(y):
+    """A model's output: float32 from a bfloat16 graph, as the JAX modules
+    return ``y.astype(jnp.float32)``; other dtypes as they are."""
+    return y.float() if y.dtype == torch.bfloat16 else y
+
+
+def sigmoid(x):
+    """``torch.sigmoid``; a bfloat16 input takes ``1 / (1 + exp(-x))`` with
+    a rounding after each op, as XLA expands the JAX package's
+    ``jax.nn.sigmoid`` on a bf16 input."""
+    if x.dtype == torch.bfloat16:
+        return 1.0 / (1.0 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
+def swish(x):
+    """``x * sigmoid(x)``: ``F.silu``, except that a bfloat16 input rounds
+    the sigmoid (:func:`sigmoid`) and the product, as Flax's ``nn.swish``
+    does."""
+    if x.dtype == torch.bfloat16:
+        return x * sigmoid(x)
+    return F.silu(x)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` that keeps its running statistics as Flax does.
 
@@ -18,7 +86,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance, as in torch; the running variance is then updated with that
     *biased* variance (torch uses the unbiased one, n / (n - 1) larger):
     ``running = (1 - momentum) * running + momentum * batch``. Flax's
-    ``momentum`` is ``1 - momentum`` here. Evaluation mode is torch's.
+    ``momentum`` is ``1 - momentum`` here. Evaluation mode is torch's; a
+    bfloat16 input to float32 parameters is normalised in float32 and
+    rounded once, as Flax's ``nn.BatchNorm(dtype=jnp.bfloat16)``
+    (evaluation mode only).
     ``updates_per_call`` folds one batch's statistics in that many times,
     for a Flax module that the JAX model calls more than once on the same
     input (:class:`.efficientnet.MBConv`).
@@ -28,6 +99,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x):
         if not self.training:
+            if x.dtype != self.weight.dtype:
+                return super().forward(x.to(self.weight.dtype)).to(x.dtype)
             return super().forward(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)

@@ -4,17 +4,27 @@ Counterpart of ``keras_ocr_tpu/ops/conv_pallas.py``, with the same NHWC
 signatures (images ``(H, W, Cin)`` or batches ``(B, H, W, Cin)``, kernels
 HWIO, convs as ``(w, b, relu)`` with BatchNorm already folded in). On the
 card both wrappers launch the hand-written tensor-core implicit GEMM of
-``csrc/conv_chain.cu`` (3xTF32 ``wgmma`` fed by TMA: fp32 in, out and
-sums), one launch per layer, as the op
+``csrc/conv_chain.cu``, one launch per layer, as the op
 ``torch.ops.keras_ocr_tpu_torch.conv_layer``; for tensors on the CPU the op
 runs the plain layer of :func:`conv3x3_bias_act_plain` and
 :func:`conv_chain_plain`, built from ``F.conv2d``, ``F.relu`` and
 ``F.max_pool2d``. Inference only: the kernels have no backward.
 
+Two modes, chosen by the input's dtype, as the TPU kernels follow theirs:
+
+- float32: 3xTF32 ``wgmma`` fed by TMA, fp32 in, out and sums;
+- bfloat16: the TPU kernels' arithmetic on a bf16 input. The float32
+  weights are rounded to bf16 (``w.astype(x.dtype)``), the sums and the
+  float32 bias, ReLU and pool are float32, and each layer's output (the
+  next layer's input, the tap) is rounded once to bf16 (``buf_dtype``).
+  On the card: one bf16 ``wgmma`` per 16 channels, both operands from
+  shared memory.
+
 The operands the kernel takes are made here, in plain PyTorch:
-:func:`pad_channels` (TMA needs 16-byte strides, so Cin a multiple of 4),
-:func:`kmajor_weights` (the tf32 ``wgmma`` reads both operands K-major) and
-:func:`tf32_split` (the hi and lo parts of the 3xTF32 product).
+:func:`pad_channels` (TMA needs 16-byte strides, so Cin a multiple of 4 in
+float32 and of 8 in bf16), :func:`kmajor_weights` (``wgmma`` reads both
+operands K-major) and, in float32, :func:`tf32_split` (the hi and lo parts
+of the 3xTF32 product).
 
 Launch counts, kept by the op's CUDA kernel (so that an exported program's
 launches count too): ``conv3x3_bias_act.launches`` counts every launch of a
@@ -56,12 +66,19 @@ def _batched(x):
 
 
 def _plain_layer(x_nchw, w, b, relu):
+    """One conv + bias (+ReLU) in the input's dtype. A bf16 input is the
+    TPU kernel's bf16 arithmetic: float32 conv of the bf16 input and the
+    bf16-rounded weights, float32 bias and ReLU, one rounding to bf16."""
+    if x_nchw.dtype == torch.bfloat16:
+        y = _plain_layer(x_nchw.float(), w.to(torch.bfloat16).float(), b.float(), relu)
+        return y.to(torch.bfloat16)
     y = F.conv2d(x_nchw, w.permute(3, 2, 0, 1).contiguous(), b, padding=w.shape[0] // 2)
     return F.relu(y) if relu else y
 
 
 def conv3x3_bias_act_plain(x, w, b, relu=True):
-    """3x3 SAME conv + bias (+ReLU) of NHWC ``x`` with HWIO ``w``."""
+    """3x3 SAME conv + bias (+ReLU) of NHWC ``x`` with HWIO ``w``, in
+    ``x``'s mode (float32, or bf16 as :func:`_plain_layer` says)."""
     x4, squeeze = _batched(x)
     y = _to_nhwc(_plain_layer(_to_nchw(x4), w, b, relu))
     return y[0] if squeeze else y
@@ -69,7 +86,9 @@ def conv3x3_bias_act_plain(x, w, b, relu=True):
 
 def conv_chain_plain(x, convs, pool=False, tap_prepool=False):
     """The chain of :func:`conv_chain` with ``F.conv2d``; the pool floors
-    odd sizes like ``F.max_pool2d(2, 2)``."""
+    odd sizes like ``F.max_pool2d(2, 2)``. In the bf16 mode each layer
+    rounds once; the TPU kernel pools the float32 values and rounds after,
+    which gives the same result (rounding keeps the order)."""
     x4, squeeze = _batched(x)
     y = _to_nchw(x4)
     for w, b, relu in convs:
@@ -81,10 +100,27 @@ def conv_chain_plain(x, convs, pool=False, tap_prepool=False):
     return (main, tap) if tap_prepool else main
 
 
+def bf16_ulps(out, ref, floor=2.0 ** -8):
+    """``|out - ref|`` per element in units of the bf16 spacing (one ulp)
+    at ``max(|out|, |ref|)``; magnitudes below ``floor * max|ref|`` are
+    measured at that level, since a float32 sum that cancels to near zero
+    differs between summation orders by more than its own bf16 ulp. The
+    measure of the bf16 mode's bars (one ulp for a layer)."""
+    out, ref = out.float(), ref.float()
+    level = max(floor * float(ref.abs().max()), torch.finfo(torch.float32).tiny)
+    scale = torch.maximum(out.abs(), ref.abs()).clamp_min(level)
+    return (out - ref).abs() / torch.exp2(torch.floor(torch.log2(scale)) - 7)
+
+
 def pad_channels(x, channels):
     """``x`` with its last dimension zero-padded to ``channels``."""
     extra = channels - x.shape[-1]
     return F.pad(x, (0, extra)) if extra else x
+
+
+def cin_multiple(dtype):
+    """The kernel's channel multiple for a mode: 16 bytes of channels."""
+    return 8 if dtype == torch.bfloat16 else 4
 
 
 def kmajor_weights(w, cin_pad):
@@ -117,8 +153,9 @@ def split_weights(w, cin_pad):
 def _library():
     lib = kernels.load(SOURCE)
     pointer, number = ctypes.c_void_p, ctypes.c_int
-    lib.conv_layer.argtypes = [pointer] * 5 + [number] * 8 + [pointer]
-    lib.conv_layer.restype = number
+    for entry in (lib.conv_layer, lib.conv_layer_bf16):
+        entry.argtypes = [pointer] * 5 + [number] * 8 + [pointer]
+        entry.restype = number
     lib.conv_tile_n.argtypes = [number]
     lib.conv_tile_n.restype = number
     return lib
@@ -138,16 +175,19 @@ def _aligned(t):
 
 def _check(x, convs):
     """Validate a (B, H, W, Cin) CUDA input and its HWIO convs; shapes,
-    dtypes and devices only, so that it traces."""
+    dtypes and devices only, so that it traces. The input is float32 or
+    bfloat16 (the kernel's two modes); weights and biases are float32."""
     if x.device.type != "cuda":
         raise ValueError(f"no conv kernel for device {x.device}")
     if not convs:
         raise ValueError("a chain needs at least one conv")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the conv kernel takes a float32 or bfloat16 input; got {x.dtype}")
     cin = x.shape[-1]
     for w, b, _ in convs:
-        for name, t in (("input", x), ("weight", w), ("bias", b)):
+        for name, t in (("weight", w), ("bias", b)):
             if t.dtype != torch.float32:
-                raise TypeError(f"the conv kernel takes float32; {name} is {t.dtype}")
+                raise TypeError(f"the conv kernel takes float32 {name}s; got {t.dtype}")
             if t.device != x.device:
                 raise ValueError(f"{name} on {t.device}, input on {x.device}")
         k = w.shape[0]
@@ -178,21 +218,27 @@ def _layer_cuda(x, weight, bias, relu, pool, tap, chain_start):
     ``conv_chain.launches``."""
     batch, height, width, cin = x.shape
     k, cout = weight.shape[0], weight.shape[3]
-    cin_pad = -(-cin // 4) * 4
+    multiple = cin_multiple(x.dtype)
+    cin_pad = -(-cin // multiple) * multiple
     x = _aligned(pad_channels(x, cin_pad))
-    wsplit = _aligned(split_weights(weight, cin_pad))
+    if x.dtype == torch.bfloat16:
+        wmat = _aligned(kmajor_weights(weight, cin_pad).to(torch.bfloat16))
+        entry = _library().conv_layer_bf16
+    else:
+        wmat = _aligned(split_weights(weight, cin_pad))
+        entry = _library().conv_layer
     bias = _aligned(bias)
     out_hw = (height // 2, width // 2) if pool else (height, width)
-    out = torch.empty((batch, *out_hw, cout), dtype=torch.float32, device=x.device)
+    out = torch.empty((batch, *out_hw, cout), dtype=x.dtype, device=x.device)
     tap_out = (
-        torch.empty((batch, height, width, cout), dtype=torch.float32, device=x.device)
+        torch.empty((batch, height, width, cout), dtype=x.dtype, device=x.device)
         if tap else x.new_empty(0)
     )
     if (tap_out if tap else out).numel() == 0:
         return out, tap_out
     with torch.cuda.device(x.device):
-        rc = _library().conv_layer(
-            x.data_ptr(), wsplit.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        rc = entry(
+            x.data_ptr(), wmat.data_ptr(), bias.data_ptr(), out.data_ptr(),
             tap_out.data_ptr() if tap else None, batch, height, width, cin_pad, cout,
             k, int(bool(relu)), int(pool), torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -236,7 +282,8 @@ def _validate(x4, convs):
 
 
 def conv3x3_bias_act(x, w, b, relu=True):
-    """Fused 3x3 SAME stride-1 conv + bias (+ReLU) on NHWC float32 images.
+    """Fused 3x3 SAME stride-1 conv + bias (+ReLU) on NHWC float32 or
+    bfloat16 images (the kernel's two modes; weights and bias float32).
 
     Port of ``keras_ocr_tpu/ops/conv_pallas.py:conv3x3_bias_act`` (no
     ``tile_h``, no ``interpret``).
@@ -272,7 +319,8 @@ def conv_chain(x, convs, pool=False, tap_prepool=False):
     ``F.max_pool2d(2, 2)``, where the TPU kernel requires even ones.
 
     Args:
-        x: (H, W, Cin) or (B, H, W, Cin) float32 NHWC.
+        x: (H, W, Cin) or (B, H, W, Cin) NHWC, float32 or bfloat16; the
+            output has its dtype.
         convs: sequence of (w, b, relu), w of shape (k, k, Cin, Cout) HWIO
             with k in {1, 3}, b of shape (Cout,); BatchNorm folded in.
         pool: end with a 2x2 stride-2 VALID max-pool.

@@ -3,7 +3,8 @@ grayscale.
 
 Port of ``keras_ocr_tpu/ops/image.py``. Everything here is elementwise or
 two-tap gathers in float32; nothing goes through a matrix product, so no
-TF32 path can change the numbers on the card.
+TF32 path can change the numbers on the card. A bfloat16 resize rounds
+where the JAX function does on a bfloat16 input.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ def _upscale2x(x, dims=(1, 2)):
     (``dims`` names the two spatial dimensions of another layout).
 
     out[2i] = 0.25*in[i-1] + 0.75*in[i]; out[2i+1] = 0.75*in[i] +
-    0.25*in[i+1], edge-clamped, per axis.
+    0.25*in[i+1], edge-clamped, per axis; a bfloat16 input rounds after
+    each product and the sum, as the JAX function does on one.
     """
 
     def axis_up(v, dim):
@@ -74,18 +76,29 @@ def resize_bilinear(x, height, width, dims=(1, 2)):
 
     Same sampling as ``keras_ocr_tpu/ops/image.py:resize_bilinear`` (centers
     clipped to the source), written as two-tap gathers per axis instead of
-    interpolation matrices.
+    interpolation matrices. A bfloat16 input is interpolated in float32
+    with bf16 weights and rounded once per axis, as the JAX function's
+    bf16 matrices and products; an exact 2x takes :func:`_upscale2x`.
     """
     hdim, wdim = dims
     in_h, in_w = x.shape[hdim], x.shape[wdim]
     if height == 2 * in_h and width == 2 * in_w:
         return _upscale2x(x, dims)
+    dtype = x.dtype
+    wide_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
     for dim, size in ((hdim, height), (wdim, width)):
         lo, hi, frac = _axis_taps(x.shape[dim], size, x.device)
         shape = [1] * x.dim()
         shape[dim] = size
-        frac = frac.to(x.dtype).reshape(shape)
-        x = (1.0 - frac) * x.index_select(dim, lo) + frac * x.index_select(dim, hi)
+        frac = frac.to(wide_dtype)
+        w_lo, w_hi = 1.0 - frac, frac
+        if dtype != wide_dtype:
+            # The JAX function's interpolation matrix holds the weights in
+            # the input's dtype.
+            w_lo, w_hi = w_lo.to(dtype).to(wide_dtype), w_hi.to(dtype).to(wide_dtype)
+        wide = x.to(wide_dtype)
+        x = (w_lo.reshape(shape) * wide.index_select(dim, lo)
+             + w_hi.reshape(shape) * wide.index_select(dim, hi)).to(dtype)
     return x
 
 

@@ -74,6 +74,20 @@ def square_to_quad(quad):
     )
 
 
+def perspective_transform(src, dst):
+    """3x3 homography mapping ``src`` (4, 2) onto ``dst`` (4, 2), from the
+    8x8 linear system ``torch.linalg.solve`` solves in float32 (as the JAX
+    function's ``jnp.linalg.solve``)."""
+    src, dst = src.to(torch.float32), dst.to(torch.float32)
+    x, y = src[:, 0], src[:, 1]
+    u, v = dst[:, 0], dst[:, 1]
+    zeros, ones = torch.zeros_like(x), torch.ones_like(x)
+    rows_u = torch.stack([x, y, ones, zeros, zeros, zeros, -u * x, -u * y], dim=1)
+    rows_v = torch.stack([zeros, zeros, zeros, x, y, ones, -v * x, -v * y], dim=1)
+    h = torch.linalg.solve(torch.cat([rows_u, rows_v]), torch.cat([u, v]))
+    return torch.cat([h, torch.ones_like(h[:1])]).reshape(3, 3)
+
+
 def _hat(delta):
     """Bilinear interpolation weight: max(0, 1 - |delta|)."""
     return torch.clamp(1.0 - torch.abs(delta), min=0.0)
@@ -90,6 +104,23 @@ def _taps(pos, size):
     return out
 
 
+def warp_boxes(
+    image,
+    boxes,
+    target_height: int = 31,
+    target_width: int = 200,
+    cval: float = 0.0,
+    window_height: int = 64,
+    window_width: int = 512,
+):
+    """Crop every box of one (H, W) or (H, W, C) image into a
+    (target_height, target_width) canvas: (N, 4, 2) boxes -> (N, th,
+    tw[, C]) float32 crops, the canvas outside each crop ``cval``. The
+    single-image form of :func:`warp_boxes_batch`."""
+    return _warp(image[None], boxes[None], target_height, target_width, window_height,
+                 window_width, cval)[0]
+
+
 def warp_boxes_batch(
     images,
     boxes,
@@ -100,6 +131,11 @@ def warp_boxes_batch(
 ):
     """(B, H, W[, C]) images x (B, N, 4, 2) boxes -> (B, N, th, tw[, C])
     float32 crops."""
+    return _warp(images, boxes, target_height, target_width, window_height, window_width, 0.0)
+
+
+def _warp(images, boxes, target_height, target_width, window_height, window_width, cval):
+    """:func:`warp_boxes_batch` with ``cval`` outside the crops."""
     squeeze = images.dim() == 3
     if squeeze:
         images = images[..., None]
@@ -177,7 +213,7 @@ def warp_boxes_batch(
     out = wr0[..., None] * top + wr1[..., None] * bottom
 
     valid = (gx < torch.floor(sw)) & (gy < torch.floor(sh))
-    crops = torch.where(valid[..., None], out, torch.zeros_like(out))
+    crops = torch.where(valid[..., None], out, torch.full_like(out, cval))
     if squeeze:
         crops = crops[..., 0]
     return crops.reshape((batch, num) + crops.shape[2:])

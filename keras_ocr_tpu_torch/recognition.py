@@ -90,8 +90,10 @@ class Recognizer:
             that cannot be had raises ``RuntimeError``.
         build_params: CRNN build parameters (default
             :data:`~keras_ocr_tpu_torch.models.crnn.DEFAULT_BUILD_PARAMS`).
-        compute_dtype: ``torch.float32`` (the JAX package's fourth
-            argument; other dtypes raise ``NotImplementedError``).
+        compute_dtype: ``torch.float32`` or ``torch.bfloat16`` (the JAX
+            package's fourth argument): the CRNN computes in it with
+            float32 parameters and gives float32 frames; other dtypes
+            raise ``NotImplementedError``.
         device: where the model runs (default: the first GPU; without
             one, pass ``device="cpu"`` or the constructor raises).
         seed: seed of the random initialisation.
@@ -119,6 +121,7 @@ class Recognizer:
         model = build_model(self.alphabet, **{key: params[key] for key in (
             "height", "width", "color", "filters", "rnn_units", "dropout",
             "rnn_steps_to_discard", "pool_size", "stn")})
+        model.dtype = compute_dtype
         self.model = init_parameters(model, seed=seed).to(self.device).eval()
         if weights is None:
             return

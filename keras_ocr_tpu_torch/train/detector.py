@@ -16,7 +16,8 @@ import torch
 from .. import weights as weights_lib
 from ..models.layers import full_float32
 from .optim import adam
-from .recognizer import OptimizerFactory, check_single_device, fit_loop, trainable
+from .recognizer import (OptimizerFactory, check_float32_model, check_single_device, fit_loop,
+                         trainable)
 
 
 def _mse_loss(preds, targets, sample_weights):
@@ -71,6 +72,7 @@ class DetectorTrainer:
     def __init__(self, detector, optimizer: typing.Optional[OptimizerFactory] = None,
                  mesh=None, loss: typing.Union[str, typing.Callable] = "mse"):
         check_single_device(mesh)
+        check_float32_model(detector.model)
         if detector.fold_bn:
             raise ValueError("fold_bn=True is an inference-only graph; train a standard "
                              "Detector and fold its weights afterwards")

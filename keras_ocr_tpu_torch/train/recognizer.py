@@ -35,6 +35,15 @@ def check_single_device(mesh, tensor_parallel=False):
             "the port trains on one device: mesh and tensor_parallel are not ported yet")
 
 
+def check_float32_model(model: torch.nn.Module):
+    """The trainers run a float32 model: a bfloat16 one (``compute_dtype``)
+    raises, with its backward in bf16 still to port."""
+    if getattr(model, "dtype", torch.float32) == torch.bfloat16:
+        raise NotImplementedError(
+            "training a compute_dtype=torch.bfloat16 model is not ported yet (ROADMAP "
+            "section 1, item 12: bfloat16 training); train in float32")
+
+
 class RecognizerTrainer:
     """Optimiser state and train step of a :class:`~..recognition.Recognizer`.
 
@@ -50,6 +59,7 @@ class RecognizerTrainer:
     def __init__(self, recognizer, optimizer: typing.Optional[OptimizerFactory] = None,
                  mesh=None, tensor_parallel: bool = False):
         check_single_device(mesh, tensor_parallel)
+        check_float32_model(recognizer.model)
         self.recognizer = recognizer
         self.model = recognizer.model
         self.device = recognizer.device

@@ -13,6 +13,8 @@ import json
 import os
 import typing
 
+import torch
+
 from .. import tools
 from .. import weights as weights_lib
 from ..detection import Detector
@@ -30,15 +32,19 @@ def _read_json(artifact_dir, name):
         return json.load(f)
 
 
-def load_golden_pipeline(artifact_dir: str, device=None, fold_bn: bool = False):
-    """(pipeline, meta) rebuilt from the committed artifact files;
-    ``fold_bn`` builds the BN-folded detector (the checkpoint is folded on
-    load)."""
+def load_golden_pipeline(artifact_dir: str, compute_dtype=None, *, device=None,
+                         fold_bn: bool = False):
+    """(pipeline, meta) rebuilt from the committed artifact files, in the
+    JAX function's argument order: ``compute_dtype`` (default float32, or
+    ``torch.bfloat16``) for both models; ``fold_bn`` builds the BN-folded
+    detector (the checkpoint is folded on load)."""
+    compute_dtype = compute_dtype or torch.float32
     meta = _read_json(artifact_dir, META_NAME)
     detector = Detector(
         weights=None,
         width=meta["detector_width"],
         max_components=meta["max_components"],
+        compute_dtype=compute_dtype,
         fold_bn=fold_bn,
         device=device,
     ).load_variables(weights_lib.read_npz(os.path.join(artifact_dir, DETECTOR_NAME)))
@@ -46,6 +52,7 @@ def load_golden_pipeline(artifact_dir: str, device=None, fold_bn: bool = False):
         weights=None,
         alphabet=meta["alphabet"],
         build_params=dict(meta["recognizer_build_params"]),
+        compute_dtype=compute_dtype,
         device=detector.device,
     ).load_variables(weights_lib.read_npz(os.path.join(artifact_dir, RECOGNIZER_NAME)))
     pipeline = Pipeline(
@@ -70,9 +77,11 @@ def _word_match_fraction(expected_words, predicted_words) -> float:
 
 
 def run_golden_check(
-    artifact_dir: str, pipeline=None, device=None
+    artifact_dir: str, compute_dtype=None, pipeline=None, *, device=None
 ) -> typing.Dict[str, typing.Any]:
-    """Run the committed scenes through the pipeline and score them.
+    """Run the committed scenes through the pipeline and score them, in the
+    JAX function's argument order; without ``pipeline`` the artifact's is
+    built in ``compute_dtype`` on ``device``.
 
     Returns {"fraction", "n_scenes", "n_words", "pass", "per_scene"} like
     the JAX package's check, plus "run_stats", the pipeline's
@@ -81,7 +90,7 @@ def run_golden_check(
     """
     expected = _read_json(artifact_dir, EXPECTED_NAME)
     if pipeline is None:
-        pipeline, meta = load_golden_pipeline(artifact_dir, device)
+        pipeline, meta = load_golden_pipeline(artifact_dir, compute_dtype, device=device)
     else:
         meta = _read_json(artifact_dir, META_NAME)
     per_scene = []

@@ -1,11 +1,14 @@
-"""Where the full-float32 CRAFT forward leaves proportion to its batch:
-``python3 scripts/craft_batch_sweep.py`` (one CUDA card).
+"""Where the CRAFT forward leaves proportion to its batch:
+``python3 scripts/craft_batch_sweep.py [--dtype float32|bfloat16]`` (one
+CUDA card).
 
 For the full-width VGG16-BN CRAFT and the EfficientNet-B0 CRAFT (random
 weights, seeded BatchNorm statistics), at 960x1280 (a 640x480 image at
 scale 2) and 512x640 (the golden artifact's ``pad_to`` envelope at scale
-2), batches 1-8, under ``full_float32`` (TF32 off), it times with CUDA
-events (median of ``--runs``):
+2), batches 1-8, in the model's ``compute_dtype`` (``--dtype``; float32
+under ``full_float32``, TF32 off, or bfloat16 with float32 parameters,
+where every conv runs on a bf16 input), it times with CUDA events (median
+of ``--runs``):
 
 - the whole forward three ways: ``nchw`` (the model as it is),
   ``channels_last`` (a copy whose weights are channels-last, so cuDNN runs
@@ -95,7 +98,7 @@ def relative(out, ref):
     return float((out - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
-def sweep_model(label, model, runs, card):
+def sweep_model(label, model, runs, card, dtype):
     model_cl = copy.deepcopy(model).to(memory_format=CL)
     table = {}
     for height, width in SIZES:
@@ -117,7 +120,7 @@ def sweep_model(label, model, runs, card):
                               for way, fn in ways.items()}
             errors[batch] = {way: relative(fn(), refs[:batch]) for way, fn in ways.items()}
             for name, (module, shape) in layers.items():
-                xb = torch.randn((batch,) + shape[1:], device="cuda", generator=gen)
+                xb = torch.randn((batch,) + shape[1:], device="cuda", generator=gen).to(dtype)
                 convs[name, batch] = {
                     way: chip_smoke.cuda_median_ms(fn, runs=runs)
                     for way, fn in conv_variants(module, xb).items()}
@@ -156,29 +159,36 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--runs", type=int, default=5)
     parser.add_argument("--models", default="vgg,efficientnetb0")
-    parser.add_argument("--out", default=os.path.join(ROOT, "build",
-                                                      "craft_batch_sweep.json"))
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    parser.add_argument("--out", default=None,
+                        help="JSON table (default build/craft_batch_sweep[_bfloat16].json)")
     args = parser.parse_args()
+    if args.out is None:
+        suffix = "" if args.dtype == "float32" else f"_{args.dtype}"
+        args.out = os.path.join(ROOT, "build", f"craft_batch_sweep{suffix}.json")
     card = chip_smoke.card_line()
+    dtype = getattr(torch, args.dtype)
     print(f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}, cuDNN "
-          f"{torch.backends.cudnn.version()}")
+          f"{torch.backends.cudnn.version()}; compute dtype {args.dtype}")
     device = torch.device("cuda")
-    results = {"card": card, "torch": torch.__version__}
+    results = {"card": card, "torch": torch.__version__, "dtype": args.dtype}
     with torch.inference_mode(), full_float32():
         for name in args.models.split(","):
             if name == "vgg":
-                model = Detector(weights=None, width=1.0, device=device, seed=0).model
+                model = Detector(weights=None, width=1.0, compute_dtype=dtype, device=device,
+                                 seed=0).model
             else:
-                model = chip_smoke.efficientnet_detector(name, device)[0].model
+                model = chip_smoke.efficientnet_detector(name, device,
+                                                         compute_dtype=dtype)[0].model
             chip_smoke.seed_batch_norm(model, seed=2)
             if name == "vgg":
                 module = model.upconv2.block1.conv
                 for batch in (1, 2, 8):
-                    x = torch.randn((batch, 256, 120, 160), device="cuda")
+                    x = torch.randn((batch, 256, 120, 160), device="cuda").to(dtype)
                     for way, fn in conv_variants(module, x).items():
                         print(f"vgg upconv2.block1.conv batch {batch} {way}: kernels "
                               f"{kernels_of(fn)}", flush=True)
-            results[name] = sweep_model(name, model, args.runs, card)
+            results[name] = sweep_model(name, model, args.runs, card, dtype)
             del model
             torch.cuda.empty_cache()
     os.makedirs(os.path.dirname(args.out), exist_ok=True)

@@ -1,0 +1,62 @@
+"""The bfloat16 pipeline on the CPU: the golden artifact built with
+``compute_dtype=torch.bfloat16`` in the port (standard and BN-folded) reads
+the words the JAX package's bfloat16 golden pipeline reads on three of its
+scenes (all twelve run on the card in ``chip_smoke.py``, which also
+exports both bfloat16 graphs and serves them); the trainers refuse a
+bfloat16 model.
+"""
+
+import json
+import os
+
+import jax.numpy as jnp
+import pytest
+import torch
+
+from keras_ocr_tpu.utils import golden as jgolden
+from keras_ocr_tpu_torch import tools
+from keras_ocr_tpu_torch.detection import Detector
+from keras_ocr_tpu_torch.recognition import Recognizer
+from keras_ocr_tpu_torch.train import DetectorTrainer, RecognizerTrainer
+from keras_ocr_tpu_torch.utils import golden
+
+torch.set_num_threads(2)
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "golden_offline")
+with open(os.path.join(GOLDEN, "expected.json"), encoding="utf8") as _f:
+    SCENES = [entry["image"] for entry in json.load(_f)["scenes"]]
+CHOSEN = [SCENES[0], SCENES[1], SCENES[6]]
+
+
+@pytest.fixture(scope="module")
+def jax_words():
+    pipeline, _ = jgolden.load_golden_pipeline(GOLDEN, jnp.bfloat16)
+    return [[word for word, _ in pipeline.recognize([tools.read(os.path.join(GOLDEN, s))])[0]]
+            for s in CHOSEN]
+
+
+@pytest.mark.parametrize("fold_bn", [False, True], ids=["standard", "folded"])
+def test_golden_bf16_reads_the_jax_words(jax_words, fold_bn):
+    pipeline, meta = golden.load_golden_pipeline(GOLDEN, torch.bfloat16, device="cpu",
+                                                 fold_bn=fold_bn)
+    assert pipeline.detector.model.dtype == pipeline.recognizer.model.dtype == torch.bfloat16
+    for scene, ref in zip(CHOSEN, jax_words):
+        words = [word for word, _ in pipeline.recognize([tools.read(os.path.join(GOLDEN,
+                                                                                 scene))])[0]]
+        assert words == ref, scene
+
+
+@pytest.mark.parametrize("trainer", ["detector", "recognizer"])
+def test_trainers_refuse_a_bf16_model(trainer):
+    if trainer == "detector":
+        model = Detector(weights=None, width=0.125, compute_dtype=torch.bfloat16, device="cpu")
+        build = DetectorTrainer
+    else:
+        slim = dict(filters=(4,) * 7, rnn_units=(4, 4), stn=False, height=31, width=200,
+                    color=False, dropout=0.25, rnn_steps_to_discard=2, pool_size=2)
+        model = Recognizer("abc", None, slim, torch.bfloat16, device="cpu")
+        build = RecognizerTrainer
+    with pytest.raises(NotImplementedError, match="item 12"):
+        build(model)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        model.compile()

@@ -9,6 +9,13 @@ time as the JAX package vmaps them) with the shapes of
 kernel asserts even sizes under the pool; odd ones are held against
 ``lax.conv`` + ``lax.reduce_window`` VALID.
 
+The bf16 mode (a bfloat16 input, the TPU kernels' own bf16 arithmetic)
+is held the same way against the Pallas kernels in interpret mode on a
+bf16 input: a single layer within one bf16 ulp of the reference
+(``conv_cuda.bf16_ulps``), a chain within 1.6e-2 x max(1, max|ref|) with
+99% of its values within one ulp (one layer's rounding can move the
+next).
+
 The kernel's operands are made by the wrapper in plain PyTorch, so they
 are tested here too: the K-major weight order, the zero channel padding,
 the TF32 split, and an emulation of the kernel's 3xTF32 product on them,
@@ -86,6 +93,73 @@ def test_conv_chain_matches_pallas(height, width, cin, plan, pool, tile_h):
         np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4)
 
 
+def _assert_bf16(out, ref, layers):
+    """The bf16 mode's bars (the module docstring)."""
+    assert out.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    ref = torch.from_numpy(np.asarray(ref, np.float32))
+    assert out.shape == ref.shape
+    ulps = conv_cuda.bf16_ulps(out, ref)
+    if layers == 1:
+        assert float(ulps.max()) <= 1.0
+    else:
+        bar = 1.6e-2 * max(1.0, float(ref.abs().max()))
+        assert float((out.float() - ref).abs().max()) <= bar
+        assert float((ulps <= 1.0).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize(
+    "height,width,cin,plan,pool",
+    [
+        (16, 24, 3, [(3, 16, True), (3, 16, True)], True),
+        (14, 16, 8, [(3, 8, True), (3, 16, True), (3, 8, False)], False),
+        (12, 16, 8, [(1, 16, True), (3, 8, True)], False),
+        (18, 20, 4, [(3, 8, True)], True),
+        (8, 16, 64, [(3, 32, True)], False),
+    ],
+)
+def test_conv_chain_bf16_matches_pallas(height, width, cin, plan, pool):
+    """The TPU kernel on a bf16 input (weights cast to bf16, float32 sums
+    and bias, one rounding per layer) and the wrappers' bf16 mode."""
+    x, convs = _chain(np.random.RandomState(5), BATCH, height, width, cin, plan)
+    x16 = jnp.asarray(x, jnp.bfloat16)
+    ref = np.stack([np.asarray(conv_pallas.conv_chain(image, _jax_convs(convs), pool=pool,
+                                                      tile_h=8, interpret=True))
+                    for image in x16])
+    xt = torch.from_numpy(np.asarray(x16, np.float32)).to(torch.bfloat16)
+    ct = _torch_convs(convs)
+    for out in (conv_cuda.conv_chain_plain(xt, ct, pool=pool),
+                conv_cuda.conv_chain(xt, ct, pool=pool)):
+        _assert_bf16(out, np.asarray(ref).astype(jnp.bfloat16), len(plan))
+
+
+@pytest.mark.parametrize("height,width,cin,cout,relu",
+                         [(17, 33, 16, 8, False), (13, 24, 8, 8, True)])
+def test_conv3x3_bf16_matches_pallas(height, width, cin, cout, relu):
+    rng = np.random.RandomState(1)
+    x = jnp.asarray(rng.rand(height, width, cin), jnp.bfloat16)
+    w = (rng.rand(3, 3, cin, cout) - 0.5).astype(np.float32)
+    b = (rng.rand(cout) - 0.5).astype(np.float32)
+    ref = conv_pallas.conv3x3_bias_act(x, jnp.asarray(w), jnp.asarray(b), tile_h=8, relu=relu,
+                                       interpret=True)
+    xt = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    args = (xt, torch.from_numpy(w), torch.from_numpy(b))
+    for out in (conv_cuda.conv3x3_bias_act_plain(*args, relu=relu),
+                conv_cuda.conv3x3_bias_act(*args, relu=relu)):
+        assert out.shape == (height, width, cout)
+        _assert_bf16(out, ref, 1)
+
+
+def test_bf16_ulps():
+    """One ulp is the spacing of bf16 at the larger magnitude, with values
+    far below the largest measured at 2**-8 of it."""
+    ref = torch.tensor([1.0, 1.0, 3.0, 1e-6, 256.0, 0.0], dtype=torch.bfloat16)
+    out = torch.tensor([1.0078125, 0.99609375, 3.0, 2e-6, 258.0, 0.0], dtype=torch.bfloat16)
+    ulps = conv_cuda.bf16_ulps(out, ref)
+    assert ulps[0] == 1.0 and ulps[1] == 0.5 and ulps[2] == 0.0 and ulps[5] == 0.0
+    assert ulps[3] < 1e-3  # measured at 2**-8 * 256 = 1, where the ulp is 2**-7
+    assert ulps[4] == 1.0
+
+
 def test_conv_chain_tap_prepool_matches_pallas():
     x, convs = _chain(np.random.RandomState(3), BATCH, 16, 16, 4, [(3, 8, True), (3, 8, True)])
     ref_pooled, ref_tap = _pallas_chain(x, convs, True, True, 8)
@@ -161,6 +235,20 @@ def test_kmajor_weights_order_and_padding(k, cin, cout):
     assert split.shape == (2, cout, k * k, cin_pad)
     for part, want in zip(split, conv_cuda.tf32_split(kmajor)):
         assert torch.equal(part, want)
+
+
+def test_bf16_operands():
+    """The bf16 mode pads Cin to a multiple of 8 (16 bytes of bf16) and
+    takes the K-major weights rounded to bf16, with no split."""
+    assert conv_cuda.cin_multiple(torch.bfloat16) == 8
+    assert conv_cuda.cin_multiple(torch.float32) == 4
+    x, convs = _chain(np.random.RandomState(2), BATCH, 9, 13, 3, [(3, 6, True)])
+    (w, b, relu), = _torch_convs(convs)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    padded_w = conv_cuda.pad_channels(w.permute(0, 1, 3, 2), 8).permute(0, 1, 3, 2)
+    padded = conv_cuda.conv3x3_bias_act_plain(conv_cuda.pad_channels(xt, 8), padded_w, b, relu)
+    assert torch.equal(padded, conv_cuda.conv3x3_bias_act_plain(xt, w, b, relu))
+    assert padded.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("cin", [3, 5])

@@ -11,7 +11,9 @@ full-width train step of the CRNN and of CRAFT (MSE and OHEM) on the card
 against the same step on the CPU (losses in float32, gradients in float64),
 and falling losses; the forwards' float32 parity under PyTorch's default
 TF32 flags; an EfficientNet-B0 ``Detector.detect`` on the card against its
-CPU run.
+CPU run; the conv kernel's bfloat16 mode against its plain bf16 version,
+the bfloat16 CRAFT (VGG, folded, B0) and CRNN on the card against their
+CPU runs, and the bfloat16 golden pipeline live and exported.
 
 Skipped where no CUDA device is present. On a machine with a card and no
 JAX, run with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
@@ -266,6 +268,56 @@ def test_conv3x3_kernel_equals_plain(device, full_fp32, shape, relu):
     _assert_close(out, ref)
     single = conv_cuda.conv3x3_bias_act(x[0].to(device), w.to(device), b.to(device), relu=relu)
     _assert_close(single, ref[0])
+
+
+def _assert_bf16_chain(out, ref, layers):
+    """The bf16 mode's bars: one ulp (:func:`conv_cuda.bf16_ulps`) for a
+    single layer; for a chain 1.6e-2 x max(1, max|ref|) and 99% of the
+    values within one ulp (a rounding of one layer can move the next)."""
+    assert out.device.type == "cuda" and out.dtype == ref.dtype == torch.bfloat16
+    assert out.shape == ref.shape
+    ulps = conv_cuda.bf16_ulps(out.cpu(), ref)
+    if layers == 1:
+        assert float(ulps.max()) <= 1.0
+    else:
+        assert float((out.cpu().float() - ref.float()).abs().max()) <= 1.6e-2 * max(
+            1.0, float(ref.float().abs().max()))
+        assert float((ulps <= 1.0).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("batch,height,width,cin,plan,pool,tap", CHAIN_CASES)
+def test_conv_chain_kernel_bf16_equals_plain(device, full_fp32, batch, height, width, cin,
+                                             plan, pool, tap):
+    """The bf16 mode (bf16 input, float32 weights and bias cast inside)
+    against the plain bf16 chain: float32 conv of the rounded operands, one
+    rounding per layer."""
+    x, convs = _chain(batch, height, width, cin, plan, seed=height * width)
+    x = x.to(torch.bfloat16)
+    ref = conv_cuda.conv_chain_plain(x, convs, pool=pool, tap_prepool=tap)
+    on_card = [(w.to(device), b.to(device), relu) for w, b, relu in convs]
+    chains, convs3 = conv_cuda.conv_chain.launches, conv_cuda.conv3x3_bias_act.launches
+    out = conv_cuda.conv_chain(x.to(device), on_card, pool=pool, tap_prepool=tap)
+    torch.cuda.synchronize()
+    assert conv_cuda.conv_chain.launches == chains + 1
+    unpooled_3x3 = sum(w.shape[0] == 3 for w, _, _ in convs[: len(convs) - pool])
+    assert conv_cuda.conv3x3_bias_act.launches == convs3 + unpooled_3x3
+    for got, want in zip(out, ref) if tap else [(out, ref)]:
+        _assert_bf16_chain(got, want, len(plan))
+
+
+@pytest.mark.parametrize("shape", [(3, 13, 37, 3, 16), (1, 24, 40, 8, 2), (2, 6, 260, 5, 131),
+                                   (1, 60, 80, 256, 256)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv3x3_kernel_bf16_equals_plain(device, full_fp32, shape, relu):
+    batch, height, width, cin, cout = shape
+    x, ((w, b, _),) = _chain(batch, height, width, cin, [(3, cout, relu)], seed=cout)
+    x = x.to(torch.bfloat16)
+    ref = conv_cuda.conv3x3_bias_act_plain(x, w, b, relu=relu)
+    before = conv_cuda.conv3x3_bias_act.launches
+    out = conv_cuda.conv3x3_bias_act(x.to(device), w.to(device), b.to(device), relu=relu)
+    torch.cuda.synchronize()
+    assert conv_cuda.conv3x3_bias_act.launches == before + 1
+    _assert_bf16_chain(out, ref, 1)
 
 
 def test_conv_chain_takes_views(device, full_fp32):
@@ -758,3 +810,94 @@ def test_craft_batch_2_forward_keeps_batch_1_numbers(device, backbone):
         ref = torch.cat([model(x[i : i + 1]) for i in range(2)])
         out = model(x)
     assert float((out - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+def _golden_variables(name):
+    from keras_ocr_tpu_torch import weights
+
+    return weights.read_npz(os.path.join(GOLDEN, name))
+
+
+def _bf16_craft(name, fold_bn, variables):
+    from keras_ocr_tpu_torch import weights
+
+    if variables is None:
+        return init_parameters(CRAFT(name, dtype=torch.bfloat16), seed=0).eval()
+    model = CRAFT(name, fold_bn=fold_bn, width=0.25, dtype=torch.bfloat16).eval()
+    state = weights.craft_state_dict(variables)
+    model.load_state_dict(fold_bn_state_dict(state) if fold_bn else state)
+    return model
+
+
+@pytest.mark.parametrize("graph", ["vgg", "vgg folded", "efficientnetb0"])
+def test_bf16_craft_on_card_matches_cpu(device, full_fp32, graph):
+    """The bfloat16 CRAFT on the card (cuDNN bf16; the folded graph through
+    the conv kernel's bf16 mode) against the same module on the CPU, to the
+    CPU parity test's bars (``tests/test_torch_bf16.py``): standard max
+    8e-3 * max(1, max|ref|) and mean 1e-3, folded 1.6e-2 and 2.5e-3."""
+    name, fold_bn = graph.split()[0], graph.endswith("folded")
+    variables = None if name != "vgg" else _golden_variables("detector_slim.npz")
+    model = _bf16_craft(name, fold_bn, variables)
+    x = torch.from_numpy(np.random.RandomState(3).randn(2, 64, 96, 3).astype(np.float32))
+    with torch.inference_mode():
+        ref = model(x)
+        model.to(device)
+        chains = conv_cuda.conv_chain.launches
+        out = model(x.to(device)).cpu()
+    assert out.dtype == ref.dtype == torch.float32 and out.shape == ref.shape
+    assert conv_cuda.conv_chain.launches == chains + (12 if fold_bn else 0)
+    worst, mean = float((out - ref).abs().max()), float((out - ref).abs().mean())
+    scale = max(1.0, float(ref.abs().max()))
+    assert worst <= (1.6e-2 if fold_bn else 8e-3) * scale, worst
+    assert mean <= (2.5e-3 if fold_bn else 1e-3), mean
+
+
+@pytest.mark.parametrize("shape", ["golden_slim", "production"])
+def test_bf16_crnn_on_card_matches_cpu(device, full_fp32, shape):
+    """The bfloat16 CRNN on the card (cuDNN's bf16 LSTM, float32 STN
+    sampling and softmax) against the CPU's: softmax within 2e-2 (mean
+    1e-3), argmax equal but where the CPU's top two are within 1e-2."""
+    from keras_ocr_tpu_torch import Recognizer
+
+    if shape == "golden_slim":
+        meta = golden._read_json(GOLDEN, golden.META_NAME)
+        recognizer = Recognizer(meta["alphabet"], None, dict(meta["recognizer_build_params"]),
+                                torch.bfloat16, device="cpu")
+        recognizer.load_variables(_golden_variables("recognizer_slim.npz"))
+    else:
+        recognizer = Recognizer(None, None, None, torch.bfloat16, device="cpu", seed=1)
+        with torch.no_grad():
+            dense2 = recognizer.model.stn.dense2
+            gen = torch.Generator().manual_seed(0)
+            dense2.weight.copy_(0.02 * torch.randn(dense2.weight.shape, generator=gen))
+            dense2.bias.copy_(torch.tensor([0.9, 0.08, 0.05, -0.06, 1.1, 0.03]))
+    model = recognizer.model
+    x = torch.from_numpy(np.random.RandomState(4).rand(8, *recognizer.input_shape)
+                         .astype(np.float32))
+    with torch.inference_mode():
+        ref = model(x)
+        out = model.to(device)(x.to(device)).cpu()
+    assert out.dtype == ref.dtype == torch.float32 and out.shape == ref.shape
+    assert float((out - ref).abs().max()) <= 2e-2
+    assert float((out - ref).abs().mean()) <= 1e-3
+    top2 = ref.topk(2, -1).values
+    near_tie = top2[..., 0] - top2[..., 1] < 1e-2
+    assert not ((out.argmax(-1) != ref.argmax(-1)) & ~near_tie).any()
+
+
+@pytest.mark.parametrize("fold_bn", [False, True], ids=["standard", "folded"])
+def test_bf16_golden_on_card_live_and_exported(device, tmp_path, fold_bn):
+    """The golden artifact in bfloat16 on the card reads its pass fraction,
+    and its export (batch 1) serves the live pipeline's words and packed
+    output."""
+    pipeline, meta = golden.load_golden_pipeline(GOLDEN, torch.bfloat16, device=device,
+                                                 fold_bn=fold_bn)
+    result = golden.run_golden_check(GOLDEN, pipeline=pipeline)
+    assert result["pass"], result
+    height, width = meta["pad_to"]
+    path = str(tmp_path / "bf16")
+    pipeline.export(path, height=height, width=width, batch_size=1)
+    served = load_exported(path)
+    image = tools.read(os.path.join(GOLDEN, result["per_scene"][0]["image"]))
+    assert ([w for w, _ in served.recognize([image])[0]]
+            == [w for w, _ in pipeline.recognize([image])[0]])

@@ -2,7 +2,7 @@
 ``load_exported`` and ``ExportedPipeline`` on the CPU.
 
 The three ``torch.ops.keras_ocr_tpu_torch`` ops pass ``torch.library.opcheck``
-on CPU tensors. The golden slim pipeline, standard and BN-folded, is
+on CPU tensors (``conv_layer`` in both modes). The golden slim pipeline, standard and BN-folded, is
 exported at its ``pad_to`` envelope, loaded and served on golden scenes:
 the loaded program's packed output must equal the live device program's
 at the baked levels bit for bit, and the served words must equal the JAX
@@ -63,6 +63,11 @@ OPCHECK_CASES = {
     "cc_keyed_rows_cols": (OPS.cc_keyed_rows_cols.default, _keyed_args()),
     "conv_layer_3x3": (OPS.conv_layer.default, _conv_args(3, False, False, True)),
     "conv_layer_1x1_pool_tap": (OPS.conv_layer.default, _conv_args(1, True, True, False)),
+    # The bf16 mode: a bf16 input with float32 weights and bias; the fake
+    # kernel must give bf16 outputs, as the plain layer does.
+    "conv_layer_3x3_pool_tap_bf16": (OPS.conv_layer.default, (
+        _conv_args(3, True, True, True)[0].to(torch.bfloat16),
+        *_conv_args(3, True, True, True)[1:])),
 }
 
 

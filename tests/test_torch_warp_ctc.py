@@ -2,7 +2,9 @@
 
 Crops within 1 uint8 count of ``warp_boxes_batch`` at every window rung,
 including a word past the first rung (the antialiased downscale) and a
-zero box (an empty slot); ``window_overflow`` and ``ctc_greedy_decode``
+zero box (an empty slot); the single-image ``warp_boxes`` (with its
+``cval``) to the same bar; ``perspective_transform`` (an 8x8 float32
+solve) to 1e-4 of JAX's; ``window_overflow`` and ``ctc_greedy_decode``
 exact.
 """
 
@@ -102,3 +104,32 @@ def test_ctc_greedy_decode_exact(seed):
     assert ctc.ctc_decode_to_strings(out.numpy(), alphabet) == jctc.ctc_decode_to_strings(
         ref, alphabet
     )
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("cval", [0.0, 255.0])
+def test_single_image_warp_within_one_count(channels, cval):
+    """``warp_boxes`` on one image: its boxes, the first rung, a cval."""
+    images, boxes = _scene(4, channels)
+    ref = np.asarray(jwarp.warp_boxes(jnp.asarray(images[1]), jnp.asarray(boxes[1]), cval=cval))
+    out = warp.warp_boxes(torch.from_numpy(images[1]), torch.from_numpy(boxes[1]),
+                          cval=cval).numpy()
+    assert out.shape == ref.shape == (5, 31, 200) + ((channels,) if channels > 1 else ())
+    assert out.dtype == ref.dtype == np.float32
+    assert np.abs(out - ref).max() <= 1.0
+    assert (out == cval).any()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_perspective_transform_matches_jax(seed):
+    rng = np.random.RandomState(seed)
+    src = (np.array([[0, 0], [80, 5], [85, 40], [2, 38]]) + rng.uniform(-5, 5, (4, 2)))
+    dst = np.array([[0, 0], [100, 0], [100, 31], [0, 31]]) * rng.uniform(0.5, 2.0)
+    src, dst = src.astype(np.float32), dst.astype(np.float32)
+    ref = np.asarray(jwarp.perspective_transform(jnp.asarray(src), jnp.asarray(dst)))
+    out = warp.perspective_transform(torch.from_numpy(src), torch.from_numpy(dst))
+    assert out.dtype == torch.float32 and out.shape == (3, 3)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
+    # It maps src onto dst.
+    homogeneous = np.concatenate([src, np.ones((4, 1), np.float32)], 1) @ out.numpy().T
+    np.testing.assert_allclose(homogeneous[:, :2] / homogeneous[:, 2:], dst, atol=1e-2)
