@@ -170,13 +170,19 @@ Phases, each printing one line; any failure exits non-zero:
    tensors, and find boxes within 1e-3 px of the CPU run of the device path
    on the card's heatmaps.
 
-15. bfloat16: the conv kernel's bf16 mode against its plain bf16 version
-   (float32 conv of the bf16-rounded operands, one rounding per layer) on
-   the 12 CRAFT chains at 960x1280 and ``conv3x3_bias_act`` at C3 and at an
-   odd size: a single layer within one bf16 ulp, a chain within 1.6e-2 *
-   max(1, max|plain|) with 99% of its values within one ulp; median of 20,
-   the rate as a share of the 989 TFLOP/s dense bf16 rate, beside phase 3's
-   float32 mode and a cuDNN bf16 ``F.conv2d`` with bias. The golden
+15. bfloat16: the conv kernel's bf16 mode (the persistent kernel) against
+   its plain bf16 version (float32 conv of the bf16-rounded operands, one
+   rounding per layer) on the 12 CRAFT chains at 960x1280 and
+   ``conv3x3_bias_act`` at C3 and at an odd size: a single layer within one
+   bf16 ulp, a chain within 1.6e-2 * max(1, max|plain|) with 99% of its
+   values within one ulp; each call's median of 20 by CUDA events beside
+   its conv kernel's device time from ``torch.profiler`` (where it saw
+   every launch) and the call's device time replayed from a CUDA graph,
+   and each layer's Cout tile, the rate as a share of the 989 TFLOP/s dense
+   bf16 rate, beside phase 3's float32 mode; C3's layer against a cuDNN
+   bf16 ``F.conv2d`` with bias, as a speed ratio (this part runs right
+   after phase 3, so that its profiler sessions are the process's first).
+   The golden
    artifact through ``load_golden_pipeline(dir, torch.bfloat16)``, standard
    and folded, must reach ``pass_fraction``, the scenes whose words differ
    from the float32 run printed (its export is a card test); the
@@ -2413,6 +2419,13 @@ def bf16_bytes(batch, height, width, cin, plan, pool=False, tap=False):
     return total
 
 
+def bf16_tiles(conv_cuda, height, width, plan):
+    """The Cout tile of each bf16 layer of a batch-1 chain."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return [conv_cuda.tile_n(cout, conv_cuda.tiles_m(1, height, width), torch.bfloat16, sms)
+            for _, cout, _ in plan]
+
+
 def bf16_bound_ms(flop, nbytes):
     """The larger of the operations at the dense bf16 rate and the bytes at
     the HBM rate."""
@@ -2434,14 +2447,74 @@ def check_bf16(conv_cuda, what, out, ref, layers):
     return err, share
 
 
+def conv_device_ms(fn, calls=5):
+    """(conv kernel ms, other kernels ms, conv kernel launches) per call of
+    ``fn``, from ``torch.profiler`` over ``calls`` calls after a warm-up:
+    the device time of the ``conv_tc`` kernels apart from the call's other
+    kernels (copies, casts, the im2col) and its host gaps. A torch kernel
+    opens and closes the window (the conv kernels come from a library of
+    their own)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        for _ in range(calls):
+            fn()
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+    conv = other = 0.0
+    launches = 0
+    for event in prof.key_averages():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = event.self_device_time_total / 1e3 / calls
+        if "conv_tc" in event.key:
+            conv += ms
+            launches += event.count
+        else:
+            other += ms
+    return conv, other, launches / calls
+
+
+def graph_replay_ms(fn):
+    """Device time of one call of ``fn`` replayed from a CUDA graph: its
+    kernels back to back with no host in between (median of 20 by CUDA
+    events); None where the call cannot be captured."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    except RuntimeError as error:
+        print(f"graph capture failed: {error}", flush=True)
+        return None
+    return cuda_median_ms(graph.replay)
+
+
+def device_line(device_ms, seen, launches, replay_ms):
+    """The device-time part of a phase 15 line: the profiler's conv kernel
+    time where it saw every launch, and the CUDA-graph replay either way."""
+    profiler = (f"conv kernel {device_ms:.4f} ms of device time (torch.profiler)"
+                if seen == launches else
+                f"the profiler saw {seen:g} of {launches} conv launches a call")
+    replay = "not captured" if replay_ms is None else f"{replay_ms:.4f} ms"
+    return f"{profiler}, CUDA-graph replay of the call {replay}"
+
+
 def bf16_kernels(card, conv_cuda, fp32_ms):
     """(1) The conv kernel's bf16 mode against its plain version at the
-    CRAFT shapes; returns its two kernel-line entries."""
+    CRAFT shapes, each chain's and C3's layer's call time (CUDA events)
+    beside its kernel's device time (``torch.profiler``); returns its two
+    kernel-line entries."""
     gen = torch.Generator(device="cuda").manual_seed(15)
     chain = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_by": "operations",
              "library_ms": None}
     single = {"max_abs_err": 0.0, "bound_by": "operations"}
     total_flop = total_bytes = 0
+    totals = {"device": 0.0, "replay": 0.0}
     for name, height, width, cin, plan, pool, tap in CRAFT_CHAINS:
         x, convs = seeded_chain(gen, 1, height, width, cin, plan)
         x = x.to(torch.bfloat16)
@@ -2460,22 +2533,32 @@ def bf16_kernels(card, conv_cuda, fp32_ms):
         err, share = max(c[0] for c in checks), min(c[1] for c in checks)
         chain["max_abs_err"] = max(chain["max_abs_err"], err)
         ms, plain_ms = cuda_median_ms(kernel), cuda_median_ms(plain)
+        device_ms, other_ms, seen = conv_device_ms(kernel)
+        replay_ms = graph_replay_ms(kernel)
         chain["ms"] += ms
         chain["plain_ms"] += plain_ms
+        totals["device"] += device_ms if seen == len(plan) else math.nan
+        totals["replay"] += math.nan if replay_ms is None else replay_ms
         flop = conv_flop(1, height, width, cin, plan)
         total_flop += flop
         total_bytes += bf16_bytes(1, height, width, cin, plan, pool, tap)
         tflops = flop / ms / 1e9
         print(f"bfloat16 kernel vs plain ({card}): conv_chain {name}: max |diff| {err:.3e}, "
-              f"{100 * share:.3f}% within one ulp; kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s, "
+              f"{100 * share:.3f}% within one ulp; call {ms:.4f} ms ({tflops:.2f} TFLOP/s, "
               f"{100 * tflops / BF16_TFLOPS:.1f}% of {BF16_TFLOPS} TFLOP/s; float32 mode "
-              f"{fp32_ms[name]:.4f} ms), plain {plain_ms:.4f} ms (median of 20)")
+              f"{fp32_ms[name]:.4f} ms), {device_line(device_ms, seen, len(plan), replay_ms)} "
+              f"(other kernels {other_ms:.4f} ms; Cout tiles "
+              f"{bf16_tiles(conv_cuda, height, width, plan)}), plain {plain_ms:.4f} ms "
+              f"(median of 20)")
     chain["bound_ms"] = bf16_bound_ms(total_flop, total_bytes)
     print(f"bfloat16 kernel vs plain ({card}): conv_chain, the 12 chains at 960x1280: "
           f"{total_flop / 1e9:.2f} GFLOP, {total_bytes / 1e9:.3f} GB, kernel {chain['ms']:.4f} ms "
           f"({total_flop / chain['ms'] / 1e9:.2f} TFLOP/s, "
           f"{100 * total_flop / chain['ms'] / 1e9 / BF16_TFLOPS:.1f}% of {BF16_TFLOPS}; bound "
           f"{chain['bound_ms']:.4f} ms, {100 * chain['bound_ms'] / chain['ms']:.1f}% of it), "
+          f"conv kernels {totals['device']:.4f} ms of device time (torch.profiler; nan where "
+          f"it missed a launch), the calls replayed from CUDA graphs {totals['replay']:.4f} ms "
+          f"({100 * total_flop / totals['replay'] / 1e9 / BF16_TFLOPS:.1f}%), "
           f"float32 mode {sum(fp32_ms[c[0]] for c in CRAFT_CHAINS):.4f} ms, plain "
           f"{chain['plain_ms']:.4f} ms")
     for batch, height, width, cin, cout in CONV3X3_SHAPES:
@@ -2489,6 +2572,8 @@ def bf16_kernels(card, conv_cuda, fp32_ms):
                                 out, ref, 1)
             single["max_abs_err"] = max(single["max_abs_err"], err)
         ms = cuda_median_ms(lambda: conv_cuda.conv3x3_bias_act(x, w, b))
+        device_ms, _, seen = conv_device_ms(lambda: conv_cuda.conv3x3_bias_act(x, w, b))
+        replay_ms = graph_replay_ms(lambda: conv_cuda.conv3x3_bias_act(x, w, b))
         plain_ms = cuda_median_ms(lambda: conv_cuda.conv3x3_bias_act_plain(x, w, b))
         # The library call: one cuDNN bf16 convolution with its bias, NCHW.
         x_nchw = x.permute(0, 3, 1, 2).contiguous()
@@ -2496,22 +2581,28 @@ def bf16_kernels(card, conv_cuda, fp32_ms):
         b16 = b.to(torch.bfloat16)
         library_ms = cuda_median_ms(lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, b16,
                                                                        padding=1))
+        library_replay_ms = graph_replay_ms(
+            lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, b16, padding=1))
         flop = conv_flop(batch, height, width, cin, ((3, cout, True),))
         bound_ms = bf16_bound_ms(flop, bf16_bytes(batch, height, width, cin, ((3, cout, True),)))
         if "ms" not in single:
             single.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms)
         print(f"bfloat16 kernel vs plain ({card}): conv3x3_bias_act {(batch, height, width, cin)} "
-              f"-> {cout}: max |diff| {err:.3e} (within one ulp); kernel {ms:.4f} ms "
+              f"-> {cout}: max |diff| {err:.3e} (within one ulp); call {ms:.4f} ms "
               f"({flop / ms / 1e9:.2f} TFLOP/s; bound {bound_ms:.4f} ms, "
-              f"{100 * bound_ms / ms:.1f}% of it), plain {plain_ms:.4f} ms, F.conv2d bf16 with "
-              f"bias {library_ms:.4f} ms (median of 20)")
+              f"{100 * bound_ms / ms:.1f}% of it), {device_line(device_ms, seen, 1, replay_ms)}, "
+              f"plain {plain_ms:.4f} ms, F.conv2d bf16 with bias {library_ms:.4f} ms (CUDA-graph "
+              f"replay {library_replay_ms} ms): the call {library_ms / ms:.2f}x cuDNN's speed "
+              f"(median of 20)")
     return {"conv_chain_bf16": chain, "conv3x3_bias_act_bf16": single}
 
 
-def bf16_phase(card, conv_cuda, fp32, scenes, pass_fraction, wrappers):
+def bf16_phase(card, conv_cuda, fp32, scenes, pass_fraction, wrappers, report):
     """Phase 15: the bfloat16 path. ``fp32`` holds this run's float32
-    numbers and models. Returns the kernel-line entries of the bf16 mode
-    and their launches on the bf16 main path."""
+    numbers and models, ``report`` the kernel-line entries of the bf16 mode
+    (:func:`bf16_kernels`, run right after phase 3, before any other
+    profiler session). Returns those entries and their launches on the bf16
+    main path."""
     from keras_ocr_tpu_torch import Detector, Pipeline, Recognizer
     from keras_ocr_tpu_torch.models.craft import fold_bn_state_dict
     from keras_ocr_tpu_torch.utils import golden
@@ -2519,7 +2610,6 @@ def bf16_phase(card, conv_cuda, fp32, scenes, pass_fraction, wrappers):
     phase_start = time.perf_counter()
     device = torch.device("cuda")
     bf16 = torch.bfloat16
-    report = bf16_kernels(card, conv_cuda, fp32["chain_ms"])
 
     # (2) The golden artifact in bfloat16, standard and folded; the words
     # that differ from the float32 run. (Its export: the card test
@@ -2692,6 +2782,9 @@ def main() -> int:
     golden_pipeline = golden.load_golden_pipeline(ARTIFACT, device=device)[0]
     golden_traffic(cc_cuda, golden_pipeline, golden_images[:8])
     report.update(conv_phase(conv_cuda))
+    # Phase 15's kernel part, here so that its profiler sessions come
+    # first in the process.
+    bf16_kernel_report = bf16_kernels(card, conv_cuda, report["conv_chain"]["per_chain"])
     sweep_wrappers = {
         "cc_sweeps": cc_cuda.segmented_min_sweeps,
         "cc_keyed_rows_cols": cc_cuda.keyed_rows_cols,
@@ -2804,11 +2897,10 @@ def main() -> int:
     for name, count in data_phase(card, sweep_wrappers).items():
         launches[name] += count
 
-    fp32 = {"chain_ms": report["conv_chain"]["per_chain"], "golden": fp32_golden,
-            "times": times, "forward_ms": forward_ms, "detector": detector,
-            "pipelines": {"standard": pipeline, "folded": folded_pipeline}}
+    fp32 = {"golden": fp32_golden, "times": times, "forward_ms": forward_ms,
+            "detector": detector, "pipelines": {"standard": pipeline, "folded": folded_pipeline}}
     bf16_report, bf16_launches = bf16_phase(card, conv_cuda, fp32, scenes, pass_fraction,
-                                            all_wrappers)
+                                            all_wrappers, bf16_kernel_report)
     report.update(bf16_report)
     launches.update(bf16_launches)
 

@@ -55,10 +55,26 @@ _TAPS = {("slice1", 10): "s1", ("slice2", 17): "s2", ("slice3", 27): "s3"}
 
 
 def _chain_conv(conv: nn.Conv2d, relu: bool):
-    """(HWIO weight, bias, relu) of one layer of a :func:`conv_chain`. The
-    OIHW -> HWIO copies move about 40 MB per full-width forward, against
-    its 819 GFLOP of convolutions."""
-    return conv.weight.detach().permute(2, 3, 1, 0).contiguous(), conv.bias.detach(), relu
+    """(HWIO weight, bias, relu) of one layer of a :func:`conv_chain`.
+
+    The OIHW -> HWIO copy is kept on the module and made anew when the
+    weight's identity, version, storage, device or dtype changes
+    (``load_state_dict``, an in-place update, ``.to(...)``), so the same
+    tensor reaches the conv kernel every forward and its operand, cached
+    on that tensor (:func:`..ops.conv_cuda.prepared_weight`), is made once.
+    A traced forward (``torch.export``) and inference-tensor weights take a
+    fresh copy each time."""
+    weight = conv.weight
+    if torch.compiler.is_compiling() or weight.is_inference():
+        return weight.detach().permute(2, 3, 1, 0).contiguous(), conv.bias.detach(), relu
+    key = (id(weight), weight._version, weight.data_ptr(), weight.device, weight.dtype)
+    cached = conv.__dict__.get("_chain_hwio")
+    if cached is None or cached[0] != key:
+        # Outside inference mode, so that the copy keeps a version counter.
+        with torch.inference_mode(False):
+            hwio = weight.detach().permute(2, 3, 1, 0).contiguous()
+        cached = conv.__dict__["_chain_hwio"] = (key, hwio)
+    return cached[1], conv.bias.detach(), relu
 
 
 def fold_bn_state_dict(state: dict, eps: float = 1e-5) -> dict:

@@ -17,14 +17,19 @@ Two modes, chosen by the input's dtype, as the TPU kernels follow theirs:
   weights are rounded to bf16 (``w.astype(x.dtype)``), the sums and the
   float32 bias, ReLU and pool are float32, and each layer's output (the
   next layer's input, the tap) is rounded once to bf16 (``buf_dtype``).
-  On the card: one bf16 ``wgmma`` per 16 channels, both operands from
-  shared memory.
+  On the card: a persistent warp-specialised kernel of bf16 ``wgmma``,
+  both operands from shared memory.
 
 The operands the kernel takes are made here, in plain PyTorch:
 :func:`pad_channels` (TMA needs 16-byte strides, so Cin a multiple of 4 in
 float32 and of 8 in bf16), :func:`kmajor_weights` (``wgmma`` reads both
 operands K-major) and, in float32, :func:`tf32_split` (the hi and lo parts
-of the 3xTF32 product).
+of the 3xTF32 product). :func:`prepared_weight` makes a weight's operand
+once per tensor and version and keeps it while that tensor lives: a caller
+that passes the same HWIO tensors again (the folded CRAFT keeps its own,
+``models/craft.py``) pays for no copy, one that passes new ones gets them
+prepared per call. :func:`tile_n` and :func:`slab_channels` choose the
+kernel's Cout tile and K slab for a layer; the kernel takes what they say.
 
 Launch counts, kept by the op's CUDA kernel (so that an exported program's
 launches count too): ``conv3x3_bias_act.launches`` counts every launch of a
@@ -36,6 +41,8 @@ launched, its 1x1 layers and pooled last layers included.
 from __future__ import annotations
 
 import ctypes
+import functools
+import weakref
 
 import torch
 from torch.nn import functional as F
@@ -150,20 +157,135 @@ def split_weights(w, cin_pad):
     return torch.stack(tf32_split(kmajor_weights(w, cin_pad)))
 
 
+# A bf16 3x3 layer of at most this many input channels times 9 runs as a
+# 1x1 layer on its im2col (:func:`im2col`).
+IM2COL_CHANNELS = 32
+
+
+def uses_im2col(k, cin, dtype):
+    """Whether the kernel takes a layer as a 1x1 layer on its im2col: in
+    bf16, a 3x3 layer whose 9 * Cin taps fit 32 channels (C1's first layer,
+    Cin 3). TMA would otherwise fetch 9 boxes a tile whose rows are mostly
+    zero fill past Cin (0.52 ms at 960x1280 on an H100), which costs more
+    than writing and reading back the 79 MB of columns (about 0.2 ms: 0.056
+    for the columns made by ``conv_im2col_bf16``, 0.147 for the 1x1 layer;
+    ``scripts/conv_kernel_ab.py`` measures both)."""
+    return dtype == torch.bfloat16 and k == 3 and 9 * cin <= IM2COL_CHANNELS
+
+
+def im2col(x):
+    """(B, H, W, 32) columns of a 3x3 SAME conv of NHWC ``x``: tap (dy, dx)
+    of channel c at ``(dy * 3 + dx) * Cin + c``, as an HWIO kernel reshaped
+    to (1, 1, 9 * Cin, Cout) reads them; zeros after."""
+    batch, height, width, cin = x.shape
+    padded = F.pad(x, (0, 0, 1, 1, 1, 1))
+    taps = [padded[:, dy:dy + height, dx:dx + width] for dy in range(3) for dx in range(3)]
+    taps.append(x.new_zeros((batch, height, width, IM2COL_CHANNELS - 9 * cin)))
+    return torch.cat(taps, -1)
+
+
+def weight_operand(w, cin_pad, dtype):
+    """The kernel's weight operand for HWIO ``w`` in the mode of ``dtype``:
+    :func:`kmajor_weights` rounded to bf16, or the float32 mode's
+    :func:`split_weights`; contiguous and 16-byte aligned. A kernel that
+    :func:`uses_im2col` takes the (1, 1, 9 * Cin, Cout) form."""
+    if uses_im2col(w.shape[0], w.shape[2], dtype):
+        w = w.reshape(1, 1, -1, w.shape[3])
+    if dtype == torch.bfloat16:
+        return _aligned(kmajor_weights(w, cin_pad).to(torch.bfloat16))
+    return _aligned(split_weights(w, cin_pad))
+
+
+# id(source tensor) -> (weak reference, version, {(cin_pad, dtype): operand})
+_operands = {}
+
+
+def _version(t):
+    """``t._version``, or None for an inference tensor (no counter)."""
+    return None if t.is_inference() else t._version
+
+
+def prepared_weight(w, cin_pad, dtype):
+    """:func:`weight_operand` of ``w``, made once per tensor and version.
+
+    The operand is kept while ``w`` lives and its version counter stands
+    (an in-place change to ``w`` makes it anew); inference tensors, which
+    keep no counter, and traced tensors are prepared per call."""
+    version = None if torch.compiler.is_compiling() else _version(w)
+    if version is None:
+        return weight_operand(w, cin_pad, dtype)
+    key = id(w)
+    entry = _operands.get(key)
+    if entry is None or entry[0]() is not w or entry[1] != version:
+        ref = weakref.ref(w, lambda _, key=key: _operands.pop(key, None))
+        entry = _operands[key] = (ref, version, {})
+    made = entry[2]
+    operand = made.get((cin_pad, dtype))
+    if operand is None:
+        operand = made[cin_pad, dtype] = weight_operand(w.detach(), cin_pad, dtype)
+    return operand
+
+
+# The SMs tile_n plans for when it is not given a card's count: an H100's.
+H100_SMS = 132
+_TILES = (8, 16, 32, 64, 128)
+
+
+def tile_n(cout, tiles_m=None, dtype=torch.float32, sms=H100_SMS):
+    """The Cout tile (``wgmma`` N) of a layer: the narrowest of 8 ... 128
+    that holds ``cout``, else 128 (several column tiles).
+
+    In bf16, 256 where ``cout >= 256`` and the persistent grid's rounds
+    (``ceil(tiles / sms)`` over the layer's ``tiles_m`` pixel patches of
+    8 x 16) at 256 cost less than at 128, a 256-wide tile taking 1.5 times
+    a 128-wide one (1.47-1.63 measured on the H100 at C3 and C5,
+    ``scripts/conv_kernel_ab.py --tiles``): C3-C7 and upconv1's 1x1 at
+    960x1280, not upconv1's 3x3 (one round either way) nor upconv2's 1x1
+    (3 rounds against 2, a tie)."""
+    narrow = next((n for n in _TILES if cout <= n), _TILES[-1])
+    if dtype != torch.bfloat16 or cout < 256 or tiles_m is None:
+        return narrow
+
+    def rounds(n):
+        return -(-tiles_m * -(-cout // n) // sms)
+
+    return 256 if 3 * rounds(256) < 2 * rounds(128) else narrow
+
+
+def slab_channels(cin_pad, dtype=torch.float32):
+    """The input channels of one K step: 32 (128 bytes) in float32; in bf16
+    16, 32 or 64 (32, 64 or 128 bytes), the narrowest that holds
+    ``cin_pad``, so a narrow layer walks no zero slab."""
+    if dtype != torch.bfloat16:
+        return 32
+    return 16 if cin_pad <= 16 else 32 if cin_pad <= 32 else 64
+
+
+def tiles_m(batch, height, width):
+    """The 8 x 16 pixel patches (M tiles) of a layer."""
+    return batch * -(-height // 8) * -(-width // 16)
+
+
+@functools.lru_cache(maxsize=None)
 def _library():
     lib = kernels.load(SOURCE)
     pointer, number = ctypes.c_void_p, ctypes.c_int
-    for entry in (lib.conv_layer, lib.conv_layer_bf16):
-        entry.argtypes = [pointer] * 5 + [number] * 8 + [pointer]
+    lib.conv_layer.argtypes = [pointer] * 5 + [number] * 9 + [pointer]
+    lib.conv_layer_bf16.argtypes = [pointer] * 5 + [number] * 11 + [pointer]
+    lib.conv_im2col_bf16.argtypes = [pointer] * 2 + [number] * 4 + [pointer]
+    for entry in (lib.conv_layer, lib.conv_layer_bf16, lib.conv_im2col_bf16):
         entry.restype = number
-    lib.conv_tile_n.argtypes = [number]
-    lib.conv_tile_n.restype = number
     return lib
 
 
-def tile_n(cout):
-    """The Cout tile (``wgmma`` N) the kernel takes for ``cout`` channels."""
-    return _library().conv_tile_n(cout)
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _stream(device):
+    """The current stream of a CUDA device, as the kernels take it."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _aligned(t):
@@ -211,23 +333,41 @@ def _layer_cpu(x, weight, bias, relu, pool, tap, chain_start):
     return out, _to_nhwc(y) if tap else x.new_empty(0)
 
 
-def _layer_cuda(x, weight, bias, relu, pool, tap, chain_start):
-    """One launch of the kernel on (B, H, W, Cin) ``x`` with an HWIO
-    ``weight``: a 3x3 layer that is not pooled counts in
-    ``conv3x3_bias_act.launches``, the first layer of a chain in
-    ``conv_chain.launches``."""
+def _im2col_cuda(x):
+    """:func:`im2col` of a CUDA bf16 ``x`` by the ``conv_im2col_bf16``
+    kernel (bit for bit the plain version's columns)."""
+    x = x.contiguous()
     batch, height, width, cin = x.shape
-    k, cout = weight.shape[0], weight.shape[3]
+    out = torch.empty((batch, height, width, IM2COL_CHANNELS), dtype=x.dtype, device=x.device)
+    rc = _library().conv_im2col_bf16(x.data_ptr(), out.data_ptr(), batch, height, width, cin,
+                                     _stream(x.device.index))
+    if rc != 0:
+        raise RuntimeError(f"conv_im2col_bf16 launch failed with CUDA error {rc}")
+    return out
+
+
+def kernel_operands(x, weight):
+    """(input, weight operand, k, Cin) that the kernel takes for a layer on
+    (B, H, W, Cin) ``x`` with an HWIO ``weight``: Cin padded to the mode's
+    multiple, or, where :func:`uses_im2col`, the layer as a 1x1 on its
+    im2col (on the card by ``conv_im2col_bf16``)."""
+    k, cin = weight.shape[0], x.shape[3]
+    if uses_im2col(k, cin, x.dtype):
+        cols = _im2col_cuda(x) if x.device.type == "cuda" else im2col(x)
+        return cols, prepared_weight(weight, IM2COL_CHANNELS, x.dtype), 1, IM2COL_CHANNELS
     multiple = cin_multiple(x.dtype)
     cin_pad = -(-cin // multiple) * multiple
-    x = _aligned(pad_channels(x, cin_pad))
-    if x.dtype == torch.bfloat16:
-        wmat = _aligned(kmajor_weights(weight, cin_pad).to(torch.bfloat16))
-        entry = _library().conv_layer_bf16
-    else:
-        wmat = _aligned(split_weights(weight, cin_pad))
-        entry = _library().conv_layer
-    bias = _aligned(bias)
+    return (_aligned(pad_channels(x, cin_pad)), prepared_weight(weight, cin_pad, x.dtype), k,
+            cin_pad)
+
+
+def _layer_cuda(x, weight, bias, relu, pool, tap, chain_start):
+    """One launch of the kernel on (B, H, W, Cin) ``x`` with an HWIO
+    ``weight`` (its operand from :func:`prepared_weight`): a 3x3 layer that
+    is not pooled counts in ``conv3x3_bias_act.launches``, the first layer of
+    a chain in ``conv_chain.launches``."""
+    batch, height, width, _ = x.shape
+    k, cout = weight.shape[0], weight.shape[3]
     out_hw = (height // 2, width // 2) if pool else (height, width)
     out = torch.empty((batch, *out_hw, cout), dtype=x.dtype, device=x.device)
     tap_out = (
@@ -236,12 +376,20 @@ def _layer_cuda(x, weight, bias, relu, pool, tap, chain_start):
     )
     if (tap_out if tap else out).numel() == 0:
         return out, tap_out
-    with torch.cuda.device(x.device):
-        rc = entry(
-            x.data_ptr(), wmat.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            tap_out.data_ptr() if tap else None, batch, height, width, cin_pad, cout,
-            k, int(bool(relu)), int(pool), torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(index):
+        x, wmat, k_run, cin_pad = kernel_operands(x, weight)
+        bias = _aligned(bias)
+        sms = _sm_count(index)
+        args = (x.data_ptr(), wmat.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                tap_out.data_ptr() if tap else None, batch, height, width, cin_pad, cout, k_run,
+                int(bool(relu)), int(pool),
+                tile_n(cout, tiles_m(batch, height, width), x.dtype, sms))
+        if x.dtype == torch.bfloat16:
+            rc = _library().conv_layer_bf16(*args, slab_channels(cin_pad, x.dtype), sms,
+                                            _stream(index))
+        else:
+            rc = _library().conv_layer(*args, _stream(index))
     if rc >= _ENCODE_ERROR:
         raise RuntimeError(f"conv_layer: cuTensorMapEncodeTiled failed with CUresult "
                            f"{rc - _ENCODE_ERROR}")

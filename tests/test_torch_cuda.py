@@ -352,6 +352,116 @@ def test_conv_kernels_reject_what_they_cannot_take(device):
         conv_cuda.conv_chain(x, [(w.cpu(), b, relu)])
 
 
+def _bf16_launch(device, x, w, b, relu=True, pool=False, tap=False, bn=None, slab=None,
+                 sms=None):
+    """One launch of the bf16 kernel straight through ``conv_layer_bf16`` on
+    the operands the wrapper makes, at a chosen Cout tile, K slab and grid
+    (by default the wrapper's), into outputs filled with NaN first; returns
+    (out, tap) on the CPU."""
+    x, w, b = x.to(torch.bfloat16).to(device), w.to(device), b.to(device)
+    batch, height, width, _ = x.shape
+    cout = w.shape[3]
+    xk, wmat, k, cin_pad = conv_cuda.kernel_operands(x, w)
+    sms = sms or torch.cuda.get_device_properties(device).multi_processor_count
+    bn = bn or conv_cuda.tile_n(cout, conv_cuda.tiles_m(batch, height, width), torch.bfloat16,
+                                sms)
+    slab = slab or conv_cuda.slab_channels(cin_pad, torch.bfloat16)
+    out_hw = (height // 2, width // 2) if pool else (height, width)
+    out = torch.full((batch, *out_hw, cout), float("nan"), dtype=torch.bfloat16, device=device)
+    tap_out = torch.full((batch, height, width, cout), float("nan"), dtype=torch.bfloat16,
+                         device=device) if tap else None
+    rc = conv_cuda._library().conv_layer_bf16(
+        xk.data_ptr(), wmat.data_ptr(), b.data_ptr(), out.data_ptr(),
+        tap_out.data_ptr() if tap else None, batch, height, width, cin_pad, cout, k, int(relu),
+        int(pool), bn, slab, sms, torch.cuda.current_stream(device).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    return out.cpu(), tap_out.cpu() if tap else None
+
+
+def _assert_bf16_layer(x, w, b, relu, pool, tap, got):
+    """A launch's outputs: every cell written (no NaN left of the fill)
+    and within one bf16 ulp of the plain layer."""
+    ref = conv_cuda.conv_chain_plain(x.to(torch.bfloat16), [(w, b, relu)], pool=pool,
+                                     tap_prepool=tap)
+    for out, want in zip(got, ref) if tap else [(got[0], ref)]:
+        assert not torch.isnan(out.float()).any()
+        _assert_bf16_chain(out.to("cuda"), want, 1)
+
+
+# (batch, height, width, cin, k, cout, pool, tap): grids of many tiles a
+# persistent block with a ragged last round, Cout tiles of 256 with a
+# remainder, C1's first layer (Cin 3, the im2col) across tile edges in both
+# directions, the cls head's Cin-16/32 layers, pooled layers with the tap at
+# odd sizes.
+BF16_LAYERS = [
+    (2, 200, 328, 64, 3, 128, False, False),
+    (3, 61, 83, 256, 3, 260, False, False),
+    (1, 33, 47, 512, 1, 512, False, False),
+    (2, 37, 53, 3, 3, 64, False, False),
+    (1, 120, 161, 3, 3, 64, False, False),
+    (2, 45, 70, 32, 3, 32, False, False),
+    (2, 45, 70, 32, 3, 16, False, False),
+    (2, 45, 70, 16, 1, 16, False, False),
+    (2, 45, 70, 16, 1, 2, False, False),
+    (2, 25, 39, 64, 3, 128, True, True),
+    (1, 17, 33, 8, 3, 256, True, True),
+    (3, 9, 13, 3, 3, 64, True, True),
+]
+
+
+@pytest.mark.parametrize("batch,height,width,cin,k,cout,pool,tap", BF16_LAYERS)
+@pytest.mark.parametrize("grid", ["wrapper", "bn256_7_sms", "slab64_7_sms"])
+def test_bf16_persistent_kernel_writes_every_cell(device, full_fp32, batch, height, width, cin,
+                                                  k, cout, pool, tap, grid):
+    """The persistent bf16 kernel at the wrapper's Cout tile, K slab and
+    grid, and forced to 256-wide tiles or 64-channel slabs on a grid of 7
+    blocks (many tiles a block, a ragged last round), its outputs poisoned
+    with NaN first: every cell written, one ulp from the plain layer."""
+    x, ((w, b, relu),) = _chain(batch, height, width, cin, [(k, cout, True)], seed=cout + cin)
+    options = {"wrapper": {}, "bn256_7_sms": {"bn": 256, "sms": 7},
+               "slab64_7_sms": {"slab": 64, "sms": 7}}[grid]
+    got = _bf16_launch(device, x, w, b, relu, pool, tap, **options)
+    _assert_bf16_layer(x, w, b, relu, pool, tap, got)
+
+
+def test_bf16_im2col_kernel_equals_plain(device):
+    """C1's first layer runs as a 1x1 layer on its im2col: the
+    ``conv_im2col_bf16`` kernel's columns equal the plain ``im2col`` bit for
+    bit, for Cin 1-3 across tile edges."""
+    for cin, shape in ((3, (2, 37, 53)), (2, (1, 9, 130)), (1, (3, 17, 16))):
+        x = torch.randn((*shape, cin), generator=torch.Generator().manual_seed(cin))
+        x = x.to(torch.bfloat16)
+        got = conv_cuda._im2col_cuda(x.to(device))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), conv_cuda.im2col(x))
+
+
+def test_bf16_folded_craft_follows_in_place_updates(device):
+    """The folded bf16 CRAFT keeps its kernel operands between forwards
+    and makes them anew after an in-place update of its parameters: the
+    second forward equals a freshly built model's with the updated
+    weights, bit for bit, and differs from the first."""
+    model = init_parameters(CRAFT(width=0.25, fold_bn=True, dtype=torch.bfloat16), seed=0)
+    model = model.to(device).eval()
+    x = torch.from_numpy(np.random.RandomState(5).randn(1, 64, 96, 3).astype(np.float32))
+    x = x.to(device)
+    with torch.inference_mode():
+        first = model(x)
+        again = model(x)
+    assert torch.equal(first, again)
+    with torch.no_grad():
+        for name, parameter in model.named_parameters():
+            if name.endswith("conv.weight") or name.startswith("conv_cls"):
+                parameter.mul_(1.25)
+    fresh = CRAFT(width=0.25, fold_bn=True, dtype=torch.bfloat16).to(device).eval()
+    fresh.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        second, want = model(x), fresh(x)
+    assert torch.equal(second, want)
+    assert not torch.equal(second, first)
+
+
 @pytest.mark.parametrize("shape", [(2, 64, 96), (1, 72, 104)])
 def test_folded_craft_on_card_matches_unfolded(device, full_fp32, shape):
     """The BN-folded graph (conv kernel) against the standard one (cuDNN),
