@@ -197,12 +197,29 @@ Phases, each printing one line; any failure exits non-zero:
    lowercase, one 256x256 float image) through the port's device program,
    whose packed output must be well formed.
 
+16. mesh: the native host-ops library (``keras_ocr_tpu_torch/native.py``)
+   must build; the host oracle ``getBoxes`` on two refine-phase heatmaps
+   must give identical boxes with the library (its calls counted) and with
+   it disabled. The full-width standard and folded pipelines (one word
+   bucket of 64) on ``parallel.create_mesh()`` (the one card) and on two
+   replicas of it (``devices=[cuda:0, cuda:0]``): ``recognize_many`` of 32
+   scenes at batch 8 must read the words of the same models without a mesh
+   exactly, boxes within 1e-4 (the two-replica mesh against batch 4, its
+   shard's size), every sweep-kernel call of the replicas equal to its
+   plain version, each kernel of the path launched; images/s of the three in
+   turns. One full-width CRNN step (batch 8, dropout 0) and one CRAFT step
+   (640x640, batch 8) from one state on each mesh must equal the step
+   without a mesh in float64 (loss within 1e-4 relative, every parameter
+   and BatchNorm statistic within 1e-4 * max(1, max|ref|)); the float32
+   step ms of the three.
+
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
 ``.pth``-loaded detector's run in 12, the EfficientNet pipeline of 13,
-the ``detect`` of 14 and the bfloat16 full-width pipelines of 15 count
-their kernel launches from zero; the kernel line's launches are those of
-phases 5-7, 13 and 14, and for the bf16 mode's two entries those of 15;
+the ``detect`` of 14, the bfloat16 full-width pipelines of 15 and each
+mesh pipeline of 16 count their kernel launches from zero; the kernel
+line's launches are those of phases 5-7, 13, 14 and 16, and for the bf16
+mode's two entries those of 15;
 the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
@@ -734,7 +751,7 @@ def craft_input(pipeline, scenes):
     """The normalised CRAFT input the pipeline makes of ``scenes``."""
     from keras_ocr_tpu_torch.ops.image import compute_input, resize_bilinear
 
-    device_batch, _, _, resize_to = pipeline._prepare(scenes)
+    (device_batch,), _, _, resize_to = pipeline._prepare(scenes)
     return compute_input(resize_bilinear(device_batch.to(torch.float32), *resize_to))
 
 
@@ -962,8 +979,9 @@ def refine_phase(card, detector, recognizer, scenes):
         device_batch, _, _, resize_to = pipeline._prepare(scenes[:8])
 
         def launch():
-            return pipeline._launch(device_batch, {}, pipeline.word_buckets[0], resize_to,
-                                    pipeline._component_cap, pipeline._num_sweeps, level).cpu()
+            return [packed.cpu() for packed in pipeline._launch(
+                device_batch, {}, pipeline.word_buckets[0], resize_to, pipeline._component_cap,
+                pipeline._num_sweeps, level)]
 
         launch()
         runs = []
@@ -2392,6 +2410,180 @@ def data_phase(card, sweep_wrappers):
     return launches
 
 
+# Phase 16: meshes. The CRAFT step's (batch, height, width), the timed
+# steps per variant (after one warm-up), the rounds of recognize_many in
+# turns, and the step bars (the CPU tests'): loss relative, and each
+# parameter or BatchNorm statistic within MESH_BAR * max(1, max|ref|).
+MESH_CRAFT_STEP = (8, 640, 640)
+MESH_STEP_RUNS = 5
+MESH_ROUNDS = 3
+MESH_BAR = 1e-4
+
+
+def mesh_pipelines(card, graph, plain, meshes, images, cc, cc_cuda, wrappers):
+    """The full-width ``graph`` pipeline's models on each mesh against
+    ``plain`` (the same models without a mesh): ``recognize_many`` of
+    ``images`` at batch 8, the one-device mesh against ``plain`` at batch 8
+    and the two-replica mesh against ``plain`` at batch 4 (the shard's
+    size, so that every launch has the plain run's shapes): words equal,
+    boxes within 1e-4; each replica's sweep-kernel calls equal to their
+    plain versions; then images/s of the three in turns. Returns the
+    mesh runs' launches."""
+    from keras_ocr_tpu_torch import Pipeline
+
+    def boxes_and_words(results):
+        return ([[w for w, _ in image] for image in results],
+                [np.array([b for _, b in image]).reshape(-1, 4, 2) for image in results])
+
+    launches = {name: 0 for name in wrappers}
+    sharded = {}
+    for label, (mesh, batch) in meshes.items():
+        pipe = Pipeline(plain.detector, plain.recognizer, 2, mesh=mesh, word_buckets=(64,))
+        want_words, want_boxes = boxes_and_words(plain.recognize_many(images, batch_size=batch))
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        record = []
+        undo = checked_sweeps(cc, cc_cuda, record)
+        try:
+            results = pipe.recognize_many(images, batch_size=8)
+        finally:
+            undo()
+        check_results(results, len(images))
+        counted = {name: wrapper.launches for name, wrapper in wrappers.items()}
+        if min(counted.values()) <= 0:
+            raise AssertionError(f"{graph} pipeline on the {label} mesh launched {counted}")
+        words, boxes = boxes_and_words(results)
+        err = max((float(np.abs(b - w).max()) for b, w in zip(boxes, want_boxes) if b.size),
+                  default=0.0)
+        if words != want_words or [b.shape for b in boxes] != [b.shape for b in want_boxes] \
+                or not err <= 1e-4:
+            raise AssertionError(f"{graph} pipeline on the {label} mesh: words equal "
+                                 f"{words == want_words}, boxes within {err}")
+        for name, count in counted.items():
+            launches[name] += count
+        sharded[label] = (pipe, err, counted, len(record), sum(map(len, words)))
+    rates = {label: [] for label in ("no mesh", *meshes)}
+    for _ in range(MESH_ROUNDS):
+        for label, pipe in (("no mesh", plain), *((k, v[0]) for k, v in sharded.items())):
+            start = time.perf_counter()
+            check_results(pipe.recognize_many(images, batch_size=8), len(images))
+            rates[label].append(len(images) / (time.perf_counter() - start))
+    summary = "; ".join(
+        f"{label}: words equal, boxes within {err:.1e}, launches {counted}, {calls} sweep "
+        f"calls equal to their plain versions" for label, (_, err, counted, calls, _) in
+        sharded.items())
+    print(f"mesh ({card}): {graph} full width, {len(images)} images (640x480, scale 2, one "
+          f"word bucket of 64): {summary}; recognize_many images/s at batch 8, median [range] "
+          f"of {MESH_ROUNDS} in turns: " + ", ".join(
+              f"{label} {statistics.median(v):.2f} [{min(v):.2f}-{max(v):.2f}]"
+              for label, v in rates.items()))
+    return launches
+
+
+def mesh_steps(card, what, make, trainer_cls, bridge, batch, meshes):
+    """One train step of ``make()``'s model without a mesh and on each mesh
+    from one state, in float64: losses within MESH_BAR relative, every
+    parameter and BatchNorm statistic within MESH_BAR * max(1, max|ref|) of
+    the one-device step's; then each variant's float32 step ms (CUDA
+    events, median of MESH_STEP_RUNS after a warm-up)."""
+    facade = make()
+    state = {k: v.clone() for k, v in facade.model.state_dict().items()}
+
+    def fresh(dtype):
+        facade.model.to(dtype).load_state_dict(state)
+        return facade
+
+    variants = {"no mesh": None, **meshes}
+    steps = {}
+    for label, mesh in variants.items():
+        trainer = trainer_cls(fresh(torch.float64), mesh=mesh)
+        loss = trainer.train_step(batch)
+        steps[label] = loss, dict(tree_leaves(bridge(trainer.model)))
+    ref_loss, ref = steps["no mesh"]
+    errors = {}
+    for label in meshes:
+        loss, leaves = steps[label]
+        worst = max(float(np.abs(leaves[k] - v).max()) / max(1.0, float(np.abs(v).max()))
+                    for k, v in ref.items())
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        if not (loss_err <= MESH_BAR and worst <= MESH_BAR):
+            raise AssertionError(f"{what} step on the {label} mesh: loss {loss_err:.3e} "
+                                 f"relative, worst leaf {worst:.3e}")
+        errors[label] = loss_err, worst
+    step_ms = {}
+    for label, mesh in variants.items():
+        trainer = trainer_cls(fresh(torch.float32), mesh=mesh)
+        step_ms[label] = cuda_median_ms(lambda: trainer.train_step(batch), runs=MESH_STEP_RUNS)
+    print(f"mesh ({card}): {what} step from one state in float64, each mesh against no mesh: "
+          + "; ".join(f"{label} loss within {e[0]:.2e} relative, parameters and statistics "
+                      f"within {e[1]:.2e} (bar {MESH_BAR})" for label, e in errors.items())
+          + "; float32 step ms (median of " + f"{MESH_STEP_RUNS}): "
+          + ", ".join(f"{label} {ms:.3f}" for label, ms in step_ms.items()))
+
+
+def mesh_phase(card, pipelines, scenes, all_wrappers):
+    """Phase 16: the native host-ops library, the full-width pipelines on a
+    one-device mesh and on two replicas of the one card, and the CRNN and
+    CRAFT train steps on both meshes. Returns the kernels' launches in the
+    mesh pipelines' runs."""
+    from keras_ocr_tpu_torch import Detector, Recognizer, detection, native, parallel, weights
+    from keras_ocr_tpu_torch.models.crnn import DEFAULT_BUILD_PARAMS
+    from keras_ocr_tpu_torch.ops import cc, cc_cuda
+    from keras_ocr_tpu_torch.train import DetectorTrainer, RecognizerTrainer
+
+    phase_start = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native host-ops library did not build (see the warning)")
+    heatmaps = refine_heatmaps(seed=16)[:2]
+    calls = native.calls
+    start = time.perf_counter()
+    with_library = detection.getBoxes(heatmaps)
+    library_s = time.perf_counter() - start
+    library_calls = native.calls - calls
+    available = native.available
+    native.available = lambda: False
+    try:
+        start = time.perf_counter()
+        without = detection.getBoxes(heatmaps)
+        plain_s = time.perf_counter() - start
+    finally:
+        native.available = available
+    if library_calls <= 0 or any(a.shape != b.shape or not np.array_equal(a, b)
+                                 for a, b in zip(with_library, without)):
+        raise AssertionError(f"host oracle: {library_calls} library calls, boxes equal "
+                             f"without it: {[np.array_equal(a, b) for a, b in zip(with_library, without)]}")
+    print(f"mesh: native host-ops library built ({native.library_path()}); the host oracle "
+          f"getBoxes on 2 refine-phase heatmaps (480x640): {sum(map(len, with_library))} "
+          f"boxes, identical with the library ({library_calls} calls, {library_s:.3f} s) and "
+          f"without it ({plain_s:.3f} s)")
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    meshes = {"one-device": (parallel.create_mesh(), 8),
+              "two-replica": (parallel.create_mesh(devices=[device, device]), 4)}
+    images = (scenes * 3)[:32]
+    launches = {name: 0 for name in all_wrappers}
+    for graph, plain in pipelines.items():
+        wrappers = {name: w for name, w in all_wrappers.items()
+                    if graph == "folded" or name.startswith("cc_")}
+        reference = type(plain)(plain.detector, plain.recognizer, 2, word_buckets=(64,))
+        for name, count in mesh_pipelines(card, graph, reference, meshes, images, cc, cc_cuda,
+                                          wrappers).items():
+            launches[name] += count
+
+    steps = {label: mesh for label, (mesh, _) in meshes.items()}
+    rng = np.random.RandomState(16)
+    no_dropout = dict(DEFAULT_BUILD_PARAMS, dropout=0.0)
+    mesh_steps(card, "CRNN (full width, dropout 0) batch 8",
+               lambda: Recognizer(weights=None, build_params=no_dropout, device=device, seed=16),
+               RecognizerTrainer, weights.crnn_variables, crnn_batch(rng, 8, 48, 36), steps)
+    mesh_steps(card, f"CRAFT (width 1.0) {'x'.join(map(str, MESH_CRAFT_STEP))}",
+               lambda: Detector(weights=None, width=1.0, device=device, seed=17),
+               DetectorTrainer, weights.craft_variables, craft_batch(rng, *MESH_CRAFT_STEP),
+               steps)
+    print(f"mesh ({card}): phase 16 took {time.perf_counter() - phase_start:.1f} s")
+    return launches
+
+
 # Phase 15: bfloat16. The bf16 mode's bound: the H100 SXM's dense bf16
 # tensor-core rate, TFLOP/s; its bars against the plain bf16 version: one
 # bf16 ulp for a single layer, and for a chain BF16_CHAIN_BAR * max(1,
@@ -2903,6 +3095,10 @@ def main() -> int:
                                             all_wrappers, bf16_kernel_report)
     report.update(bf16_report)
     launches.update(bf16_launches)
+
+    for name, count in mesh_phase(card, {"standard": pipeline, "folded": folded_pipeline},
+                                  scenes, all_wrappers).items():
+        launches[name] += count
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",

@@ -5,14 +5,14 @@ package's use it) and the standard library only. The JAX package stays the
 reference the port is tested against.
 """
 
-from . import (data, data_generation, datasets, detection, evaluation, pipeline, recognition,
-               tools, train)
+from . import (data, data_generation, datasets, detection, evaluation, native, parallel, pipeline,
+               recognition, tools, train)
 from .detection import Detector
 from .pipeline import ExportedPipeline, Pipeline, load_exported
 from .recognition import Recognizer
 
 __all__ = [
     "Detector", "ExportedPipeline", "Pipeline", "Recognizer", "data", "data_generation",
-    "datasets", "detection", "evaluation", "load_exported", "pipeline", "recognition", "tools",
-    "train",
+    "datasets", "detection", "evaluation", "load_exported", "native", "parallel", "pipeline",
+    "recognition", "tools", "train",
 ]

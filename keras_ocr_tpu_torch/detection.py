@@ -10,9 +10,10 @@ or EfficientNet B0-B7 backbones) with ``heatmaps`` and ``detect``;
 ``UpsampleLike``, ``invert_input`` and the torch twin
 ``build_torch_model``; for training
 ``get_gaussian_heatmap``, ``compute_maps`` and ``Detector.compile`` /
-``get_batch_generator``. Where the JAX package's
-oracle calls scipy, this one labels with the plain CPU versions of
-:mod:`.ops.cc`, run to their fixpoint.
+``get_batch_generator``. The oracle labels and dilates with the native
+host-ops library (:mod:`.native`) where it is available, as the JAX
+package's does; otherwise, where the JAX package's calls scipy, this one
+labels with the plain CPU versions of :mod:`.ops.cc`, run to their fixpoint.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import warnings
 import numpy as np
 import torch
 
-from . import tools
+from . import native, tools
 from . import weights as weights_lib
 from .data.detection_targets import compute_maps
 from .models import CRAFT, check_compute_dtype, init_parameters
@@ -179,7 +180,10 @@ def getBoxes(
         text_score = textmap > text_threshold
         link_score = linkmap > link_threshold
         overlap = text_score & link_score
-        labels, n_components = _label_components(text_score | link_score)
+        use_native = native.available()
+        label = native.label_components if use_native else _label_components
+        dilate = native.dilate_square if use_native else _dilate_cv2_style
+        labels, n_components = label(text_score | link_score)
         ys, xs = np.nonzero(labels)
         ids = labels[ys, xs]
         order = np.argsort(ids, kind="stable")
@@ -200,7 +204,7 @@ def getBoxes(
             ex, ey = min(x + w + niter + 1, img_w), min(y + h + niter + 1, img_h)
             window = (slice(sy, ey), slice(sx, ex))
             segmap = (labels[window] == component_id) & ~overlap[window]
-            dilated = _dilate_cv2_style(segmap, niter)
+            dilated = dilate(segmap, niter)
             pys, pxs = np.nonzero(_first_contour_pixels(dilated))
             if len(pxs) == 0:
                 continue

@@ -81,26 +81,28 @@ def load(source_name: str) -> ctypes.CDLL:
             return lib
         path = library_path(source_name)
         if not os.path.isfile(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            # Build to a private name, then rename: concurrent builds
-            # never load a half-written library.
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                     os.path.join(SOURCE_DIR, source_name)],
-                    capture_output=True, text=True,
-                )
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed on {source_name} (exit "
-                        f"{proc.returncode}):\n{proc.stderr}"
-                    )
-                os.replace(tmp, path)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
+            compile_library([find_nvcc(), *NVCC_FLAGS], source_name, path, "nvcc")
         lib = ctypes.CDLL(path)
         _loaded[source_name] = lib
         return lib
+
+
+def compile_library(command, source_name: str, path: str, what: str) -> None:
+    """Run ``command -o <path> csrc/<source_name>``, writing a private name
+    first and renaming it, so that a concurrent build never loads a
+    half-written library; raises ``RuntimeError`` with the compiler's
+    errors (``what`` names the compiler)."""
+    directory = os.path.dirname(path)
+    os.makedirs(directory, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=directory)
+    os.close(fd)
+    try:
+        proc = subprocess.run([*command, "-o", tmp, os.path.join(SOURCE_DIR, source_name)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{what} failed on {source_name} (exit "
+                               f"{proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)

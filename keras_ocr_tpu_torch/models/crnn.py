@@ -35,6 +35,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel.replicas import column_parallel
 from .layers import BatchNorm2d, Conv2d, Linear, float32_output, full_float32, sigmoid
 
 DEFAULT_BUILD_PARAMS = {
@@ -50,32 +51,40 @@ DEFAULT_BUILD_PARAMS = {
 }
 
 
-def bilstm_steps(lstm, x):
-    """A bidirectional ``nn.LSTM`` layer on a bfloat16 input, step by step
-    as the JAX package's ``fused_bilstm`` computes it in bf16: the float32
-    weights cast to bf16, the input projections and their bias (two
-    roundings), then per step ``z = z_t + h @ R`` and each gate, ``c`` and
-    ``h`` rounded to bf16 after every op, ``h`` and ``c`` carried in bf16;
-    the sigmoid is :func:`.layers.sigmoid`. Returns the forward and the
-    backward outputs, the backward one in processing order (Keras's
-    ``go_backwards``). The reference the tests hold the CRNN's ``nn.LSTM``
-    path to; the model does not call it."""
+def bilstm_steps(lstm, x, devices=None):
+    """A bidirectional ``nn.LSTM`` layer walked step by step as the JAX
+    package's ``fused_bilstm`` computes it: the weights cast to ``x``'s
+    dtype, the input projections and their bias, then per step
+    ``z = z_t + h @ R`` and the gates, ``h`` and ``c`` carried in that dtype
+    (in bfloat16 each gate, ``c`` and ``h`` rounded after every op, the
+    sigmoid :func:`.layers.sigmoid`). Returns the forward and the backward
+    outputs, the backward one in processing order (Keras's
+    ``go_backwards``).
+
+    In bfloat16 it is the reference the tests hold the CRNN's ``nn.LSTM``
+    path to. With ``devices`` (tensor parallelism) the gate columns of both
+    products are split into ``len(devices)`` contiguous blocks, block ``k``
+    computed on ``devices[k]`` and gathered on ``x``'s device each step."""
     units, dtype = lstm.hidden_size, x.dtype
+    devices = devices or [x.device]
 
-    def stream(suffix, inputs):
-        kernel = getattr(lstm, f"weight_ih_l0{suffix}").to(dtype)
-        recurrent = getattr(lstm, f"weight_hh_l0{suffix}").to(dtype)
-        bias = getattr(lstm, f"bias_ih_l0{suffix}").to(dtype)
-        return F.linear(inputs, kernel) + bias, recurrent.T
+    def stream(suffix, inputs, block, device):
+        def part(name):
+            return getattr(lstm, f"{name}_l0{suffix}").chunk(len(devices))[block].to(device, dtype)
 
-    proj_f, rec_f = stream("", x)
-    proj_b, rec_b = stream("_reverse", x.flip(1))
-    proj = torch.stack([proj_f, proj_b])  # (2, B, T, 4u)
-    recurrent = torch.stack([rec_f, rec_b])  # (2, u, 4u)
+        return F.linear(inputs.to(device), part("weight_ih")) + part("bias_ih"), part("weight_hh").T
+
+    proj, recurrent = [], []
+    for block, device in enumerate(devices):
+        proj_f, rec_f = stream("", x, block, device)
+        proj_b, rec_b = stream("_reverse", x.flip(1), block, device)
+        proj.append(torch.stack([proj_f, proj_b]))  # (2, B, T, 4u / blocks)
+        recurrent.append(torch.stack([rec_f, rec_b]))  # (2, u, 4u / blocks)
     h = c = x.new_zeros((2, x.shape[0], units))
     outputs = []
     for t in range(x.shape[1]):
-        z = proj[:, :, t] + torch.bmm(h, recurrent)
+        z = torch.cat([(p[:, :, t] + torch.bmm(h.to(device), r)).to(x.device)
+                       for p, r, device in zip(proj, recurrent, devices)], -1)
         i, f, g, o = z.split(units, -1)
         c = sigmoid(f) * c + sigmoid(i) * torch.tanh(g)
         h = sigmoid(o) * torch.tanh(c)
@@ -152,7 +161,12 @@ class CRNN(nn.Module):
     ``torch.bfloat16`` computes in bfloat16 with float32 parameters
     (:mod:`.layers`; the STN samples in float32; the LSTMs are ``nn.LSTM``
     on bf16 weights) and returns float32 frames; otherwise the graph
-    computes in its parameters' dtype."""
+    computes in its parameters' dtype.
+
+    ``tensor_parallel`` maps a layer (the module ``fc_9``, ``fc_12``,
+    ``lstm_10`` or ``lstm_11``) to the devices its kernel's columns are
+    split over: the replicas of a tensor-parallel trainer set it
+    (:class:`..train.RecognizerTrainer`); empty, every layer runs whole."""
 
     def __init__(
         self,
@@ -178,6 +192,7 @@ class CRNN(nn.Module):
         self.pool_size = pool_size
         self.rnn_steps_to_discard = rnn_steps_to_discard
         self.dropout = dropout
+        self.tensor_parallel: typing.Dict[nn.Module, list] = {}
         in_ch = 3 if color else 1
         for i, out_ch in enumerate(filters, start=1):
             self.add_module(f"conv_{i}", Conv2d(in_ch, out_ch, 3, padding="same"))
@@ -206,7 +221,16 @@ class CRNN(nn.Module):
             return self.dtype
         return self.fc_9.weight.dtype
 
+    def _dense(self, layer, x):
+        devices = self.tensor_parallel.get(layer)
+        if devices is None:
+            return layer(x)
+        return column_parallel(F.linear, x, layer.weight, layer.bias, devices)
+
     def _bilstm(self, lstm, x):
+        devices = self.tensor_parallel.get(lstm)
+        if devices is not None:
+            return bilstm_steps(lstm, x, devices)
         if x.dtype != lstm.weight_ih_l0.dtype:
             # bfloat16: the layer with its float32 weights cast to bf16. On
             # the card cuDNN keeps the cell arithmetic in float32 and rounds
@@ -246,7 +270,7 @@ class CRNN(nn.Module):
         if self.stn is not None:
             x = self.stn(x)
         x = x.reshape(x.shape[0], x.shape[1], -1)
-        x = F.relu(self.fc_9(x))
+        x = F.relu(self._dense(self.fc_9, x))
         fwd, bwd = self._bilstm(self.lstm_10, x)
         fwd, bwd = self._bilstm(self.lstm_11, fwd + bwd)
         features = torch.cat([fwd, bwd], -1)
@@ -254,7 +278,7 @@ class CRNN(nn.Module):
             return float32_output(features)
         # The logits are float32 from a bfloat16 graph, as in the JAX
         # module, and so is the softmax.
-        x = float32_output(self.fc_12(self._dropout(features, generator)))
+        x = float32_output(self._dense(self.fc_12, self._dropout(features, generator)))
         if not return_logits:
             x = torch.softmax(x, -1)
         return x[:, self.rnn_steps_to_discard :]

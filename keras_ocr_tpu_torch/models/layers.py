@@ -30,6 +30,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel import replicas
+
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that takes a bfloat16 input with float32 parameters as
@@ -93,6 +95,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``updates_per_call`` folds one batch's statistics in that many times,
     for a Flax module that the JAX model calls more than once on the same
     input (:class:`.efficientnet.MBConv`).
+
+    In a replica forward of a mesh trainer (:func:`..parallel.replicas.current`)
+    the statistics are the whole batch's, over every replica's shard, as
+    Flax's are under ``jit`` on a batch-sharded array; the same arithmetic
+    with cross-replica sums, and rank 0 alone updates the running
+    statistics.
     """
 
     updates_per_call = 1
@@ -102,14 +110,28 @@ class BatchNorm2d(nn.BatchNorm2d):
             if x.dtype != self.weight.dtype:
                 return super().forward(x.to(self.weight.dtype)).to(x.dtype)
             return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            keep = 1.0 - self.momentum
-            for _ in range(self.updates_per_call):
-                self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
-                self.running_var.mul_(keep).add_(var, alpha=self.momentum)
-            self.num_batches_tracked += 1
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        replica = replicas.current()
+        if replica is None:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                self._update_running(mean, var)
+            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        group, rank = replica
+        mean, var = group.batch_moments(rank, x)
+        if rank == 0:
+            with torch.no_grad():
+                self._update_running(mean.to(self.running_mean.device),
+                                     var.to(self.running_var.device))
+        shape = (1, -1, 1, 1)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * scale.reshape(shape) + self.bias.reshape(shape)
+
+    def _update_running(self, mean, var):
+        keep = 1.0 - self.momentum
+        for _ in range(self.updates_per_call):
+            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+        self.num_batches_tracked += 1
 
 
 # full_float32's nesting depth across threads, and the flags it restores

@@ -1,0 +1,17 @@
+"""The port's multi-device layer: meshes, shardings, replicas."""
+
+from . import mesh, replicas
+from .mesh import (
+    Mesh,
+    Sharding,
+    batch_sharding,
+    create_hybrid_mesh,
+    create_mesh,
+    crnn_param_sharding,
+    hybrid_batch_sharding,
+    initialize_distributed,
+    replicated,
+    shard_batch,
+    shard_params,
+    spatial_sharding,
+)

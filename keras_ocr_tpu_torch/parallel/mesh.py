@@ -1,0 +1,273 @@
+"""Device meshes and shardings of the port.
+
+Counterpart of ``keras_ocr_tpu/parallel/mesh.py`` with JAX's names and
+meanings, as PyTorch values. A :class:`Mesh` is a grid of ``torch.device``
+objects with named axes; the mesh is single-process and single-controller,
+as JAX's is: one Python call drives every device. The axes:
+
+* ``data`` (and ``slice`` on a hybrid mesh): the batch is split over them
+  (data parallel); each position runs its shard on the device at model
+  index 0 (:func:`data_rows`);
+* ``model``: the devices of one data position. The CRNN trainer's
+  ``tensor_parallel`` splits the columns of the wide kernels over them
+  (:func:`crnn_param_sharding`); otherwise they hold replicas that need not
+  compute.
+
+A device may appear more than once: ``devices=[torch.device("cpu")] * 8``
+makes the 8 fake devices the CPU tests use, ``[cuda:0, cuda:0]`` two
+replicas on one card. :class:`Sharding` carries a ``PartitionSpec``'s
+meaning (a tuple of axis names, or of tuples of names, per array axis).
+Cross-process meshes are not ported: :func:`initialize_distributed` starts a
+process group where the environment asks for one, and the mesh still holds
+this process's devices only.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os
+import typing
+
+import numpy as np
+import torch
+
+AxisSpec = typing.Union[None, str, typing.Tuple[str, ...]]
+
+
+def canonical_device(device) -> torch.device:
+    """The device a tensor moved to ``device`` reports: a CUDA device
+    without index is the current one, a CPU device has no index."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    if device.type == "cpu":
+        return torch.device("cpu")
+    return device
+
+
+class Mesh:
+    """A grid of devices with named axes (``jax.sharding.Mesh``).
+
+    ``devices`` is the numpy object array of ``torch.device``; ``shape`` an
+    ordered dict from axis name to size; ``axis_names`` the names in order.
+    """
+
+    def __init__(self, devices, axis_names: typing.Sequence[str]):
+        grid = np.asarray(devices, dtype=object)
+        flat = np.empty(grid.size, dtype=object)
+        flat[:] = [torch.device(d) for d in grid.ravel()]
+        self.devices = flat.reshape(grid.shape)
+        self.axis_names = tuple(axis_names)
+        if len(self.axis_names) != self.devices.ndim:
+            raise ValueError(f"{len(self.axis_names)} axis names for a {self.devices.ndim}-D "
+                             f"device grid {self.devices.shape}")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"repeated axis names {self.axis_names}")
+
+    @property
+    def shape(self) -> "collections.OrderedDict[str, int]":
+        return collections.OrderedDict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return self.devices.size
+
+    def __repr__(self):
+        return f"Mesh({dict(self.shape)}, devices={[str(d) for d in self.devices.ravel()]})"
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """``NamedSharding(mesh, PartitionSpec(*spec))``: entry ``i`` of
+    ``spec`` names the mesh axis (or tuple of axes) that array axis ``i`` is
+    split over, None where it is not split; missing entries are None."""
+
+    mesh: Mesh
+    spec: typing.Tuple[AxisSpec, ...] = ()
+
+
+def _default_devices(devices):
+    if devices is not None:
+        return list(devices)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass devices=[torch.device(\"cpu\")] "
+                           "* n to build a mesh on the CPU")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _grid(devices, shape) -> np.ndarray:
+    grid = np.empty(len(devices), dtype=object)
+    grid[:] = devices
+    if int(np.prod(shape)) != grid.size:
+        raise ValueError(f"mesh shape {tuple(shape)} does not hold {grid.size} devices")
+    return grid.reshape(tuple(shape))
+
+
+def initialize_distributed(**kwargs) -> None:
+    """``torch.distributed.init_process_group(**kwargs)`` where a
+    multi-process environment is set (``WORLD_SIZE`` above 1, or a
+    ``world_size`` argument above 1) and no group is running; a no-op
+    otherwise, as the JAX function is on one host."""
+    import torch.distributed as dist
+
+    world = int(kwargs.get("world_size", os.environ.get("WORLD_SIZE", 1)))
+    if world <= 1 or not dist.is_available() or dist.is_initialized():
+        return
+    dist.init_process_group(**kwargs)
+
+
+def create_mesh(
+    shape: typing.Optional[typing.Tuple[int, int]] = None,
+    axis_names: typing.Tuple[str, str] = ("data", "model"),
+    devices=None,
+) -> Mesh:
+    """A (data, model) mesh; by default every CUDA device on ``data``
+    (``(n, 1)``). Without a card pass ``devices``."""
+    devices = _default_devices(devices)
+    return Mesh(_grid(devices, shape or (len(devices), 1)), axis_names)
+
+
+def create_hybrid_mesh(
+    dcn_data: int = 1,
+    ici_shape: typing.Optional[typing.Tuple[int, int]] = None,
+    axis_names: typing.Tuple[str, ...] = ("slice", "data", "model"),
+    devices=None,
+) -> Mesh:
+    """A (slice, data, model) mesh: ``dcn_data`` slices of ``ici_shape``
+    (default: all of a slice's devices on ``data``), the devices grouped
+    contiguously, as JAX groups devices without a slice topology."""
+    devices = _default_devices(devices)
+    ici_shape = ici_shape or (len(devices) // dcn_data, 1)
+    return Mesh(_grid(devices, (dcn_data,) + tuple(ici_shape)), axis_names)
+
+
+def hybrid_batch_sharding(mesh: Mesh) -> Sharding:
+    """The batch split over both data axes, ``slice`` major."""
+    return Sharding(mesh, (("slice", "data"),))
+
+
+def batch_sharding(mesh: Mesh) -> Sharding:
+    """The leading (batch) axis split over every data-parallel axis:
+    ``(slice, data)`` on a hybrid mesh, else ``data``."""
+    if "slice" in mesh.axis_names:
+        return hybrid_batch_sharding(mesh)
+    return Sharding(mesh, ("data",))
+
+
+def replicated(mesh: Mesh) -> Sharding:
+    return Sharding(mesh, ())
+
+
+def spatial_sharding(mesh: Mesh) -> Sharding:
+    """An NHWC batch with the batch on ``data`` and the height on
+    ``model``. The port's ``Pipeline`` does not run it (the per-layer halo
+    exchange through CRAFT is not ported)."""
+    return Sharding(mesh, ("data", "model"))
+
+
+def data_size(mesh: Mesh) -> int:
+    """The positions the batch is split over: ``slice`` x ``data``."""
+    return mesh.shape.get("slice", 1) * mesh.shape["data"]
+
+
+def data_rows(mesh: Mesh) -> typing.List[typing.List[torch.device]]:
+    """One list per data position, in batch order (``slice`` major): the
+    devices of its ``model`` axis. A shard runs on the first of them."""
+    unknown = set(mesh.axis_names) - {"slice", "data", "model"}
+    if "data" not in mesh.axis_names or unknown:
+        raise ValueError(f"a batch mesh has a 'data' axis and optional 'slice' and 'model' "
+                         f"axes; got {mesh.axis_names}")
+    order = [mesh.axis_names.index(a) for a in ("slice", "data", "model") if a in mesh.axis_names]
+    grid = np.transpose(mesh.devices, order).reshape(data_size(mesh), -1)
+    return [list(row) for row in grid]
+
+
+def shard_batch(batch, mesh: Mesh):
+    """Split each array of a (nested tuple, list or dict) ``batch`` along
+    its first axis over the data positions: each leaf becomes a list of
+    tensors, shard ``i`` on the device of data position ``i``. Raises
+    ``ValueError`` where a batch does not divide, as ``jax.device_put``
+    does."""
+    devices = [row[0] for row in data_rows(mesh)]
+
+    def split(leaf):
+        tensor = _tensor(leaf)
+        if tensor.shape[0] % len(devices):
+            raise ValueError(f"a batch of {tensor.shape[0]} does not divide over the "
+                             f"{len(devices)} data positions of {mesh}")
+        return [part.to(device) for part, device in zip(tensor.chunk(len(devices)), devices)]
+
+    return _tree_map(split, batch)
+
+
+def _tensor(leaf) -> torch.Tensor:
+    return leaf if torch.is_tensor(leaf) else torch.from_numpy(np.array(leaf))
+
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {key: _tree_map(fn, value, *(r[key] for r in rest)) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, *items) for items in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def _model_sharded(name: str, shape, model_size: int) -> bool:
+    """JAX's selection: the 2-D kernels of ``fc_9``, ``fc_12`` and the LSTMs
+    whose columns divide the ``model`` axis."""
+    return (
+        len(shape) == 2
+        and shape[1] % model_size == 0
+        and ("fc_9/kernel" in name or "fc_12/kernel" in name
+             or ("lstm" in name and name.endswith("kernel")))
+    )
+
+
+def crnn_param_sharding(mesh: Mesh):
+    """Tensor-parallel rules of a CRNN variable tree (the JAX layout):
+    column-parallel (``(None, "model")``) on the wide dense and LSTM
+    kernels, everything else replicated. Returns a function from a tree to
+    the tree of :class:`Sharding`."""
+    model_size = mesh.shape.get("model", 1)
+
+    def apply(tree, path=()):
+        if isinstance(tree, dict):
+            return {key: apply(value, path + (str(key),)) for key, value in tree.items()}
+        if _model_sharded("/".join(path), np.shape(tree), model_size):
+            return Sharding(mesh, (None, "model"))
+        return replicated(mesh)
+
+    return apply
+
+
+def shard_params(variables, mesh: Mesh, rules=None) -> list:
+    """One fresh copy of a variable tree per mesh device, in mesh order
+    (``mesh.devices.ravel()``): each leaf a new tensor on that device,
+    whole where its sharding is replicated, its block of columns (by the
+    device's ``model`` index) where a rule (:func:`crnn_param_sharding`)
+    splits it. Default: every leaf replicated."""
+    specs = rules(variables) if rules is not None else _tree_map(lambda _: replicated(mesh),
+                                                                 variables)
+    names = mesh.axis_names
+    copies = []
+    for index in np.ndindex(mesh.devices.shape):
+        device = mesh.devices[index]
+
+        def put(leaf, sharding):
+            tensor = _tensor(leaf)
+            for axis, entry in enumerate(sharding.spec):
+                for name in (entry,) if isinstance(entry, str) else (entry or ()):
+                    tensor = tensor.chunk(mesh.shape[name], axis)[index[names.index(name)]]
+            return tensor.to(device, copy=True)
+
+        copies.append(_tree_map(put, variables, specs))
+    return copies
+
+
+def check_mesh(mesh) -> Mesh:
+    """``mesh`` itself where it is a :class:`Mesh`; ``TypeError`` otherwise."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a keras_ocr_tpu_torch.parallel.Mesh (create_mesh, "
+                        f"create_hybrid_mesh), got {type(mesh).__name__}")
+    return mesh

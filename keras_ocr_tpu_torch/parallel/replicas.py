@@ -1,0 +1,207 @@
+"""Module replicas on a mesh and their cross-replica reductions.
+
+No JAX counterpart: there XLA's SPMD partitioner splits one program over
+the mesh. Here one Python process drives every device, so
+
+* :class:`ModuleReplicas` keeps one copy of a module per device, for the
+  pipeline's inference: the module itself on its own device, a copy on each
+  other device (a device named several times shares one), copied again from
+  the module when one of its tensors changed. Per-tensor caches of the
+  kernels (``ops/conv_cuda.py:prepared_weight``, ``models/craft.py:_chain_conv``)
+  thus stay per replica.
+* :class:`ReplicaGroup` runs the training forwards of a batch's shards
+  together, one thread a shard, which meet at each cross-replica reduction:
+  :class:`..models.layers.BatchNorm2d` in training mode asks
+  :func:`current` for its group and takes its batch statistics over the
+  whole batch (:meth:`ReplicaGroup.batch_moments`), as a BatchNorm under
+  ``jit`` does on a batch-sharded array. Each thread reads the others'
+  partial sums as graph tensors, so one backward over every shard's output
+  differentiates the global statistics; there is no barrier in backward.
+* :class:`DataParallel` runs a module's training forward on a mesh: the
+  parameters stay on the module's device, each shard runs
+  ``torch.func.functional_call`` of its own replica with the parameters
+  moved to the shard's device, so that backward reduces the gradients into
+  the module's own through the moves.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import copy
+import threading
+import typing
+
+import torch
+
+from . import mesh as mesh_lib
+
+_local = threading.local()
+
+
+def current() -> typing.Optional[typing.Tuple["ReplicaGroup", int]]:
+    """The (group, rank) of the replica forward this thread runs, else None."""
+    return getattr(_local, "replica", None)
+
+
+def _tensors(module: torch.nn.Module):
+    return list(module.parameters()) + list(module.buffers())
+
+
+def _stamp(module: torch.nn.Module) -> tuple:
+    """Identity and version of each tensor of ``module``: changes when a
+    tensor is replaced or written in place."""
+    return tuple((id(t), t._version) for t in _tensors(module))
+
+
+class ModuleReplicas:
+    """Copies of a module on other devices, kept equal to it: :meth:`get`
+    returns the module itself on its own device, elsewhere one copy per
+    device, made at first use and copied again from the module whenever
+    one of its tensors was replaced or written."""
+
+    def __init__(self):
+        self._copies: dict = {}
+        self._lock = threading.Lock()
+
+    def get(self, module: torch.nn.Module, device) -> torch.nn.Module:
+        tensors = _tensors(module)
+        if not tensors or (mesh_lib.canonical_device(device)
+                           == mesh_lib.canonical_device(tensors[0].device)):
+            return module  # on its own device, or nothing to copy
+        device = mesh_lib.canonical_device(device)
+        # Made and written as normal tensors, also under inference mode.
+        with self._lock, torch.inference_mode(False), torch.no_grad():
+            entry = self._copies.get(device)
+            if entry is None or entry[0] is not module:
+                entry = self._copies[device] = [module, copy.deepcopy(module).to(device), None]
+            stamp = _stamp(module)
+            if entry[2] != stamp:
+                for target, source in zip(_tensors(entry[1]), _tensors(module)):
+                    target.copy_(source)
+                entry[1].train(module.training)
+                entry[2] = stamp
+        return entry[1]
+
+
+class ReplicaGroup:
+    """Runs one function per shard, all at once, meeting at :meth:`gather`:
+    rank 0 in the calling thread, the others in worker threads that live
+    as long as the group, so that per-thread caches (cuDNN's execution
+    plans are kept per thread) outlast a step. An exception in one rank
+    breaks the barrier for the others and is raised by :meth:`run`."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._barrier = threading.Barrier(size)
+        self._slots: list = [None] * size
+        self._pool = (concurrent.futures.ThreadPoolExecutor(size - 1, "replica")
+                      if size > 1 else None)
+
+    def run(self, fn: typing.Callable[[int], typing.Any]) -> list:
+        """``[fn(0), ..., fn(size - 1)]``, run together, each with this
+        group as :func:`current`."""
+
+        def work(rank):
+            outer = current()
+            _local.replica = (self, rank)
+            try:
+                return fn(rank)
+            except BaseException:
+                self._barrier.abort()  # the other ranks stop waiting for this one
+                raise
+            finally:
+                _local.replica = outer
+
+        futures = [self._pool.submit(work, rank) for rank in range(1, self.size)]
+        results, errors = [None] * self.size, []
+        try:
+            results[0] = work(0)
+        except BaseException as exc:  # raised below, once the other ranks are done
+            errors.append(exc)
+        for rank, future in enumerate(futures, start=1):
+            try:
+                results[rank] = future.result()
+            except BaseException as exc:
+                errors.append(exc)
+        self._barrier.reset()
+        if errors:
+            # The first error that is not another rank's broken barrier.
+            raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)),
+                       errors[0])
+        return results
+
+    def gather(self, rank: int, value) -> list:
+        """Every rank's ``value``, in rank order, once all have given one."""
+        self._slots[rank] = value
+        self._barrier.wait()
+        values = list(self._slots)
+        self._barrier.wait()  # all have read before any writes again
+        return values
+
+    def batch_moments(self, rank: int, x: torch.Tensor):
+        """Per-channel mean and biased variance of an NCHW ``x`` across
+        every rank's ``x`` (the global batch), in two passes as
+        ``torch.var_mean``; each rank gets them on its own device, summed in
+        rank order."""
+        dims = (0, 2, 3)
+        count = x.numel() // x.shape[1]
+        sums = self.gather(rank, (x.sum(dims), count))
+        total = sum(n for _, n in sums)
+        mean = sum(s.to(x.device) for s, _ in sums) / total
+        centred = (x - mean.reshape(1, -1, 1, 1)).square().sum(dims)
+        var = sum(s.to(x.device) for s in self.gather(rank, centred)) / total
+        return mean, var
+
+
+class DataParallel:
+    """The training forward of ``module`` over a mesh's data positions.
+
+    Each data position has a replica of ``module`` on its first device (a
+    copy whose own tensors are never read: ``functional_call`` swaps in the
+    module's parameters, moved to that device, and its buffers as they are,
+    so that one BatchNorm updates the module's running statistics).
+    ``configure(replica, row)`` may adapt each replica to its row of
+    ``model``-axis devices (tensor parallelism)."""
+
+    def __init__(self, module: torch.nn.Module, mesh, configure=None):
+        self.module = module
+        self.mesh = mesh
+        self.rows = mesh_lib.data_rows(mesh)
+        self.devices = [row[0] for row in self.rows]
+        self.replicas = []
+        for row in self.rows:
+            replica = copy.deepcopy(module).to(row[0])
+            if configure is not None:
+                configure(replica, row)
+            self.replicas.append(replica)
+        self.group = ReplicaGroup(len(self.rows))
+
+    def __call__(self, shards: typing.Sequence[tuple], kwargs=None) -> list:
+        """``module(*shards[i], **kwargs[i])`` on each data position's
+        device, all together; the outputs in shard order."""
+        params = dict(self.module.named_parameters())
+        buffers = dict(self.module.named_buffers())
+        moved = {device: {name: p.to(device) for name, p in params.items()}
+                 for device in dict.fromkeys(self.devices)}
+        kwargs = kwargs or [{}] * len(shards)
+
+        def forward(rank):
+            replica = self.replicas[rank]
+            replica.train(self.module.training)
+            tensors = {**moved[self.devices[rank]], **buffers}
+            return torch.func.functional_call(replica, tensors, shards[rank], kwargs[rank])
+
+        return self.group.run(forward)
+
+
+def column_parallel(fn, x: torch.Tensor, weight: torch.Tensor, bias, devices):
+    """``fn(x, weight, bias)`` with the rows of ``weight`` (the columns of
+    JAX's kernel) and of ``bias`` split into ``len(devices)`` contiguous
+    blocks, block ``k`` computed on ``devices[k]`` and the results gathered
+    on ``x``'s device along the last axis."""
+    parts = len(devices)
+    biases = bias.chunk(parts) if bias is not None else [None] * parts
+    return torch.cat([
+        fn(x.to(device), w.to(device), None if b is None else b.to(device)).to(x.device)
+        for w, b, device in zip(weight.chunk(parts), biases, devices)
+    ], -1)

@@ -26,8 +26,16 @@ recognizer options apply.
 ``torch.export`` (the kernels are the ``torch.ops.keras_ocr_tpu_torch`` ops,
 one opaque node a launch) into ``<path>.pt2``, weights inside, and writes
 the host metadata to ``<path>.json``; :func:`load_exported` loads it into an
-:class:`ExportedPipeline`, which serves it without the model classes. Not
-ported yet: meshes.
+:class:`ExportedPipeline`, which serves it without the model classes.
+
+``Pipeline(mesh=...)`` (:mod:`..parallel.mesh`) splits each batch over the
+mesh's ``slice`` x ``data`` positions, padded with zero images to a multiple
+of them as in the JAX package: each shard is uploaded to its position's
+device and its device program enqueued on that device's replica of the
+models (:class:`..parallel.replicas.ModuleReplicas`) before any result is
+waited for; the fetch gathers the shards and the escalation ladders judge
+the whole batch. A mesh whose ``model`` axis has several devices asks for
+the JAX package's spatial sharding, which is not ported.
 """
 
 from __future__ import annotations
@@ -49,6 +57,8 @@ from ..ops import postprocess as postprocess_ops
 from ..ops import refine as refine_ops
 from ..ops.image import compute_input, resize_bilinear, rgb_to_grayscale
 from ..ops.warp import WINDOW_LADDER, warp_boxes_batch, window_overflow
+from ..parallel import mesh as mesh_lib
+from ..parallel.replicas import ModuleReplicas
 from ..recognition import Recognizer
 
 
@@ -171,6 +181,9 @@ class Pipeline:
         max_words: cap on recognized words per image.
         size_bucket: pad image sides up to multiples of this.
         pad_to: optional (height, width) every batch is padded to.
+        mesh: optional :class:`..parallel.Mesh` whose ``slice`` x ``data``
+            positions share each batch (data-parallel inference, the
+            models replicated); its ``model`` axis must have one device.
         word_buckets: increasing word-capacity ladder ending at
             ``max_words`` (default ``(16, max_words)``).
     """
@@ -184,6 +197,7 @@ class Pipeline:
         max_words: int = 64,
         size_bucket: int = 32,
         pad_to: typing.Optional[typing.Tuple[int, int]] = None,
+        mesh=None,
         word_buckets: typing.Optional[typing.Sequence[int]] = None,
     ):
         if detector is None:
@@ -218,23 +232,52 @@ class Pipeline:
         self.size_bucket = size_bucket
         self.pad_to = pad_to
         # Sub-batch of the CRAFT forward: bounds the full-resolution
-        # activations of large batches.
+        # activations of large batches. A mesh shard runs whole, as in JAX.
         self._detector_chunk = 16
+        self.mesh = mesh
+        self._shard_devices = [self.device]
+        if mesh is not None:
+            mesh_lib.check_mesh(mesh)
+            if mesh.shape.get("model", 1) > 1:
+                raise NotImplementedError(
+                    f"a mesh with {mesh.shape['model']} devices on its 'model' axis asks for "
+                    "spatial sharding (image height over 'model', with conv halo exchanges "
+                    "through CRAFT), which is not ported (ROADMAP section 1, item 13: spatial "
+                    "sharding); use a mesh whose 'model' axis has one device"
+                )
+            self._shard_devices = [row[0] for row in mesh_lib.data_rows(mesh)]
+        self._replicas = (ModuleReplicas(), ModuleReplicas())
+
+    def _models(self, device):
+        """The detector's and the recognizer's models on ``device``: the
+        models themselves without a mesh or on their own device, replicas
+        elsewhere."""
+        owners = (self.detector, self.recognizer)
+        if self.mesh is None:
+            return tuple(owner.model for owner in owners)
+        return tuple(replicas.get(owner.model, device)
+                     for replicas, owner in zip(self._replicas, owners))
 
     @torch.inference_mode()
     def _device_pipeline(self, images, *args, **kwargs):
-        """:func:`device_program` of this pipeline's models on (B, H, W, 3)
-        uint8 ``images`` on the device, under inference mode."""
+        """:func:`device_program` of this pipeline's models (their replicas
+        on ``images``' device) on (B, H, W, 3) uint8 ``images``, under
+        inference mode."""
+        craft, crnn = self._models(images.device)
+        chunk = self._detector_chunk if self.mesh is None else len(images)
         return device_program(
-            self.detector.model, self.recognizer.model, self.recognizer.input_shape,
-            images, *args, detector_chunk=self._detector_chunk, **kwargs,
+            craft, crnn, self.recognizer.input_shape, images, *args,
+            detector_chunk=chunk, **kwargs,
         )
 
     def _prepare(self, images):
-        """Host prep: read and pad to one uint8 batch, upload to the device.
+        """Host prep: read and pad to one uint8 batch, upload it.
 
-        Returns (device_batch, scales, num_real, resize_to). The upload goes
-        from pinned memory without blocking the host.
+        Returns (device_batch, scales, num_real, resize_to): ``device_batch``
+        is the list of shards, one per mesh data position (padded with zero
+        images to a multiple of them), each on its device; without a mesh
+        the whole batch on the pipeline's device. The uploads go from pinned
+        memory without blocking the host.
         """
         if not isinstance(images, np.ndarray):
             images = [tools.read(image) for image in images]
@@ -263,12 +306,19 @@ class Pipeline:
             upscale = None
         batch = self._pad_batch(images, max_height, max_width)
         max_height, max_width = batch.shape[1:3]
-        host = torch.from_numpy(batch)
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        device_batch = host.to(self.device, non_blocking=True)
+        num_real = len(batch)
+        shards = len(self._shard_devices)
+        if num_real % shards:
+            padding = np.zeros((shards - num_real % shards,) + batch.shape[1:], batch.dtype)
+            batch = np.concatenate([batch, padding])
+        device_batch = []
+        for part, device in zip(np.split(batch, shards), self._shard_devices):
+            host = torch.from_numpy(part)
+            if device.type == "cuda":
+                host = host.pin_memory()
+            device_batch.append(host.to(device, non_blocking=True))
         resize_to = None if upscale is None else (max_height * upscale, max_width * upscale)
-        return device_batch, scales, len(batch), resize_to
+        return device_batch, scales, num_real, resize_to
 
     def _resize_on_host(self, images):
         """Resize each image on the host (:func:`..tools.resize_image`);
@@ -317,21 +367,25 @@ class Pipeline:
         self, device_batch, detection_kwargs, bucket, resize_to, components,
         sweeps=detection_mod.DEFAULT_NUM_SWEEPS, refine_level=0, warp_level=0,
     ):
-        """Enqueue the device program at one set of caps and levels;
-        returns the packed device tensor without waiting for it."""
-        return self._device_pipeline(
-            device_batch,
-            detection_threshold=float(detection_kwargs.get("detection_threshold", 0.7)),
-            text_threshold=float(detection_kwargs.get("text_threshold", 0.4)),
-            link_threshold=float(detection_kwargs.get("link_threshold", 0.4)),
-            size_threshold=float(detection_kwargs.get("size_threshold", 10)),
-            max_components=components,
-            max_words=bucket,
-            resize_to=resize_to,
-            num_sweeps=sweeps,
-            refine_level=refine_level,
-            warp_level=warp_level,
-        )
+        """Enqueue the device program on every shard of ``device_batch`` at
+        one set of caps and levels; returns the packed device tensors, one
+        a shard, without waiting for any."""
+        return [
+            self._device_pipeline(
+                shard,
+                detection_threshold=float(detection_kwargs.get("detection_threshold", 0.7)),
+                text_threshold=float(detection_kwargs.get("text_threshold", 0.4)),
+                link_threshold=float(detection_kwargs.get("link_threshold", 0.4)),
+                size_threshold=float(detection_kwargs.get("size_threshold", 10)),
+                max_components=components,
+                max_words=bucket,
+                resize_to=resize_to,
+                num_sweeps=sweeps,
+                refine_level=refine_level,
+                warp_level=warp_level,
+            )
+            for shard in device_batch
+        ]
 
     def _fetch_escalating(
         self,
@@ -345,15 +399,17 @@ class Pipeline:
         sweeps=detection_mod.DEFAULT_NUM_SWEEPS,
         stats=None,
     ):
-        """Fetch a launched result; relaunch on the sweep, component,
-        word-bucket, refine and warp ladders. ``components``/``sweeps`` are
-        the caps ``packed_dev`` was launched with."""
+        """Fetch a launched result (its shards gathered, the padding rows
+        dropped); relaunch every shard on the sweep, component, word-bucket,
+        refine and warp ladders, each decided over the whole batch.
+        ``components``/``sweeps`` are the caps ``packed_dev`` was launched
+        with."""
         if stats is None:
             stats = self.last_run_stats
         remaining = list(self.word_buckets[self.word_buckets.index(bucket) + 1 :])
 
         def fetch(packed):
-            return packed[:num_real].cpu().numpy()
+            return np.concatenate([shard.cpu().numpy() for shard in packed])[:num_real]
 
         def relaunch(refine_level=0, warp_level=0):
             return fetch(
@@ -585,12 +641,15 @@ class Pipeline:
         the detector's and the sweeps ``DEFAULT_NUM_SWEEPS``: the artifact
         has no escalation relaunches.
         """
+        # On a mesh the program is traced on its first device: the artifact
+        # serves one device, as the JAX export ignores the mesh.
+        device = self._shard_devices[0]
         if isinstance(platforms, str):
             platforms = [platforms]
-        if platforms is not None and set(platforms) != {self.device.type}:
+        if platforms is not None and set(platforms) != {device.type}:
             raise ValueError(
-                f"a pipeline on {self.device} exports for platforms "
-                f"[{self.device.type!r}] only, not {list(platforms)}"
+                f"a pipeline on {device} exports for platforms "
+                f"[{device.type!r}] only, not {list(platforms)}"
             )
         detection_kwargs = dict(detection_kwargs or {})
         max_words = max_words or self.max_words
@@ -617,10 +676,8 @@ class Pipeline:
             warp_level=warp_level,
             detector_chunk=self._detector_chunk,
         )
-        program = _ServedProgram(
-            self.detector.model, self.recognizer.model, self.recognizer.input_shape, settings
-        )
-        example = torch.zeros((batch_size, height, width, 3), dtype=torch.uint8, device=self.device)
+        program = _ServedProgram(*self._models(device), self.recognizer.input_shape, settings)
+        example = torch.zeros((batch_size, height, width, 3), dtype=torch.uint8, device=device)
         with torch.no_grad(), warnings.catch_warnings():
             # Export swaps the parameters for traced ones, and nn.LSTM's
             # setattr hook reassigns its ``_flat_weights`` list to follow;
@@ -643,7 +700,7 @@ class Pipeline:
             ),
             "refine_level": refine_level,
             "warp_level": warp_level,
-            "device": str(self.device),
+            "device": str(device),
         }
         with open(path + ".json", "w") as f:
             json.dump(meta, f)

@@ -1,7 +1,7 @@
 """Training of the port: trainers, optimisers, callbacks, checkpoints.
 
-One device, fp32, the standard (unfolded) graphs in training mode, with
-autograd; the multi-device layer of the JAX package is not ported yet.
+Float32, the standard (unfolded) graphs in training mode, with autograd,
+on the model's device or split over a mesh (:mod:`..parallel`).
 """
 
 from . import callbacks, checkpoint, optim

@@ -1,9 +1,12 @@
-"""CRAFT detector training: heatmap loss and Adam on one device.
+"""CRAFT detector training: heatmap loss and Adam, on one device or a mesh.
 
 Port of ``keras_ocr_tpu/train/detector.py``. The default loss is the
 reference's plain MSE over both heatmap channels; ``loss="ohem"`` is the
 CRAFT paper's online hard-example mining. The standard graph trains (the
-BN-folded one is inference only) with cuDNN's convolutions and autograd.
+BN-folded one is inference only) with cuDNN's convolutions and autograd. On
+a mesh the batch is split over its data positions as in
+:mod:`.recognizer`: BatchNorm takes the whole batch's statistics and the
+loss is taken once on the gathered heatmaps.
 """
 
 from __future__ import annotations
@@ -16,8 +19,8 @@ import torch
 from .. import weights as weights_lib
 from ..models.layers import full_float32
 from .optim import adam
-from .recognizer import (OptimizerFactory, check_float32_model, check_single_device, fit_loop,
-                         trainable)
+from .recognizer import (OptimizerFactory, check_float32_model, data_parallel, fit_loop,
+                         sharded_forward, trainable)
 
 
 def _mse_loss(preds, targets, sample_weights):
@@ -64,14 +67,15 @@ class DetectorTrainer:
         detector: a standard (``fold_bn=False``) detector, on its device.
         optimizer: a callable from the parameters to a
             ``torch.optim.Optimizer``; default :func:`.optim.adam` at 1e-3.
-        mesh: the JAX trainer's mesh; not ported, so only None.
+        mesh: a :class:`..parallel.Mesh` to split each batch over (its
+            ``slice`` x ``data`` positions must divide the batch), or None
+            for the model's device.
         loss: ``"mse"``, ``"ohem"`` or a callable ``(preds, targets,
             sample_weights) -> scalar`` on tensors.
     """
 
     def __init__(self, detector, optimizer: typing.Optional[OptimizerFactory] = None,
                  mesh=None, loss: typing.Union[str, typing.Callable] = "mse"):
-        check_single_device(mesh)
         check_float32_model(detector.model)
         if detector.fold_bn:
             raise ValueError("fold_bn=True is an inference-only graph; train a standard "
@@ -87,6 +91,8 @@ class DetectorTrainer:
         self.detector = detector
         self.model = detector.model
         self.device = detector.device
+        self.mesh = mesh
+        self.parallel = data_parallel(self.model, mesh)
         factory = optimizer or (lambda params: adam(params, lr=1e-3))
         self.optimizer = factory(trainable(self.model))
 
@@ -117,7 +123,11 @@ class DetectorTrainer:
             self.optimizer.zero_grad(set_to_none=True)
             # The backward's convolutions in full float32 too.
             with full_float32():
-                loss = self.loss(self.model(images), targets, weights)
+                if self.parallel is None:
+                    preds = self.model(images)
+                else:
+                    preds = sharded_forward(self.parallel, images, self.device)
+                loss = self.loss(preds, targets, weights)
                 loss.backward()
             self.optimizer.step()
         finally:

@@ -1,10 +1,21 @@
-"""CRNN recognizer training: CTC loss and RMSprop on one device.
+"""CRNN recognizer training: CTC loss and RMSprop, on one device or a mesh.
 
 Port of ``keras_ocr_tpu/train/recognizer.py``: one step runs the CRNN in
 training mode (batch statistics, dropout) to pre-softmax frames, takes
 ``mean(ctc_loss * sample_weights)``, back-propagates and steps the
 optimiser. The model is trained in place, so the recognizer (and a
 ``Pipeline`` built on it) reads with the new weights at once.
+
+On a mesh (:mod:`..parallel.mesh`) the batch is split over its ``slice`` x
+``data`` positions and each shard runs a replica
+(:class:`..parallel.replicas.DataParallel`): BatchNorm takes the whole
+batch's statistics, the frames are gathered on the model's device and the
+loss is the global batch's, so the step is the one-device step on the whole
+batch, as JAX's SPMD step is. ``tensor_parallel`` splits the kernels that
+:func:`..parallel.mesh.crnn_param_sharding` puts on the ``model`` axis by
+columns over that axis's devices. With ``mesh=None`` the step runs on the
+model's device (JAX's default mesh is every device: the port's models carry
+their device).
 """
 
 from __future__ import annotations
@@ -17,6 +28,8 @@ import torch
 from .. import weights as weights_lib
 from ..models.layers import full_float32
 from ..ops.ctc import ctc_loss
+from ..parallel import mesh as mesh_lib
+from ..parallel.replicas import DataParallel
 from .callbacks import CallbackList
 from .optim import RMSprop
 
@@ -29,10 +42,31 @@ def trainable(model: torch.nn.Module) -> typing.List[torch.nn.Parameter]:
     return [param for param in model.parameters() if param.requires_grad]
 
 
-def check_single_device(mesh, tensor_parallel=False):
-    if mesh is not None or tensor_parallel:
-        raise NotImplementedError(
-            "the port trains on one device: mesh and tensor_parallel are not ported yet")
+def data_parallel(model: torch.nn.Module, mesh, configure=None) -> typing.Optional[DataParallel]:
+    """The replicas of ``model`` on ``mesh`` (None without a mesh); a mesh
+    that is not a :class:`..parallel.Mesh` raises ``TypeError``."""
+    if mesh is None:
+        return None
+    return DataParallel(model, mesh_lib.check_mesh(mesh), configure)
+
+
+def sharded_forward(parallel: DataParallel, images: torch.Tensor, device, kwargs=None):
+    """The model's output on the whole batch ``images``: split over the
+    data positions (``ValueError`` where it does not divide), each shard on
+    its replica, the outputs gathered on ``device``."""
+    shards = [(shard,) for shard in mesh_lib.shard_batch(images, parallel.mesh)]
+    return torch.cat([out.to(device) for out in parallel(shards, kwargs)])
+
+
+def tensor_parallel_layers(model: torch.nn.Module, mesh) -> typing.List[str]:
+    """The CRNN layers whose kernels :func:`..parallel.mesh.crnn_param_sharding`
+    splits on ``mesh``'s ``model`` axis (none where that axis has one
+    device)."""
+    if mesh.shape.get("model", 1) == 1:
+        return []
+    specs = mesh_lib.crnn_param_sharding(mesh)(weights_lib.crnn_variables(model))["params"]
+    return [name for name in ("fc_9", "fc_12", "lstm_10", "lstm_11")
+            if specs[name]["kernel"].spec]
 
 
 def check_float32_model(model: torch.nn.Module):
@@ -52,17 +86,29 @@ class RecognizerTrainer:
         optimizer: a callable from the trainable parameters to a
             ``torch.optim.Optimizer``; default :class:`.optim.RMSprop` at
             1e-3, ``optax.rmsprop(1e-3)`` of the JAX trainer.
-        mesh, tensor_parallel: the JAX trainer's multi-device layer; not
-            ported, so anything but the defaults raises.
+        mesh: a :class:`..parallel.Mesh` to split each batch over (its
+            ``slice`` x ``data`` positions must divide the batch), or None
+            for the model's device.
+        tensor_parallel: on a mesh whose ``model`` axis has several
+            devices, split ``fc_9``, ``fc_12`` and the LSTM kernels by
+            columns over them where the columns divide (otherwise that axis
+            holds replicas that do not compute).
     """
 
     def __init__(self, recognizer, optimizer: typing.Optional[OptimizerFactory] = None,
                  mesh=None, tensor_parallel: bool = False):
-        check_single_device(mesh, tensor_parallel)
         check_float32_model(recognizer.model)
         self.recognizer = recognizer
         self.model = recognizer.model
         self.device = recognizer.device
+        self.mesh = mesh
+        configure = None
+        if tensor_parallel and mesh is not None:
+            names = tensor_parallel_layers(self.model, mesh_lib.check_mesh(mesh))
+
+            def configure(replica, row):
+                replica.tensor_parallel = {getattr(replica, name): row for name in names}
+        self.parallel = data_parallel(self.model, mesh, configure)
         factory = optimizer or (lambda params: RMSprop(params, lr=1e-3))
         self.optimizer = factory(trainable(self.model))
         self.generator = torch.Generator(device=self.device).manual_seed(0)
@@ -79,8 +125,9 @@ class RecognizerTrainer:
     def train_step(self, batch, generator: typing.Optional[torch.Generator] = None) -> float:
         """One step on a batch of ``Recognizer.get_batch_generator``:
         ``((images, labels, input_length, label_length), y[, sample_weights])``.
-        ``generator`` draws the dropout mask (default: the trainer's own).
-        Returns the loss."""
+        ``generator`` draws the dropout mask (default: the trainer's own); on
+        a mesh it seeds one generator per shard, in mesh order, and each
+        shard draws its mask from its own. Returns the loss."""
         (images, labels, input_length, label_length), _y, *rest = batch
         weights = rest[0] if rest else np.ones((len(images),), dtype="float32")
 
@@ -93,13 +140,18 @@ class RecognizerTrainer:
         input_length = tensor(input_length, torch.int64).reshape(-1)
         label_length = tensor(label_length, torch.int64).reshape(-1)
         weights = tensor(weights, dtype).reshape(-1)
+        generator = self.generator if generator is None else generator
         self.model.train()
         try:
             self.optimizer.zero_grad(set_to_none=True)
             # The backward's convolutions and RNN in full float32 too.
             with full_float32():
-                logits = self.model(images, return_logits=True,
-                                    generator=self.generator if generator is None else generator)
+                if self.parallel is None:
+                    logits = self.model(images, return_logits=True, generator=generator)
+                else:
+                    logits = sharded_forward(self.parallel, images, self.device, [
+                        {"return_logits": True, "generator": shard_generator(generator, device)}
+                        for device in self.parallel.devices])
                 loss = torch.mean(ctc_loss(logits, labels, input_length, label_length) * weights)
                 loss.backward()
             self.optimizer.step()
@@ -115,6 +167,12 @@ class RecognizerTrainer:
         losses."""
         return fit_loop(self, batch_generator, steps_per_epoch, epochs, callbacks,
                         torch.Generator(device=self.device).manual_seed(seed))
+
+
+def shard_generator(generator: torch.Generator, device) -> torch.Generator:
+    """A generator on ``device`` seeded by one draw from ``generator``."""
+    seed = torch.randint(0, 2**62, (1,), generator=generator, device=generator.device)
+    return torch.Generator(device=device).manual_seed(int(seed))
 
 
 def fit_loop(trainer, batch_generator, steps_per_epoch, epochs, callbacks, *step_args):

@@ -68,7 +68,7 @@ def timed(fn, reps=REPS):
 @torch.inference_mode()
 def stage_times(pipeline, images):
     """Device/host ms of each stage of the device program on one batch."""
-    device_batch, _, _, resize_to = pipeline._prepare(images)
+    (device_batch,), _, _, resize_to = pipeline._prepare(images)
     out = {}
 
     def record(name, fn):

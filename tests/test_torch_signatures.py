@@ -144,3 +144,25 @@ def test_run_golden_check_uses_a_pipeline_passed_in_jax_order():
     result = golden.run_golden_check(artifact, None, reader)
     assert reader.calls == result["n_scenes"] > 0
     assert result["fraction"] == 0.0 and not result["pass"]
+
+
+def test_pipeline_positional_order():
+    """(detector, recognizer, scale, max_size, max_words, size_bucket,
+    pad_to, mesh, word_buckets): a JAX-order positional call binds
+    ``word_buckets`` ninth in both packages, ``mesh`` eighth."""
+    from keras_ocr_tpu.pipeline import Pipeline as JaxPipeline
+    from keras_ocr_tpu_torch import Pipeline, parallel
+
+    def positional(fn):
+        return [p.name for p in inspect.signature(fn).parameters.values()
+                if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
+
+    assert positional(Pipeline.__init__) == positional(JaxPipeline.__init__)
+    assert positional(Pipeline.__init__).index("mesh") == 8  # after self
+    detector = Detector(None, width=0.125, max_components=16, device="cpu")
+    recognizer = Recognizer("abc", None, SLIM_CRNN, device="cpu")
+    ours = Pipeline(detector, recognizer, 2, 2048, 64, 32, None, None, (16, 64))
+    assert ours.word_buckets == (16, 64) and ours.mesh is None
+    mesh = parallel.create_mesh(devices=[torch.device("cpu")] * 2)
+    ours = Pipeline(detector, recognizer, 2, 2048, 64, 32, None, mesh, (8, 64))
+    assert ours.mesh is mesh and ours.word_buckets == (8, 64)

@@ -223,8 +223,10 @@ def test_folded_graph_and_multi_device_arguments_raise():
     with pytest.raises(ValueError, match="inference-only"):
         model(torch.zeros(1, 32, 32, 3))
     detector = _port_detector(variables)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         DetectorTrainer(detector, mesh=object())
+    with pytest.raises(TypeError, match="Mesh"):
+        DetectorTrainer(detector, mesh=mesh_lib.create_mesh(devices=jax.devices()[:1]))
     with pytest.raises(ValueError, match="unknown loss"):
         DetectorTrainer(detector, loss="dice")
 

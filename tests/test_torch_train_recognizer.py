@@ -410,12 +410,15 @@ def test_fit_with_callbacks(jax_trajectory, tmp_path):
 
 
 def test_multi_device_arguments_and_missing_card_raise():
+    """A mesh that is not a ``parallel.Mesh`` raises ``TypeError``, with or
+    without ``tensor_parallel`` (meshes themselves: ``test_torch_parallel.py``)."""
     _, variables = _jax_recognizer(stn=False)
     recognizer = _port_recognizer(variables)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         RecognizerTrainer(recognizer, mesh=object())
-    with pytest.raises(NotImplementedError, match="tensor_parallel"):
-        RecognizerTrainer(recognizer, tensor_parallel=True)
+    with pytest.raises(TypeError, match="Mesh"):
+        RecognizerTrainer(recognizer, mesh=mesh_lib.create_mesh(devices=jax.devices()[:1]),
+                          tensor_parallel=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             RecognizerTrainer(Recognizer(weights=None))
