@@ -213,13 +213,37 @@ Phases, each printing one line; any failure exits non-zero:
    and BatchNorm statistic within 1e-4 * max(1, max|ref|)); the float32
    step ms of the three.
 
+17. bfloat16 training: the full-width CRNN (dropout 0) at batch 8 and
+   CRAFT (width 1.0) at 2x256x256 built with ``compute_dtype=bfloat16``
+   (float32 parameters) take one train step on the card and the same step
+   on the CPU from one state, held to the CPU tests' bars
+   (``tests/test_torch_train_bf16.py``: each gradient leaf within 0.5 in
+   relative L2, leaves zero in exact arithmetic, read off the CPU's
+   float32 step, below 3.3e-2 of the largest |g|, running statistics within
+   6.8e-3, the loss within 1e-3 relative), and one bf16 step on
+   ``create_mesh()`` and on two replicas of the card (the CRNN at batch 8,
+   CRAFT at 2x256x256) against the step without a mesh, to the same bars;
+   float32 and bf16 train steps in turns (CUDA events, median of 10, B0 of
+   3): the CRNN at batch 8 and 64, the VGG and B0 CRAFT at 640x640 batch 8,
+   with the peak memory above the resident model, beside phase 11's
+   float32 steps; three ``fit`` steps of each bf16 model (``compile()``) on
+   one batch must lower the loss; the bf16-trained VGG CRAFT folded
+   (``fold_bn_state_dict``) into ``Detector(fold_bn=True,
+   compute_dtype=bfloat16)``: its heatmaps of 2 scenes beside the standard
+   bf16 graph's, and ``recognize_many`` of 8 scenes with the bf16-trained
+   CRNN, every conv chain held to phase 15's bars of the plain bf16 chain
+   and every sweep call equal to its plain version, the conv kernel's bf16
+   mode and both sweep entries launched (counted from zero). No CPU
+   carry-on: a failure fails the run.
+
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
 ``.pth``-loaded detector's run in 12, the EfficientNet pipeline of 13,
-the ``detect`` of 14, the bfloat16 full-width pipelines of 15 and each
-mesh pipeline of 16 count their kernel launches from zero; the kernel
-line's launches are those of phases 5-7, 13, 14 and 16, and for the bf16
-mode's two entries those of 15;
+the ``detect`` of 14, the bfloat16 full-width pipelines of 15, each mesh
+pipeline of 16 and the trained folded bf16 path of 17 count their kernel
+launches from zero; the kernel line's launches are those of phases 5-7,
+13, 14, 16 and 17 (its sweep calls), and for the bf16 mode's two entries
+those of 15 and 17;
 the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
@@ -1470,7 +1494,9 @@ def training_phase(card, golden_images, sweep_wrappers):
     """Phase 11: the full-width train steps on the card held against the
     same steps on the CPU, falling losses, OHEM, step and generator times,
     the CTC loss against ``F.ctc_loss``, ``fit`` with the three callbacks
-    and ``save_npz``, and ``Detector.detect`` of the trained detector."""
+    and ``save_npz``, and ``Detector.detect`` of the trained detector.
+    Returns the float32 step ms (CRNN at batch 8 and 64, CRAFT) and the
+    CRAFT step's peak GB."""
     from torch.nn import functional as F
 
     from keras_ocr_tpu_torch import Detector, Recognizer, weights
@@ -1592,6 +1618,8 @@ def training_phase(card, golden_images, sweep_wrappers):
     crnn_ms = ", ".join(f"batch {b} {step_ms['crnn', b]:.3f} ms (forward "
                         f"{forward_ms['crnn', b]:.3f}, CTC forward + backward {ctc_ms[b]:.3f} "
                         f"vs F.ctc_loss {library_ms[b]:.3f})" for b in TRAIN_CRNN_BATCHES)
+    float32_steps = {"crnn 8": step_ms["crnn", 8], "crnn 64": step_ms["crnn", 64],
+                     "craft": step_ms["craft"], "craft peak GB": peak_gb}
     print(f"training ({card}): train step, median of 10: CRNN {crnn_ms}; CRAFT "
           f"{height}x{width} batch {size_craft} (get_batch_generator batches) "
           f"{step_ms['craft']:.3f} ms (forward {forward_ms['craft']:.3f}), peak memory "
@@ -1634,6 +1662,7 @@ def training_phase(card, golden_images, sweep_wrappers):
         raise AssertionError(f"trained detector's detect: {len(boxes)} results, {launches}")
     print(f"training ({card}): Detector.detect of the trained detector on one golden scene: "
           f"{len(boxes[0])} boxes, launches {launches}")
+    return float32_steps
 
 
 # Phase 12: weights. Files go to build/weights, removed at the end.
@@ -2935,6 +2964,226 @@ def bf16_phase(card, conv_cuda, fp32, scenes, pass_fraction, wrappers, report):
     return report, launches
 
 
+# Phase 17: bfloat16 training. The CPU tests' bars
+# (tests/test_torch_train_bf16.py): per gradient leaf the relative L2
+# distance ||g - g_ref|| / ||g_ref||, leaves zero in exact arithmetic (read
+# off a float32 step) held to rounding noise against the model's largest
+# gradient, the running statistics per leaf, and the loss, relative.
+BF16_GRAD_BAR = 0.5
+BF16_ZERO_BAR = 3.3e-2
+BF16_STATS_BAR = 6.8e-3
+BF16_LOSS_BAR = 1e-3
+# The CRAFT steps on the meshes (the timed steps are phase 11's sizes), and
+# the CRNN's learning rate in the three fit steps.
+BF16_MESH_CRAFT = (2, 256, 256)
+BF16_FIT_CRNN_LR = 3e-4
+
+
+def captured_step(trainer, batch, bridge):
+    """One train step: its loss, the gradients and the running statistics
+    after it, as numpy leaves of the JAX tree layout."""
+    loss = trainer.train_step(batch)
+    return {"loss": loss, "grads": gradient_leaves(trainer.model, bridge),
+            "stats": dict(tree_leaves(bridge(trainer.model).get("batch_stats", {})))}
+
+
+def zero_gradient_leaves(step):
+    """The leaves of a float32 step's gradients below 1e-4 of its largest:
+    zero in exact arithmetic."""
+    largest = max(float(np.abs(v).max()) for v in step["grads"].values())
+    return {k for k, v in step["grads"].items() if float(np.abs(v).max()) <= 1e-4 * largest}
+
+
+def bf16_step_distance(what, step, ref, zero):
+    """``step`` against ``ref`` under the CPU tests' bars; returns a summary,
+    raises past a bar."""
+
+    def l2(a, b):
+        return float(np.linalg.norm(a.astype(np.float64) - b)) / max(
+            float(np.linalg.norm(b.astype(np.float64))), 1e-12)
+
+    loss = abs(step["loss"] - ref["loss"]) / abs(ref["loss"])
+    largest = max(float(np.abs(v).max()) for v in ref["grads"].values())
+    grads = {k: l2(step["grads"][k], v) for k, v in ref["grads"].items() if k not in zero}
+    noise = max((float(np.abs(step["grads"][k]).max()) / largest for k in zero), default=0.0)
+    stats = max((l2(step["stats"][k], v) for k, v in ref["stats"].items()), default=0.0)
+    leaf = max(grads, key=grads.get)
+    if not (loss <= BF16_LOSS_BAR and grads[leaf] <= BF16_GRAD_BAR and noise <= BF16_ZERO_BAR
+            and stats <= BF16_STATS_BAR):
+        raise AssertionError(f"{what}: loss {loss:.3e}, worst leaf {leaf} {grads[leaf]:.3e}, "
+                             f"zero leaves {noise:.3e}, statistics {stats:.3e}")
+    return (f"loss within {loss:.2e} relative, worst gradient leaf {leaf} at {grads[leaf]:.3e} "
+            f"(median {statistics.median(grads.values()):.3e}; {len(zero)} zero leaves at "
+            f"{noise:.2e} of the largest |g|), statistics within {stats:.2e}")
+
+
+class CheckedConvs:
+    """``conv_cuda`` as a CRAFT module sees it, with every ``conv_chain``
+    call also run through the plain bf16 chain on the same tensors and held
+    to phase 15's bars (``check_bf16``); the kernel's own wrapper runs and
+    counts its launches. ``record`` collects (layers, shape) per call."""
+
+    def __init__(self, conv_cuda, record):
+        self._module, self._record = conv_cuda, record
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+    def conv_chain(self, x, convs, pool=False, tap_prepool=False):
+        out = self._module.conv_chain(x, convs, pool=pool, tap_prepool=tap_prepool)
+        ref = self._module.conv_chain_plain(x, convs, pool=pool, tap_prepool=tap_prepool)
+        pairs = zip(out, ref) if tap_prepool else ((out, ref),)
+        for got, want in pairs:
+            check_bf16(self._module, "trained folded bf16 chain", got, want, len(convs))
+        self._record.append((len(convs), tuple(x.shape)))
+        return out
+
+
+def bf16_training_phase(card, float32_steps, scenes, wrappers):
+    """Phase 17: both trainers on bfloat16 models. Returns the kernels'
+    launches in the folded bf16 forward and ``recognize_many`` of the
+    bf16-trained weights."""
+    from keras_ocr_tpu_torch import Detector, Pipeline, Recognizer, parallel, weights
+    from keras_ocr_tpu_torch.models import craft as craft_module
+    from keras_ocr_tpu_torch.models.craft import fold_bn_state_dict
+    from keras_ocr_tpu_torch.models.crnn import DEFAULT_BUILD_PARAMS
+    from keras_ocr_tpu_torch.ops import cc, cc_cuda, conv_cuda
+    from keras_ocr_tpu_torch.train import DetectorTrainer, RecognizerTrainer
+
+    phase_start = time.perf_counter()
+    device = torch.device("cuda")
+    bf16 = torch.bfloat16
+    rng = np.random.RandomState(17)
+    no_dropout = dict(DEFAULT_BUILD_PARAMS, dropout=0.0)
+    models = {
+        "CRNN": (RecognizerTrainer, weights.crnn_variables,
+                 lambda on, dtype: Recognizer(None, None, no_dropout, dtype, device=on, seed=3)),
+        "CRAFT": (DetectorTrainer, weights.craft_variables,
+                  lambda on, dtype: Detector(weights=None, width=TRAIN_CRAFT_WIDTH,
+                                             compute_dtype=dtype, device=on, seed=4)),
+    }
+    parity_batches = {"CRNN": crnn_batch(rng, 8, 48, 36),
+                      "CRAFT": craft_batch(rng, *TRAIN_CRAFT_PARITY)}
+    mesh_batches = {"CRNN": parity_batches["CRNN"], "CRAFT": craft_batch(rng, *BF16_MESH_CRAFT)}
+    mesh_sizes = {"CRNN": "batch 8", "CRAFT": "x".join(map(str, BF16_MESH_CRAFT))}
+    meshes = {"create_mesh()": parallel.create_mesh(),
+              "two replicas": parallel.create_mesh(devices=[device, device])}
+
+    # (a) One bf16 step on the card against the CPU's from one state (the
+    # zero leaves read off the CPU's float32 step); (b) one bf16 step on
+    # each mesh against the step without one.
+    for what, (trainer_cls, bridge, make) in models.items():
+        card_model = make(device, bf16)
+        state = bridge(card_model.model)
+        cpu_model = make("cpu", bf16).load_variables(state)
+        zero = zero_gradient_leaves(captured_step(
+            trainer_cls(make("cpu", torch.float32).load_variables(state)),
+            parity_batches[what], bridge))
+        card_step = captured_step(trainer_cls(card_model), parity_batches[what], bridge)
+        cpu_step = captured_step(trainer_cls(cpu_model), parity_batches[what], bridge)
+        if {p.dtype for p in card_model.model.parameters()} != {torch.float32}:
+            raise AssertionError(f"bf16 {what}: parameters left float32")
+        summary = bf16_step_distance(f"bf16 {what} card vs CPU", card_step, cpu_step, zero)
+        batch = mesh_batches[what]
+        plain = captured_step(trainer_cls(make(device, bf16).load_variables(state)), batch,
+                              bridge)
+        on_meshes = "; ".join(
+            f"{label}: " + bf16_step_distance(
+                f"bf16 {what} on the {label} mesh", captured_step(
+                    trainer_cls(make(device, bf16).load_variables(state), mesh=mesh), batch,
+                    bridge), plain, zero) for label, mesh in meshes.items())
+        print(f"bf16 training ({card}), {what} step (float32 parameters), card vs CPU from one "
+              f"state at phase 11's size: {summary}; on meshes against no mesh "
+              f"({mesh_sizes[what]}): {on_meshes}")
+        del card_model, cpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) Step ms (CUDA events, median of 10; B0 of 3) and peak memory,
+    # float32 and bf16 in turns, then three fit steps per model.
+    def b0(on, dtype):
+        return efficientnet_detector("efficientnetb0", on, seed=5, compute_dtype=dtype)[0]
+
+    size, height, width = TRAIN_CRAFT_TIMED
+    craft_step_batch = craft_batch(rng, size, height, width)
+    timed = {f"CRNN batch {b}": (RecognizerTrainer, lambda on, dtype: Recognizer(
+                 None, None, DEFAULT_BUILD_PARAMS, dtype, device=on, seed=6),
+                 crnn_batch(rng, b, 48, 36), 10) for b in TRAIN_CRNN_BATCHES}
+    timed["VGG CRAFT"] = DetectorTrainer, models["CRAFT"][2], craft_step_batch, 10
+    timed["B0 CRAFT"] = DetectorTrainer, b0, craft_step_batch, 3
+    step_ms, peak_gb, trained, fits = {}, {}, {}, {}
+    for label, (trainer_cls, make, batch, runs) in timed.items():
+        for dtype in (torch.float32, bf16):
+            trainer = trainer_cls(make(device, dtype))
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step_ms[label, dtype] = cuda_median_ms(lambda: trainer.train_step(batch), runs=runs)
+            peak_gb[label, dtype] = (torch.cuda.max_memory_allocated() - resident) / 1e9
+            if dtype == bf16 and label != "CRNN batch 64":
+                # compile(): RMSprop at 1e-3 can overshoot the CRNN's CTC
+                # loss on one fixed batch within 3 steps.
+                fresh = make(device, dtype).compile(
+                    learning_rate=BF16_FIT_CRNN_LR if label.startswith("CRNN") else 1e-3)
+                fits[label] = fresh.fit(iter([batch] * 3), steps_per_epoch=1, epochs=3)
+                trained[label] = fresh
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    for label, history in fits.items():
+        if not (np.isfinite(history).all() and history[-1] < history[0]):
+            raise AssertionError(f"bf16 {label}: fit losses on one batch did not fall: {history}")
+    print(f"bf16 training ({card}): train step ms float32 / bfloat16 (median of 10, B0 of 3; "
+          f"peak GB above the resident model in brackets): " + "; ".join(
+              f"{label} {step_ms[label, torch.float32]:.3f} ({peak_gb[label, torch.float32]:.2f})"
+              f" / {step_ms[label, bf16]:.3f} ({peak_gb[label, bf16]:.2f}), "
+              f"{step_ms[label, torch.float32] / step_ms[label, bf16]:.2f}x" for label in timed)
+          + f"; phase 11's float32: CRNN {float32_steps['crnn 8']:.3f} / "
+          f"{float32_steps['crnn 64']:.3f} ms, CRAFT {float32_steps['craft']:.3f} ms; fit "
+          f"3 steps on one batch, bf16: " + "; ".join(
+              f"{label} {[round(h, 5) for h in history]}" for label, history in fits.items()))
+
+    # (d) The bf16-trained VGG detector folded and run through the folded
+    # bf16 forward and one recognize_many with the bf16-trained CRNN: the
+    # conv kernel's bf16 mode and both sweep entries, each call held to its
+    # plain version, launches counted from zero.
+    standard = trained["VGG CRAFT"].detector
+    folded = Detector(weights=None, width=TRAIN_CRAFT_WIDTH, fold_bn=True, compute_dtype=bf16,
+                      device=device)
+    folded.model.load_state_dict(fold_bn_state_dict(standard.model.state_dict()))
+    pipeline = Pipeline(folded, trained["CRNN batch 8"].recognizer, scale=2)
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    sweep_calls, conv_calls = [], []
+    undo = checked_sweeps(cc, cc_cuda, sweep_calls)
+    craft_module.conv_cuda = CheckedConvs(conv_cuda, conv_calls)
+    try:
+        with torch.inference_mode():
+            x = craft_input(pipeline, scenes[:2])
+            heatmaps = folded.model(x)
+            reference = standard.model(x)
+        results = pipeline.recognize_many(scenes[:8], batch_size=8)
+    finally:
+        craft_module.conv_cuda = conv_cuda
+        undo()
+    check_results(results, 8)
+    launches = {f"{name}_bf16" if name.startswith("conv") else name: wrapper.launches
+                for name, wrapper in wrappers.items()}
+    if min(launches.values()) <= 0 or heatmaps.dtype != torch.float32 \
+            or not bool(torch.isfinite(heatmaps).all()):
+        raise AssertionError(f"trained folded bf16 path: launches {launches}, heatmaps "
+                             f"{heatmaps.dtype}")
+    print(f"bf16 training ({card}): the bf16-trained VGG CRAFT folded (fold_bn_state_dict): "
+          f"heatmaps of 2 scenes (960x1280) {float((heatmaps - reference).abs().max()):.3e} max, "
+          f"{float((heatmaps - reference).abs().mean()):.3e} mean from the standard bf16 graph; "
+          f"with the bf16-trained CRNN, recognize_many of 8 scenes: "
+          f"{sum(len(r) for r in results)} words; {len(conv_calls)} conv_chain calls within "
+          f"phase 15's bars of the plain bf16 chain, {len(sweep_calls)} sweep calls equal to "
+          f"their plain versions; launches {launches}; phase 17 in "
+          f"{time.perf_counter() - phase_start:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path", file=sys.stderr)
@@ -3078,7 +3327,7 @@ def main() -> int:
                   (("golden", golden_pipeline), ("golden, folded", golden_folded)),
                   all_wrappers, pass_fraction, pipeline, scenes)
 
-    training_phase(card, golden_images, sweep_wrappers)
+    float32_steps = training_phase(card, golden_images, sweep_wrappers)
 
     weights_phase(card, scenes, sweep_wrappers, conv_wrappers)
 
@@ -3098,6 +3347,9 @@ def main() -> int:
 
     for name, count in mesh_phase(card, {"standard": pipeline, "folded": folded_pipeline},
                                   scenes, all_wrappers).items():
+        launches[name] += count
+
+    for name, count in bf16_training_phase(card, float32_steps, scenes, all_wrappers).items():
         launches[name] += count
 
     replaces = {

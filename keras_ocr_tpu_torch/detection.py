@@ -489,9 +489,13 @@ class Detector:
                 yield X, y
 
 
-def build_efficientnet_backbone(model_name: str = "efficientnetb0") -> EfficientNetBackbone:
-    """The EfficientNet backbone module of CRAFT (NCHW taps s1..s4)."""
-    return EfficientNetBackbone(model_name)
+def build_efficientnet_backbone(model_name: str = "efficientnetb0",
+                                dtype: torch.dtype = torch.float32) -> EfficientNetBackbone:
+    """The EfficientNet backbone module of CRAFT (NCHW taps s1..s4), in the
+    JAX function's argument order: ``dtype`` float32 or bfloat16 (float32
+    parameters either way)."""
+    check_compute_dtype(dtype)
+    return EfficientNetBackbone(model_name, dtype)
 
 
 def upsample_like(source, target):
@@ -501,6 +505,25 @@ def upsample_like(source, target):
 
 
 UpsampleLike = upsample_like
+
+
+# The JAX module's names for the reference's Keras graph builders and its
+# BatchNorm fold (keras_ocr_tpu/detection.py:24, :504-507), on the port's
+# modules.
+from .data.detection_targets import map_to_rgb  # noqa: E402
+from .models.craft import ConvBN as make_vgg_block  # noqa: E402
+from .models.craft import UpConv as upconv  # noqa: E402
+from .models.craft import VGG16BN as build_vgg_backbone  # noqa: E402
+
+PRETRAINED_WEIGHTS = weights_lib.DETECTOR_PRETRAINED
+
+
+def fold_bn_variables(variables: dict, eps: float = 1e-5) -> dict:
+    """JAX's fold of every ConvBN pair's BatchNorm into its conv, on a
+    variable tree (numpy copies, for ``Detector(fold_bn=True)``): the
+    tree through :func:`.models.craft.fold_bn_state_dict`."""
+    return weights_lib.craft_variables(
+        fold_bn_state_dict(weights_lib.craft_state_dict(variables), eps))
 
 
 def build_model(backbone_name: str = "vgg", weights_path: typing.Optional[str] = None,

@@ -243,7 +243,7 @@ class CRAFT(nn.Module):
             if fold_bn or width != 1.0:
                 raise NotImplementedError(
                     "fold_bn/width are implemented for the VGG backbone only")
-            self.basenet = EfficientNetBackbone(backbone_name)
+            self.basenet = EfficientNetBackbone(backbone_name, dtype)
         else:
             raise NotImplementedError(backbone_name)
         ch = self.basenet.channels

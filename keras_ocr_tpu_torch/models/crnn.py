@@ -36,7 +36,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..parallel.replicas import column_parallel
-from .layers import BatchNorm2d, Conv2d, Linear, float32_output, full_float32, sigmoid
+from .layers import (BatchNorm2d, Conv2d, Linear, float32_output, full_float32, linear,
+                     sigmoid, tanh)
 
 DEFAULT_BUILD_PARAMS = {
     "height": 31,
@@ -86,8 +87,8 @@ def bilstm_steps(lstm, x, devices=None):
         z = torch.cat([(p[:, :, t] + torch.bmm(h.to(device), r)).to(x.device)
                        for p, r, device in zip(proj, recurrent, devices)], -1)
         i, f, g, o = z.split(units, -1)
-        c = sigmoid(f) * c + sigmoid(i) * torch.tanh(g)
-        h = sigmoid(o) * torch.tanh(c)
+        c = sigmoid(f) * c + sigmoid(i) * tanh(g)
+        h = sigmoid(o) * tanh(c)
         outputs.append(h)
     out = torch.stack(outputs, 2)  # (2, B, T, u)
     return out[0], out[1]
@@ -225,7 +226,7 @@ class CRNN(nn.Module):
         devices = self.tensor_parallel.get(layer)
         if devices is None:
             return layer(x)
-        return column_parallel(F.linear, x, layer.weight, layer.bias, devices)
+        return column_parallel(linear, x, layer.weight, layer.bias, devices)
 
     def _bilstm(self, lstm, x):
         devices = self.tensor_parallel.get(lstm)
@@ -234,7 +235,8 @@ class CRNN(nn.Module):
         if x.dtype != lstm.weight_ih_l0.dtype:
             # bfloat16: the layer with its float32 weights cast to bf16. On
             # the card cuDNN keeps the cell arithmetic in float32 and rounds
-            # what it writes; bilstm_steps is the JAX package's rounding.
+            # what it writes, in training its backward too; bilstm_steps is
+            # the JAX package's rounding.
             bf16 = {name: p.to(x.dtype) for name, p in lstm.named_parameters()}
             out, _ = torch.func.functional_call(lstm, bf16, (x,))
         else:

@@ -181,11 +181,15 @@ class MBConv(nn.Module):
 
 class EfficientNetBackbone(nn.Module):
     """EfficientNet emitting the four CRAFT skip taps (NCHW); ``channels``
-    names each tap's width, as :class:`.craft.VGG16BN`'s does."""
+    names each tap's width, as :class:`.craft.VGG16BN`'s does. ``dtype``
+    is the JAX module's: ``torch.bfloat16`` computes in bfloat16 with
+    float32 parameters whatever the input's dtype; otherwise the backbone
+    computes in its input's."""
 
-    def __init__(self, model_name: str = "efficientnetb0"):
+    def __init__(self, model_name: str = "efficientnetb0", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.model_name = model_name.lower()
+        self.dtype = dtype
         width, _ = SCALING[self.model_name]
         in_ch = round_filters(32, width)
         self.stem = ConvBNSwish(3, in_ch, kernel=3, stride=2)
@@ -202,6 +206,8 @@ class EfficientNetBackbone(nn.Module):
         self.last_tap = [name for name, tap in self.order if tap][-1]
 
     def forward(self, x):
+        if self.dtype == torch.bfloat16:
+            x = x.to(self.dtype)
         x = self.stem(x)
         taps = []
         for name, tap in self.order:

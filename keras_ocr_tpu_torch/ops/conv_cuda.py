@@ -429,17 +429,21 @@ def _validate(x4, convs):
         _check(x4, convs)
 
 
-def conv3x3_bias_act(x, w, b, relu=True):
+def conv3x3_bias_act(x, w, b, tile_h=8, relu=True, interpret=False, out_dtype=None):
     """Fused 3x3 SAME stride-1 conv + bias (+ReLU) on NHWC float32 or
     bfloat16 images (the kernel's two modes; weights and bias float32).
 
-    Port of ``keras_ocr_tpu/ops/conv_pallas.py:conv3x3_bias_act`` (no
-    ``tile_h``, no ``interpret``).
+    Port of ``keras_ocr_tpu/ops/conv_pallas.py:conv3x3_bias_act``, in its
+    argument order. ``tile_h`` and ``interpret`` (the TPU kernel's row
+    strip and its interpreter) are accepted and ignored.
 
     Args:
         x: (H, W, Cin) or (B, H, W, Cin).
         w: (3, 3, Cin, Cout) HWIO kernel (BatchNorm folded in).
         b: (Cout,) bias.
+        out_dtype: the output's dtype (default ``x``'s); the layer writes
+            ``x``'s, which is then cast, so a bfloat16 layer's float32
+            output holds bf16 values.
 
     Returns:
         (H, W, Cout) or (B, H, W, Cout): one ``conv_layer`` op. CPU tensors
@@ -447,28 +451,34 @@ def conv3x3_bias_act(x, w, b, relu=True):
         launch the kernel (counted in ``conv3x3_bias_act.launches``) or
         raise.
     """
+    del tile_h, interpret
     x4, squeeze = _batched(x)
     _validate(x4, [(w, b, relu)])
     if w.shape[0] != 3:
         raise ValueError(f"conv3x3_bias_act takes a 3x3 kernel, got {tuple(w.shape)}")
     out, _ = _layer(x4, w, b, relu)
+    out = out.to(out_dtype or out.dtype)
     return out[0] if squeeze else out
 
 
 conv3x3_bias_act.launches = 0
 
 
-def conv_chain(x, convs, pool=False, tap_prepool=False):
+def conv_chain(x, convs, pool=False, tap_prepool=False, tile_h=16, interpret=False,
+               out_dtype=None):
     """Chain of 1x1 / 3x3 SAME convs + bias (+ReLU each), optionally ending
     in a 2x2 stride-2 max-pool.
 
-    Port of ``keras_ocr_tpu/ops/conv_pallas.py:conv_chain`` (no ``tile_h``,
-    no ``interpret``). Odd sizes are floored by the pool, like
-    ``F.max_pool2d(2, 2)``, where the TPU kernel requires even ones.
+    Port of ``keras_ocr_tpu/ops/conv_pallas.py:conv_chain``, in its
+    argument order: ``tile_h`` and ``interpret`` are accepted and ignored,
+    ``out_dtype`` is the dtype of the output (and of the tap; default
+    ``x``'s), cast from the last layer's ``x``-dtype result. Odd sizes are
+    floored by the pool, like ``F.max_pool2d(2, 2)``, where the TPU kernel
+    requires even ones.
 
     Args:
         x: (H, W, Cin) or (B, H, W, Cin) NHWC, float32 or bfloat16; the
-            output has its dtype.
+            layers compute in its dtype.
         convs: sequence of (w, b, relu), w of shape (k, k, Cin, Cout) HWIO
             with k in {1, 3}, b of shape (Cout,); BatchNorm folded in.
         pool: end with a 2x2 stride-2 VALID max-pool.
@@ -484,6 +494,7 @@ def conv_chain(x, convs, pool=False, tap_prepool=False):
         the first launch counts the chain in ``conv_chain.launches``; or
         raise.
     """
+    del tile_h, interpret
     x4, squeeze = _batched(x)
     _validate(x4, convs)
     if not convs:
@@ -497,6 +508,8 @@ def conv_chain(x, convs, pool=False, tap_prepool=False):
             tap = layer_tap
     if tap_prepool and not pool:
         tap = y
+    out_dtype = out_dtype or y.dtype
+    y, tap = y.to(out_dtype), tap.to(out_dtype) if tap is not None else None
     if squeeze:
         y, tap = y[0], tap[0] if tap is not None else None
     return (y, tap) if tap_prepool else y

@@ -128,9 +128,13 @@ def warp_boxes_batch(
     target_width: int = 200,
     window_height: int = 64,
     window_width: int = 512,
+    word_chunk: int = 8,
 ):
     """(B, H, W[, C]) images x (B, N, 4, 2) boxes -> (B, N, th, tw[, C])
-    float32 crops."""
+    float32 crops. ``word_chunk`` (the JAX function's bound on the words it
+    resamples at once, which its one-hot matrices need) is accepted and
+    ignored: the 2x2-tap gathers here need no such bound."""
+    del word_chunk
     return _warp(images, boxes, target_height, target_width, window_height, window_width, 0.0)
 
 

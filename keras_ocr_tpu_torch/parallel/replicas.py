@@ -142,7 +142,9 @@ class ReplicaGroup:
         """Per-channel mean and biased variance of an NCHW ``x`` across
         every rank's ``x`` (the global batch), in two passes as
         ``torch.var_mean``; each rank gets them on its own device, summed in
-        rank order."""
+        rank order. The sums are at least float32 (a bfloat16 ``x`` is
+        promoted, as Flax's statistics and XLA's cross-device sums are)."""
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3)
         count = x.numel() // x.shape[1]
         sums = self.gather(rank, (x.sum(dims), count))

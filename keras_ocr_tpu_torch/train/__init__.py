@@ -1,7 +1,11 @@
 """Training of the port: trainers, optimisers, callbacks, checkpoints.
 
-Float32, the standard (unfolded) graphs in training mode, with autograd,
-on the model's device or split over a mesh (:mod:`..parallel`).
+The standard (unfolded) graphs in training mode, with autograd, on the
+model's device or split over a mesh (:mod:`..parallel`). A model built with
+``compute_dtype=torch.bfloat16`` trains as the JAX trainers train one: the
+forward and backward round where the JAX modules round
+(:mod:`..models.layers`), the parameters, their gradients and the
+optimiser state stay float32, the inputs go in as float32.
 """
 
 from . import callbacks, checkpoint, optim

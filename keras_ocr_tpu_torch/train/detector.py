@@ -19,8 +19,7 @@ import torch
 from .. import weights as weights_lib
 from ..models.layers import full_float32
 from .optim import adam
-from .recognizer import (OptimizerFactory, check_float32_model, data_parallel, fit_loop,
-                         sharded_forward, trainable)
+from .recognizer import OptimizerFactory, data_parallel, fit_loop, sharded_forward, trainable
 
 
 def _mse_loss(preds, targets, sample_weights):
@@ -76,7 +75,6 @@ class DetectorTrainer:
 
     def __init__(self, detector, optimizer: typing.Optional[OptimizerFactory] = None,
                  mesh=None, loss: typing.Union[str, typing.Callable] = "mse"):
-        check_float32_model(detector.model)
         if detector.fold_bn:
             raise ValueError("fold_bn=True is an inference-only graph; train a standard "
                              "Detector and fold its weights afterwards")
@@ -112,7 +110,9 @@ class DetectorTrainer:
         images, targets, *rest = batch
         weights = rest[0] if rest else np.ones((len(images),), dtype="float32")
 
-        dtype = next(self.model.parameters()).dtype  # float32 unless converted
+        # The parameters' dtype: float32 unless converted, also for a bf16
+        # model (JAX passes float32 inputs).
+        dtype = next(self.model.parameters()).dtype
 
         def tensor(array):
             return torch.as_tensor(np.asarray(array), dtype=dtype).to(self.device)

@@ -69,15 +69,6 @@ def tensor_parallel_layers(model: torch.nn.Module, mesh) -> typing.List[str]:
             if specs[name]["kernel"].spec]
 
 
-def check_float32_model(model: torch.nn.Module):
-    """The trainers run a float32 model: a bfloat16 one (``compute_dtype``)
-    raises, with its backward in bf16 still to port."""
-    if getattr(model, "dtype", torch.float32) == torch.bfloat16:
-        raise NotImplementedError(
-            "training a compute_dtype=torch.bfloat16 model is not ported yet (ROADMAP "
-            "section 1, item 12: bfloat16 training); train in float32")
-
-
 class RecognizerTrainer:
     """Optimiser state and train step of a :class:`~..recognition.Recognizer`.
 
@@ -97,7 +88,6 @@ class RecognizerTrainer:
 
     def __init__(self, recognizer, optimizer: typing.Optional[OptimizerFactory] = None,
                  mesh=None, tensor_parallel: bool = False):
-        check_float32_model(recognizer.model)
         self.recognizer = recognizer
         self.model = recognizer.model
         self.device = recognizer.device
@@ -134,7 +124,9 @@ class RecognizerTrainer:
         def tensor(array, dtype):
             return torch.as_tensor(np.asarray(array), dtype=dtype).to(self.device)
 
-        dtype = self.model.fc_9.weight.dtype  # float32 unless converted
+        # The parameters' dtype: float32 unless converted, also for a bf16
+        # model (JAX passes float32 inputs).
+        dtype = self.model.fc_9.weight.dtype
         images = tensor(images, dtype)
         labels = tensor(labels, torch.int64)
         input_length = tensor(input_length, torch.int64).reshape(-1)

@@ -27,6 +27,12 @@ DETECTOR_NAME = "detector_slim.npz"
 RECOGNIZER_NAME = "recognizer_slim.npz"
 
 
+def artifact_available(artifact_dir: str) -> bool:
+    """Whether ``artifact_dir`` holds the four files of the artifact."""
+    return all(os.path.isfile(os.path.join(artifact_dir, name))
+               for name in (META_NAME, EXPECTED_NAME, DETECTOR_NAME, RECOGNIZER_NAME))
+
+
 def _read_json(artifact_dir, name):
     with open(os.path.join(artifact_dir, name), encoding="utf8") as f:
         return json.load(f)

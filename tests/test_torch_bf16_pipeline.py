@@ -2,7 +2,7 @@
 ``compute_dtype=torch.bfloat16`` in the port (standard and BN-folded) reads
 the words the JAX package's bfloat16 golden pipeline reads on three of its
 scenes (all twelve run on the card in ``chip_smoke.py``, which also
-exports both bfloat16 graphs and serves them); the trainers refuse a
+exports both bfloat16 graphs and serves them); both trainers step a
 bfloat16 model.
 """
 
@@ -10,6 +10,7 @@ import json
 import os
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -47,16 +48,28 @@ def test_golden_bf16_reads_the_jax_words(jax_words, fold_bn):
 
 
 @pytest.mark.parametrize("trainer", ["detector", "recognizer"])
-def test_trainers_refuse_a_bf16_model(trainer):
+def test_trainers_step_a_bf16_model(trainer):
+    """Both trainers take a bfloat16 model, through ``compile()`` too: a step
+    gives a finite loss and leaves the parameters and their gradients
+    float32 (parity with JAX's bf16 step: ``tests/test_torch_train_bf16.py``)."""
     if trainer == "detector":
         model = Detector(weights=None, width=0.125, compute_dtype=torch.bfloat16, device="cpu")
         build = DetectorTrainer
+        rng = np.random.RandomState(0)
+        batch = (rng.randn(2, 32, 32, 3).astype(np.float32),
+                 rng.rand(2, 16, 16, 2).astype(np.float32))
     else:
         slim = dict(filters=(4,) * 7, rnn_units=(4, 4), stn=False, height=31, width=200,
                     color=False, dropout=0.25, rnn_steps_to_discard=2, pool_size=2)
         model = Recognizer("abc", None, slim, torch.bfloat16, device="cpu")
         build = RecognizerTrainer
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build(model)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        model.compile()
+        batch = ((np.random.RandomState(0).rand(2, 31, 200, 1).astype(np.float32),
+                  np.array([[0, 1, -1], [2, -1, -1]]), np.full((2, 1), 48), np.array([[2], [1]])),
+                 np.zeros(2))
+    for make in (build, lambda m: m.compile()):
+        trainer = make(model)
+        assert np.isfinite(trainer.train_step(batch))
+        assert model.model.dtype == torch.bfloat16
+        for name, param in model.model.named_parameters():
+            assert param.dtype == torch.float32, name
+            assert param.grad is None or param.grad.dtype == torch.float32, name

@@ -1011,3 +1011,137 @@ def test_bf16_golden_on_card_live_and_exported(device, tmp_path, fold_bn):
     image = tools.read(os.path.join(GOLDEN, result["per_scene"][0]["image"]))
     assert ([w for w, _ in served.recognize([image])[0]]
             == [w for w, _ in pipeline.recognize([image])[0]])
+
+
+def _bf16_l2(ours, ref):
+    return float(np.linalg.norm(ours.astype(np.float64) - ref)) / max(
+        float(np.linalg.norm(ref.astype(np.float64))), 1e-12)
+
+
+@pytest.mark.parametrize("model", ["crnn", "craft"])
+def test_bf16_train_step_on_card_matches_cpu(device, full_fp32, model):
+    """One bf16 step (float32 parameters) from one state on the card and on
+    the CPU, at phase 11's sizes (the full-width CRNN at batch 8, dropout 0;
+    CRAFT at width 1.0, 2x256x256), to the CPU parity test's bars
+    (``tests/test_torch_train_bf16.py``): each gradient leaf within 0.5 in
+    relative L2, leaves zero in exact arithmetic (read off the CPU's
+    float32 step) below 3.3e-2 of the largest |g|, the running statistics
+    within 6.8e-3, the loss within 1e-3; gradients float32; three ``fit``
+    steps on the batch lower the loss."""
+    from keras_ocr_tpu_torch import Detector, Recognizer, weights
+    from keras_ocr_tpu_torch.models.crnn import DEFAULT_BUILD_PARAMS
+
+    rng = np.random.RandomState(16)
+    if model == "crnn":
+        bridge = weights.crnn_variables
+        frames = 48
+        label_length = rng.randint(1, 21, size=(8, 1))
+        labels = np.full((8, frames), -1)
+        for i, n in enumerate(label_length[:, 0]):
+            labels[i, :n] = rng.randint(0, 36, size=n)
+        batch = ((rng.rand(8, 31, 200, 1).astype(np.float32), labels,
+                  np.full((8, 1), frames), label_length), np.zeros((8, 1)))
+        params = dict(DEFAULT_BUILD_PARAMS, dropout=0.0)
+
+        def make(on, dtype):
+            return Recognizer(None, None, params, dtype, device=on, seed=3)
+    else:
+        bridge = weights.craft_variables
+        images = rng.randn(2, 256, 256, 3).astype(np.float32)
+        targets = (rng.rand(2, 128, 128, 2) * 0.05).astype(np.float32)
+        targets[:, 20:40, 10:70, 0] = 0.9
+        batch = (images, targets)
+
+        def make(on, dtype):
+            return Detector(weights=None, width=1.0, compute_dtype=dtype, device=on, seed=4)
+
+    card = make("cuda", torch.bfloat16)
+    state = bridge(card.model)
+    cpu = make("cpu", torch.bfloat16).load_variables(state)
+    wide = make("cpu", torch.float32).load_variables(state)
+    steps = {}
+    for label, facade in (("card", card), ("cpu", cpu), ("float32", wide)):
+        trainer = facade.compile(optimizer=lambda params: torch.optim.SGD(params, lr=0.0))
+        loss = trainer.train_step(batch)
+        steps[label] = (loss, _gradient_leaves(facade.model, bridge),
+                        dict(weights_leaves(bridge(facade.model)["batch_stats"])))
+    assert {p.grad.dtype for p in card.model.parameters() if p.grad is not None} == {
+        torch.float32}
+    (loss, grads, stats), (ref_loss, ref_grads, ref_stats) = steps["card"], steps["cpu"]
+    assert abs(loss - ref_loss) <= 1e-3 * abs(ref_loss)
+    float32_grads = steps["float32"][1]
+    largest32 = max(np.abs(v).max() for v in float32_grads.values())
+    zero = {k for k, v in float32_grads.items() if np.abs(v).max() <= 1e-4 * largest32}
+    largest = max(np.abs(v).max() for v in ref_grads.values())
+    for path, value in ref_grads.items():
+        if path in zero:
+            assert np.abs(grads[path]).max() <= 3.3e-2 * largest, path
+        else:
+            assert _bf16_l2(grads[path], value) <= 0.5, path
+    for path, value in ref_stats.items():
+        assert _bf16_l2(stats[path], value) <= 6.8e-3, path
+    fresh = make("cuda", torch.bfloat16).load_variables(state)
+    history = fresh.compile(learning_rate=3e-4).fit(iter([batch] * 3), steps_per_epoch=1,
+                                                    epochs=3)
+    assert np.isfinite(history).all() and history[-1] < history[0]
+
+
+def weights_leaves(tree, prefix=""):
+    for key, value in sorted(tree.items()):
+        if isinstance(value, dict):
+            yield from weights_leaves(value, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", np.asarray(value)
+
+
+def test_bf16_trained_detector_folds_into_the_bf16_kernel(device, full_fp32):
+    """A bf16 VGG CRAFT (width 0.25) after one train step on the card,
+    folded (``fold_bn_state_dict``) into the bf16 folded graph: its forward
+    launches the conv kernel's bf16 mode for all 12 chains, each within
+    the bf16 mode's bars of the plain chain on the same tensors, and the
+    heatmaps sit within the folded graph's CPU bars (1.6e-2 * max(1,
+    max|ref|), mean 2.5e-3) of the CPU's folded forward."""
+    from keras_ocr_tpu_torch import Detector
+    from keras_ocr_tpu_torch.models import craft as craft_module
+
+    rng = np.random.RandomState(17)
+    detector = Detector(weights=None, width=0.25, compute_dtype=torch.bfloat16, device=device,
+                        seed=7)
+    detector.compile().train_step((rng.randn(2, 64, 96, 3).astype(np.float32),
+                                   rng.rand(2, 32, 48, 2).astype(np.float32)))
+    state = fold_bn_state_dict(detector.model.state_dict())
+    folded = CRAFT(fold_bn=True, width=0.25, dtype=torch.bfloat16).eval()
+    folded.load_state_dict({k: v.cpu() for k, v in state.items()})
+    x = torch.from_numpy(rng.randn(2, 64, 96, 3).astype(np.float32))
+    with torch.inference_mode():
+        ref = folded(x)
+        folded.to(device)
+        chains = conv_cuda.conv_chain.launches
+        calls = []
+
+        class Checked:
+            """``conv_cuda`` as the CRAFT module sees it, each chain also run
+            through its plain bf16 version (the kernel's wrapper counts)."""
+
+            def __getattr__(self, name):
+                return getattr(conv_cuda, name)
+
+            def conv_chain(self, x, convs, pool=False, tap_prepool=False):
+                out = conv_cuda.conv_chain(x, convs, pool=pool, tap_prepool=tap_prepool)
+                plain = conv_cuda.conv_chain_plain(x, convs, pool=pool, tap_prepool=tap_prepool)
+                for got, want in (zip(out, plain) if tap_prepool else ((out, plain),)):
+                    assert got.dtype == torch.bfloat16
+                    ulps = conv_cuda.bf16_ulps(got, want)
+                    assert float((ulps <= 1.0).float().mean()) >= 0.99
+                calls.append(len(convs))
+                return out
+
+        craft_module.conv_cuda = Checked()
+        try:
+            out = folded(x.to(device)).cpu()
+        finally:
+            craft_module.conv_cuda = conv_cuda
+    assert len(calls) == 12 and conv_cuda.conv_chain.launches == chains + 12
+    worst, mean = float((out - ref).abs().max()), float((out - ref).abs().mean())
+    assert worst <= 1.6e-2 * max(1.0, float(ref.abs().max())), worst
+    assert mean <= 2.5e-3, mean

@@ -6,12 +6,17 @@ in the port; the golden utility's ``load_golden_pipeline`` and
 as JAX's do. A call in JAX's positional order builds the same
 configuration in both packages, in float32 and in bfloat16 (float32
 parameters either way); another dtype raises ``NotImplementedError`` and a
-value that is not a dtype ``TypeError``.
+value that is not a dtype ``TypeError``. Also the names JAX's modules
+bind that the port lacked (the package's submodules, ``utils``'s
+re-exports, ``golden.artifact_available``, ``detection``'s aliases) and the
+TPU-only parameters in JAX's positions (``word_chunk``, ``tile_h``,
+``interpret``, ``out_dtype``).
 """
 
 import inspect
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +33,11 @@ from keras_ocr_tpu_torch.utils import golden
 torch.set_num_threads(2)
 
 SLIM_CRNN = dict(DEFAULT_BUILD_PARAMS, filters=(4,) * 7, rnn_units=(4, 4), stn=False)
+
+
+def _positional(fn):
+    return [p.name for p in inspect.signature(fn).parameters.values()
+            if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
 
 
 def _shapes(tree):
@@ -153,12 +163,8 @@ def test_pipeline_positional_order():
     from keras_ocr_tpu.pipeline import Pipeline as JaxPipeline
     from keras_ocr_tpu_torch import Pipeline, parallel
 
-    def positional(fn):
-        return [p.name for p in inspect.signature(fn).parameters.values()
-                if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
-
-    assert positional(Pipeline.__init__) == positional(JaxPipeline.__init__)
-    assert positional(Pipeline.__init__).index("mesh") == 8  # after self
+    assert _positional(Pipeline.__init__) == _positional(JaxPipeline.__init__)
+    assert _positional(Pipeline.__init__).index("mesh") == 8  # after self
     detector = Detector(None, width=0.125, max_components=16, device="cpu")
     recognizer = Recognizer("abc", None, SLIM_CRNN, device="cpu")
     ours = Pipeline(detector, recognizer, 2, 2048, 64, 32, None, None, (16, 64))
@@ -166,3 +172,110 @@ def test_pipeline_positional_order():
     mesh = parallel.create_mesh(devices=[torch.device("cpu")] * 2)
     ours = Pipeline(detector, recognizer, 2, 2048, 64, 32, None, mesh, (8, 64))
     assert ours.mesh is mesh and ours.word_buckets == (8, 64)
+
+
+@pytest.mark.parametrize("name", ["config", "ops", "models", "weights", "utils"])
+def test_package_binds_the_jax_submodules(name):
+    import keras_ocr_tpu
+    import keras_ocr_tpu_torch
+
+    assert hasattr(keras_ocr_tpu, name)
+    assert getattr(keras_ocr_tpu_torch, name).__name__ == f"keras_ocr_tpu_torch.{name}"
+
+
+def test_utils_reexports_profiling():
+    from keras_ocr_tpu import utils as jutils
+    from keras_ocr_tpu_torch import utils
+    from keras_ocr_tpu_torch.utils import profiling
+
+    for name in ("StageTimer", "trace", "annotate"):
+        assert hasattr(jutils, name) and getattr(utils, name) is getattr(profiling, name)
+    assert hasattr(jutils, "profiling") and utils.profiling is profiling
+
+
+def test_artifact_available(tmp_path):
+    artifact = os.path.join(os.path.dirname(__file__), "fixtures", "golden_offline")
+    for path in (artifact, str(tmp_path)):
+        assert golden.artifact_available(path) == jgolden.artifact_available(path)
+    assert golden.artifact_available(artifact) and not golden.artifact_available(str(tmp_path))
+
+
+def test_detection_aliases():
+    """``PRETRAINED_WEIGHTS``, ``fold_bn_variables`` (the JAX fold on a
+    variable tree, bit for bit), ``map_to_rgb`` and the reference's graph
+    builder names."""
+    from keras_ocr_tpu_torch.models import craft
+
+    assert detection.PRETRAINED_WEIGHTS.keys() == jdetection.PRETRAINED_WEIGHTS.keys()
+    tree = jax.tree.map(np.asarray, JaxDetector(weights=None, width=0.125,
+                                                max_components=16).variables)
+    ours = dict(_leaves(detection.fold_bn_variables(tree)))
+    ref = dict(_leaves(jax.tree.map(np.asarray, jdetection.fold_bn_variables(tree))))
+    assert ours.keys() == ref.keys()
+    for path, value in ref.items():
+        np.testing.assert_array_equal(ours[path], value, err_msg=path)
+    y = np.random.RandomState(0).rand(5, 7, 2).astype(np.float32)
+    np.testing.assert_array_equal(detection.map_to_rgb(y), jdetection.map_to_rgb(y))
+    assert (detection.make_vgg_block, detection.upconv, detection.build_vgg_backbone) == (
+        craft.ConvBN, craft.UpConv, craft.VGG16BN)
+
+
+def test_build_efficientnet_backbone_takes_a_dtype():
+    """``(model_name, dtype)`` as JAX's; a bfloat16 backbone computes in
+    bf16 from a float32 input, with float32 parameters."""
+    assert _positional(detection.build_efficientnet_backbone) == _positional(
+        jdetection.build_efficientnet_backbone)
+    backbone = detection.build_efficientnet_backbone("efficientnetb0", torch.bfloat16).eval()
+    assert {p.dtype for p in backbone.parameters()} == {torch.float32}
+    with torch.no_grad():
+        taps = backbone(torch.zeros(1, 3, 32, 32))
+    assert len(taps) == 4 and {t.dtype for t in taps} == {torch.bfloat16}
+    with pytest.raises(NotImplementedError):
+        detection.build_efficientnet_backbone("efficientnetb0", torch.float16)
+
+
+@pytest.mark.parametrize("name", ["warp_boxes_batch", "conv3x3_bias_act", "conv_chain"])
+def test_kernel_wrappers_take_the_jax_parameters(name):
+    from keras_ocr_tpu.ops import conv_pallas, warp as jwarp
+    from keras_ocr_tpu_torch.ops import conv_cuda, warp
+
+    ours = getattr(warp if name == "warp_boxes_batch" else conv_cuda, name)
+    ref = getattr(jwarp if name == "warp_boxes_batch" else conv_pallas, name)
+    assert _positional(ours) == _positional(ref)
+
+
+def test_conv_wrappers_in_jax_order_match_the_plain_versions():
+    """``conv3x3_bias_act(x, w, b, 8, False)`` is the plain layer without
+    ReLU; ``out_dtype`` casts the layer's result; ``conv_chain``'s
+    ``tile_h`` / ``interpret`` / ``out_dtype`` likewise, the tap too."""
+    from keras_ocr_tpu_torch.ops import conv_cuda
+
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(2, 10, 12, 5).astype(np.float32))
+    w = torch.from_numpy(rng.randn(3, 3, 5, 6).astype(np.float32) * 0.2)
+    b = torch.from_numpy(rng.randn(6).astype(np.float32))
+    plain = conv_cuda.conv3x3_bias_act_plain(x, w, b, relu=False)
+    assert (plain < 0).any()
+    torch.testing.assert_close(conv_cuda.conv3x3_bias_act(x, w, b, 8, False), plain,
+                               rtol=0, atol=0)
+    out = conv_cuda.conv3x3_bias_act(x, w, b, 8, False, False, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out, plain.to(torch.bfloat16), rtol=0, atol=0)
+    convs = [(w, b, True), (torch.from_numpy(rng.randn(1, 1, 6, 4).astype(np.float32)),
+                            torch.from_numpy(rng.randn(4).astype(np.float32)), False)]
+    main, tap = conv_cuda.conv_chain(x, convs, True, True, 16, False, torch.bfloat16)
+    ref_main, ref_tap = conv_cuda.conv_chain_plain(x, convs, pool=True, tap_prepool=True)
+    assert main.dtype == tap.dtype == torch.bfloat16
+    torch.testing.assert_close(main, ref_main.to(torch.bfloat16), rtol=0, atol=0)
+    torch.testing.assert_close(tap, ref_tap.to(torch.bfloat16), rtol=0, atol=0)
+
+
+def test_warp_boxes_batch_ignores_word_chunk():
+    from keras_ocr_tpu_torch.ops import warp
+
+    rng = np.random.RandomState(1)
+    images = torch.from_numpy(rng.rand(1, 40, 60).astype(np.float32) * 255)
+    boxes = torch.tensor([[[[2, 3], [30, 4], [31, 15], [3, 14]]] * 3], dtype=torch.float32)
+    whole = warp.warp_boxes_batch(images, boxes, 31, 200, 64, 512, 0)
+    torch.testing.assert_close(warp.warp_boxes_batch(images, boxes, 31, 200, 64, 512, 2), whole,
+                               rtol=0, atol=0)
