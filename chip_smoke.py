@@ -6,7 +6,8 @@ Phases, each printing one line; any failure exits non-zero:
    off for convolutions and matrix products (the port's forwards turn it
    off for themselves too);
 2. build: both CUDA sources of ``keras_ocr_tpu_torch/csrc`` (the sweep
-   kernel and the conv kernel), started together, each with its time;
+   kernel and the conv kernel), started together, each with its time; the
+   sweep kernel's part of phase 3 runs while the conv kernel builds;
 3. kernel vs plain: both entries of the sweep kernel (the label sweeps and
    the keyed row/column runs of the blob census) against their plain
    PyTorch versions on the card, on seeded masks (densities 0.3-0.8 plus a
@@ -202,7 +203,7 @@ Phases, each printing one line; any failure exits non-zero:
    must give identical boxes with the library (its calls counted) and with
    it disabled. The full-width standard and folded pipelines (one word
    bucket of 64) on ``parallel.create_mesh()`` (the one card) and on two
-   replicas of it (``devices=[cuda:0, cuda:0]``): ``recognize_many`` of 32
+   replicas of it (``devices=[cuda:0, cuda:0]``): ``recognize_many`` of 16
    scenes at batch 8 must read the words of the same models without a mesh
    exactly, boxes within 1e-4 (the two-replica mesh against batch 4, its
    shard's size), every sweep-kernel call of the replicas equal to its
@@ -236,14 +237,32 @@ Phases, each printing one line; any failure exits non-zero:
    mode and both sweep entries launched (counted from zero). No CPU
    carry-on: a failure fails the run.
 
+18. spatial sharding: the full-width pipelines, standard float32, folded
+   float32 and folded bf16 (the float32 run's folded weights), on meshes
+   whose ``model`` axis cuts CRAFT's input into row strips of the one
+   card (``create_mesh((1, 2))`` and ``((1, 4))`` on ``[cuda:0] * n``, and
+   ``create_hybrid_mesh(2, (1, 2))``: two data positions of two strips),
+   against the same models without a mesh: the strip forward's heatmaps
+   of 2 scenes (960x1280) within 1e-4 x max(1, max|ref|) of the whole
+   forward in float32, within 8e-3 x max(1, max|ref|) and a mean of 1e-3
+   in bf16 (PERF.md §2); ``recognize_many`` of 8 scenes at batch 8 with
+   every conv chain held to its plain version (phase 3's bar, phase 15's
+   in bf16) and every sweep call equal to its plain version, the words
+   equal and boxes within 1e-4, every kernel of the path launched
+   (counted from zero); ``recognize_many`` images/s (median of 3 rounds,
+   no mesh and the three meshes in turns) and the first round's peak
+   memory above the models; the folded graphs' CRAFT forward at
+   960x1280, batch 1 and 8, without strips and on 2 and 4 (CUDA events,
+   median of 10).
+
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
 ``.pth``-loaded detector's run in 12, the EfficientNet pipeline of 13,
 the ``detect`` of 14, the bfloat16 full-width pipelines of 15, each mesh
-pipeline of 16 and the trained folded bf16 path of 17 count their kernel
-launches from zero; the kernel line's launches are those of phases 5-7,
-13, 14, 16 and 17 (its sweep calls), and for the bf16 mode's two entries
-those of 15 and 17;
+pipeline of 16, the trained folded bf16 path of 17 and each strip
+pipeline of 18 count their kernel launches from zero; the kernel line's
+launches are those of phases 5-7, 13, 14, 16, 17 and 18 (their sweep
+calls), and for the bf16 mode's two entries those of 15, 17 and 18;
 the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
@@ -2440,11 +2459,13 @@ def data_phase(card, sweep_wrappers):
 
 
 # Phase 16: meshes. The CRAFT step's (batch, height, width), the timed
-# steps per variant (after one warm-up), the rounds of recognize_many in
+# steps per variant (after one warm-up), the scenes (two batches of 8, cut
+# from 32 to keep the script's time) and the rounds of recognize_many in
 # turns, and the step bars (the CPU tests'): loss relative, and each
 # parameter or BatchNorm statistic within MESH_BAR * max(1, max|ref|).
 MESH_CRAFT_STEP = (8, 640, 640)
 MESH_STEP_RUNS = 5
+MESH_IMAGES = 16
 MESH_ROUNDS = 3
 MESH_BAR = 1e-4
 
@@ -2589,7 +2610,7 @@ def mesh_phase(card, pipelines, scenes, all_wrappers):
     device = torch.device("cuda", torch.cuda.current_device())
     meshes = {"one-device": (parallel.create_mesh(), 8),
               "two-replica": (parallel.create_mesh(devices=[device, device]), 4)}
-    images = (scenes * 3)[:32]
+    images = (scenes * 3)[:MESH_IMAGES]
     launches = {name: 0 for name in all_wrappers}
     for graph, plain in pipelines.items():
         wrappers = {name: w for name, w in all_wrappers.items()
@@ -2610,6 +2631,155 @@ def mesh_phase(card, pipelines, scenes, all_wrappers):
                DetectorTrainer, weights.craft_variables, craft_batch(rng, *MESH_CRAFT_STEP),
                steps)
     print(f"mesh ({card}): phase 16 took {time.perf_counter() - phase_start:.1f} s")
+    return launches
+
+
+# Phase 18: spatial sharding. The meshes, all on the one card: one data
+# position's strips on 2 and on 4 model devices, and a hybrid mesh of 2
+# positions (slice 2, data 1) of 2 strips each; the scenes of each
+# recognize_many and its timed rounds in turns; the CRAFT forwards' runs
+# (CUDA events); the heatmaps'
+# bars against the whole forward (PARITY.md's float32 bar, PERF.md §2's
+# bf16 bars: max over max(1, max|ref|), mean).
+SPATIAL_MESHES = {
+    "1x2": lambda parallel, device: parallel.create_mesh((1, 2), devices=[device] * 2),
+    "1x4": lambda parallel, device: parallel.create_mesh((1, 4), devices=[device] * 4),
+    "hybrid 2x1x2": lambda parallel, device: parallel.create_hybrid_mesh(
+        2, (1, 2), devices=[device] * 4),
+}
+SPATIAL_IMAGES = 8
+SPATIAL_ROUNDS = 3
+SPATIAL_FORWARD_RUNS = 10
+SPATIAL_BAR = 1e-4
+SPATIAL_BF16_BARS = (8e-3, 1e-3)
+
+
+def words_and_boxes(results):
+    return ([[w for w, _ in image] for image in results],
+            [np.array([b for _, b in image]).reshape(-1, 4, 2) for image in results])
+
+
+def spatial_phase(card, detector, folded, recognizer, scenes, wrappers):
+    """Phase 18: the full-width pipelines on meshes whose ``model`` axis
+    cuts CRAFT's input into row strips, against the same models without a
+    mesh. Returns the kernels' launches on the strip path (the bf16 mode's
+    as ``*_bf16``)."""
+    from keras_ocr_tpu_torch import Detector, Pipeline, parallel
+    from keras_ocr_tpu_torch.models import craft as craft_module
+    from keras_ocr_tpu_torch.ops import cc, cc_cuda, conv_cuda
+
+    phase_start = time.perf_counter()
+    device = recognizer.device
+    folded_bf16 = Detector(weights=None, width=1.0, fold_bn=True, compute_dtype=torch.bfloat16,
+                           device=device)
+    folded_bf16.model.load_state_dict(folded.model.state_dict())
+    graphs = {"standard": detector, "folded": folded, "folded bf16": folded_bf16}
+    meshes = {label: make(parallel, device) for label, make in SPATIAL_MESHES.items()}
+    images = scenes[:SPATIAL_IMAGES]
+    launches = {}
+    checks_s = rates_s = forwards_s = 0.0
+    for graph, owner in graphs.items():
+        start = time.perf_counter()
+        bf16 = owner.model.dtype == torch.bfloat16
+        plain = Pipeline(owner, recognizer, 2, word_buckets=(64,))
+        want_words, want_boxes = words_and_boxes(plain.recognize_many(images, batch_size=8))
+        with torch.inference_mode():
+            x = craft_input(plain, scenes[:2])
+            ref = owner.model(x)
+        scale = max(1.0, float(ref.abs().max()))
+        pipes, lines = {"no mesh": plain}, []
+        for label, mesh in meshes.items():
+            pipe = pipes[label] = Pipeline(owner, recognizer, 2, mesh=mesh, word_buckets=(64,))
+            if any(strips is None for strips in pipe._strips):
+                raise AssertionError(f"{graph} on the {label} mesh runs no strips")
+            with torch.inference_mode():
+                heatmaps = pipe._craft(0, owner.model)(x)
+            diff = (heatmaps - ref).abs()
+            err, mean = float(diff.max()), float(diff.mean())
+            bar, mean_bar = SPATIAL_BF16_BARS if bf16 else (SPATIAL_BAR, None)
+            if heatmaps.shape != ref.shape or not (err <= bar * scale) or (
+                    mean_bar is not None and not mean <= mean_bar):
+                raise AssertionError(f"{graph} strips on the {label} mesh: heatmaps "
+                                     f"{tuple(heatmaps.shape)}, max {err} (bar {bar * scale}), "
+                                     f"mean {mean}")
+            # The strip path once more with every kernel call held to its
+            # plain version, its launches counted from zero.
+            for wrapper in wrappers.values():
+                wrapper.launches = 0
+            sweep_calls, conv_calls = [], []
+            undo = checked_sweeps(cc, cc_cuda, sweep_calls)
+            craft_module.conv_cuda = CheckedConvs(conv_cuda, conv_calls, f"{graph} strip chain")
+            try:
+                results = pipe.recognize_many(images, batch_size=8)
+            finally:
+                craft_module.conv_cuda = conv_cuda
+                undo()
+            check_results(results, len(images))
+            counted = {name: wrapper.launches for name, wrapper in wrappers.items()
+                       if graph != "standard" or name.startswith("cc_")}
+            if min(counted.values()) <= 0:
+                raise AssertionError(f"{graph} on the {label} mesh launched {counted}")
+            words, boxes = words_and_boxes(results)
+            box_err = max((float(np.abs(b - w).max()) for b, w in zip(boxes, want_boxes)
+                           if b.size), default=0.0)
+            if words != want_words or [b.shape for b in boxes] != [b.shape for b in want_boxes] \
+                    or not box_err <= 1e-4:
+                raise AssertionError(f"{graph} pipeline on the {label} mesh: words equal "
+                                     f"{words == want_words}, boxes within {box_err}")
+            for name, count in counted.items():
+                key = f"{name}_bf16" if bf16 and name.startswith("conv") else name
+                launches[key] = launches.get(key, 0) + count
+            lines.append(f"{label}: heatmaps max {err:.3e} mean {mean:.3e} from the whole "
+                         f"forward, words equal, boxes within {box_err:.1e}, launches "
+                         f"{counted}, {len(conv_calls)} conv_chain and {len(sweep_calls)} sweep "
+                         "calls held to their plain versions")
+        checks_s += time.perf_counter() - start
+        # recognize_many images/s, the variants in turns (after the runs
+        # above warmed them), and the first round's peak memory above the
+        # resident models.
+        start = time.perf_counter()
+        rates, peaks = {label: [] for label in pipes}, {}
+        for _ in range(SPATIAL_ROUNDS):
+            for label, pipe in pipes.items():
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                begin = time.perf_counter()
+                check_results(pipe.recognize_many(images, batch_size=8), len(images))
+                rates[label].append(len(images) / (time.perf_counter() - begin))
+                peaks.setdefault(label, (torch.cuda.max_memory_allocated() - resident) / 1e9)
+        rates_s += time.perf_counter() - start
+        start = time.perf_counter()
+        # CRAFT forwards at 960x1280, batch 1 and 8: no strips, 2 and 4;
+        # the folded graphs only (the conv kernel on strips), to keep the
+        # script's time.
+        forward_ms = {}
+        with torch.inference_mode():
+            for batch in ((1, 8) if graph != "standard" else ()):
+                x = torch.randn((batch, 960, 1280, 3), device=device,
+                                generator=torch.Generator(device=device).manual_seed(batch))
+                for label in ("no mesh", "1x2", "1x4"):
+                    fn = owner.model if label == "no mesh" else pipes[label]._craft(0, owner.model)
+                    forward_ms[label, batch] = cuda_median_ms(lambda: fn(x),
+                                                              runs=SPATIAL_FORWARD_RUNS)
+                del x
+        forwards_s += time.perf_counter() - start
+        print(f"spatial ({card}): {graph} full width, {len(images)} scenes (640x480, scale 2, "
+              f"one word bucket of 64) against no mesh: " + "; ".join(lines)
+              + f"; recognize_many images/s at batch 8, median [range] of {SPATIAL_ROUNDS} "
+              f"in turns, and peak GB above the models: " + ", ".join(
+                  f"{label} {statistics.median(v):.2f} [{min(v):.2f}-{max(v):.2f}] "
+                  f"({peaks[label]:.3f} GB)" for label, v in rates.items())
+              + ("" if not forward_ms else
+                 f"; CRAFT forward at 960x1280 (median of {SPATIAL_FORWARD_RUNS}) batch 1 / 8: "
+                 + ", ".join(f"{label} {forward_ms[label, 1]:.3f} / "
+                             f"{forward_ms[label, 8]:.3f} ms" for label in ("no mesh", "1x2", "1x4"))))
+        del pipes, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"spatial ({card}): launches on the strip path {launches}; phase 18 took "
+          f"{time.perf_counter() - phase_start:.1f} s (checks {checks_s:.1f}, rates "
+          f"{rates_s:.1f}, forwards {forwards_s:.1f})")
     return launches
 
 
@@ -3019,12 +3189,14 @@ def bf16_step_distance(what, step, ref, zero):
 
 class CheckedConvs:
     """``conv_cuda`` as a CRAFT module sees it, with every ``conv_chain``
-    call also run through the plain bf16 chain on the same tensors and held
-    to phase 15's bars (``check_bf16``); the kernel's own wrapper runs and
-    counts its launches. ``record`` collects (layers, shape) per call."""
+    call also run through the plain chain on the same tensors and held to
+    its bars: phase 15's for a bf16 input (``check_bf16``), phase 3's
+    ``CONV_BAR`` for a float32 one; the kernel's own wrapper runs and counts
+    its launches. ``record`` collects (layers, shape) per call; ``what``
+    names the path in a failure."""
 
-    def __init__(self, conv_cuda, record):
-        self._module, self._record = conv_cuda, record
+    def __init__(self, conv_cuda, record, what="trained folded bf16 chain"):
+        self._module, self._record, self._what = conv_cuda, record, what
 
     def __getattr__(self, name):
         return getattr(self._module, name)
@@ -3034,7 +3206,10 @@ class CheckedConvs:
         ref = self._module.conv_chain_plain(x, convs, pool=pool, tap_prepool=tap_prepool)
         pairs = zip(out, ref) if tap_prepool else ((out, ref),)
         for got, want in pairs:
-            check_bf16(self._module, "trained folded bf16 chain", got, want, len(convs))
+            if x.dtype == torch.bfloat16:
+                check_bf16(self._module, self._what, got, want, len(convs))
+            else:
+                check_close(f"{self._what} {tuple(x.shape)}", got, want, CONV_BAR)
         self._record.append((len(convs), tuple(x.shape)))
         return out
 
@@ -3189,6 +3364,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script has no CPU path", file=sys.stderr)
         return 1
     started = time.perf_counter()
+    laps, lap_start = {}, [started]
+
+    def lap(name):
+        """Seconds since the previous lap, kept under ``name``."""
+        now = time.perf_counter()
+        laps[name] = now - lap_start[0]
+        lap_start[0] = now
+
     sys.path.insert(0, ROOT)
     from keras_ocr_tpu_torch import Detector, Pipeline, Recognizer, kernels, tools
     from keras_ocr_tpu_torch.models.craft import fold_bn_state_dict
@@ -3208,24 +3391,32 @@ def main() -> int:
         kernels.load(source)
         return time.perf_counter() - start
 
+    # Both sources build at once; the sweep kernel's phase and the golden
+    # pipeline's traffic need only cc_sweeps.cu and run while
+    # conv_chain.cu still builds.
     sources = (cc_cuda.SOURCE, conv_cuda.SOURCE)
-    start = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
-        build_s = list(pool.map(build, sources))
-    print("build: " + ", ".join(f"{s} in {t:.2f} s" for s, t in zip(sources, build_s))
-          + f" (together {time.perf_counter() - start:.2f} s)")
-
-    report = kernel_phase(cc_cuda)
-    with open(os.path.join(ARTIFACT, "expected.json"), encoding="utf8") as f:
-        golden_scenes = json.load(f)["scenes"]
-    names = [entry["image"] for entry in golden_scenes]
-    golden_images = [tools.read(os.path.join(ARTIFACT, name)) for name in names]
-    golden_pipeline = golden.load_golden_pipeline(ARTIFACT, device=device)[0]
-    golden_traffic(cc_cuda, golden_pipeline, golden_images[:8])
+        builds = [pool.submit(build, source) for source in sources]
+        cc_build_s = builds[0].result()
+        report = kernel_phase(cc_cuda)
+        with open(os.path.join(ARTIFACT, "expected.json"), encoding="utf8") as f:
+            golden_scenes = json.load(f)["scenes"]
+        names = [entry["image"] for entry in golden_scenes]
+        golden_images = [tools.read(os.path.join(ARTIFACT, name)) for name in names]
+        golden_pipeline = golden.load_golden_pipeline(ARTIFACT, device=device)[0]
+        golden_traffic(cc_cuda, golden_pipeline, golden_images[:8])
+        waited = time.perf_counter()
+        conv_build_s = builds[1].result()
+        waited = time.perf_counter() - waited
+    print(f"build: {sources[0]} in {cc_build_s:.2f} s, {sources[1]} in {conv_build_s:.2f} s "
+          f"(started together; the sweep kernel's phase ran meanwhile, then waited "
+          f"{waited:.2f} s for {sources[1]})")
+    lap("build, 1-2")
     report.update(conv_phase(conv_cuda))
     # Phase 15's kernel part, here so that its profiler sessions come
     # first in the process.
     bf16_kernel_report = bf16_kernels(card, conv_cuda, report["conv_chain"]["per_chain"])
+    lap("3, 15's kernels")
     sweep_wrappers = {
         "cc_sweeps": cc_cuda.segmented_min_sweeps,
         "cc_keyed_rows_cols": cc_cuda.keyed_rows_cols,
@@ -3316,27 +3507,35 @@ def main() -> int:
           f"{forward_ms['folded', 1]:.3f} ms; batch 8 {forward_ms['unfolded', 8]:.3f} ms "
           f"vs {forward_ms['folded', 8]:.3f} ms (median of 20 / 5)")
 
+    lap("4-7")
     refine_phase(card, detector, recognizer, scenes)
+    lap("8")
 
     expected = [entry["words"] for entry in golden_scenes]
     two_stage_phase(card, golden_images, expected,
                     (("golden", golden_pipeline), ("golden, folded", golden_folded)),
                     all_wrappers, pass_fraction, pipeline, p50)
+    lap("9")
 
     serving_phase(card, golden_images, expected,
                   (("golden", golden_pipeline), ("golden, folded", golden_folded)),
                   all_wrappers, pass_fraction, pipeline, scenes)
+    lap("10")
 
     float32_steps = training_phase(card, golden_images, sweep_wrappers)
+    lap("11")
 
     weights_phase(card, scenes, sweep_wrappers, conv_wrappers)
+    lap("12")
 
     for name, count in efficientnet_phase(card, scenes, detector, recognizer,
                                           sweep_wrappers).items():
         launches[name] += count
+    lap("13")
 
     for name, count in data_phase(card, sweep_wrappers).items():
         launches[name] += count
+    lap("14")
 
     fp32 = {"golden": fp32_golden, "times": times, "forward_ms": forward_ms,
             "detector": detector, "pipelines": {"standard": pipeline, "folded": folded_pipeline}}
@@ -3344,13 +3543,21 @@ def main() -> int:
                                             all_wrappers, bf16_kernel_report)
     report.update(bf16_report)
     launches.update(bf16_launches)
+    lap("15")
 
     for name, count in mesh_phase(card, {"standard": pipeline, "folded": folded_pipeline},
                                   scenes, all_wrappers).items():
         launches[name] += count
+    lap("16")
 
     for name, count in bf16_training_phase(card, float32_steps, scenes, all_wrappers).items():
         launches[name] += count
+    lap("17")
+
+    for name, count in spatial_phase(card, detector, folded, recognizer, scenes,
+                                     all_wrappers).items():
+        launches[name] += count
+    lap("18")
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",
@@ -3367,7 +3574,8 @@ def main() -> int:
         "conv_chain": conv_cuda.SOURCE, "conv3x3_bias_act": conv_cuda.SOURCE,
         "conv_chain_bf16": conv_cuda.SOURCE, "conv3x3_bias_act_bf16": conv_cuda.SOURCE,
     }
-    print(f"chip_smoke: all phases in {time.perf_counter() - started:.1f} s")
+    print(f"chip_smoke: all phases in {time.perf_counter() - started:.1f} s; by phase: "
+          + ", ".join(f"{name} {seconds:.1f}" for name, seconds in laps.items()))
     print(card)
     print(json.dumps({"kernels": [
         {

@@ -383,10 +383,30 @@ class Detector:
         :func:`getBoxes`, with a warning. ``use_device_postprocess=False``
         runs the oracle on every image.
         """
+        return self._detect_with(
+            self.model, images, detection_threshold, text_threshold, link_threshold,
+            size_threshold, use_device_postprocess,
+        )
+
+    @torch.inference_mode()
+    def _detect_with(
+        self,
+        craft,
+        images,
+        detection_threshold=0.7,
+        text_threshold=0.4,
+        link_threshold=0.4,
+        size_threshold=10,
+        use_device_postprocess: bool = True,
+        **kwargs,
+    ) -> typing.List[np.ndarray]:
+        """:meth:`detect` with ``craft`` (a callable from the normalised
+        batch on this detector's device to its heatmaps) in place of
+        ``self.model``: the pipeline's row strips on a spatial mesh."""
         if not len(images):
             return []
         batch = torch.from_numpy(np.stack([np.asarray(tools.read(image)) for image in images]))
-        heatmaps = self.model(image_ops.compute_input(batch.to(self.device)))
+        heatmaps = craft(image_ops.compute_input(batch.to(self.device)))
         thresholds = dict(
             detection_threshold=detection_threshold,
             text_threshold=text_threshold,

@@ -14,6 +14,13 @@ its convolutions NCHW inside (cuDNN). The BN-folded graph
 (``fold_bn=True``, inference only) stays NHWC and runs every conv but the
 s5 head as :func:`keras_ocr_tpu_torch.ops.conv_cuda.conv_chain` calls:
 the hand-written CUDA kernel on the card, ``F.conv2d`` on the CPU.
+Both graphs run the VGG backbone as the same conv chains (the layers up to
+each pool or tap) and can run on a row strip of the images
+(:mod:`..parallel.halo`): each chain, the s5 head, each decoder block and
+the cls head then take the rows their 3x3 and dilated convs and 3x3
+max-pool read across the strip's edges from the neighbouring strips, and
+each resize the rows its taps read; outside a strip forward they run as
+they are.
 Training mode (``model.train()``) is the JAX module's ``train=True``: the
 BatchNorms normalise with batch statistics and keep their running ones as
 Flax does (:class:`.layers.BatchNorm2d`, torch momentum 0.1 = Flax 0.9);
@@ -32,7 +39,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops import conv_cuda
-from ..ops.image import resize_bilinear
+from ..parallel import halo
 from .efficientnet import EfficientNetBackbone
 from .layers import BatchNorm2d, Conv2d, float32_output, full_float32, sigmoid
 
@@ -169,11 +176,24 @@ class VGG16BN(nn.Module):
                 self.channels[tap] = out_ch
             in_ch = out_ch
 
+    def chains(self):
+        """(blocks, pool, tap) of each conv chain: the blocks up to each
+        pool or tap (seven chains at CRAFT's layout), whether a 2x2 pool
+        follows, and the tap's name or None."""
+        blocks = []
+        for (slice_name, idx, _, pool), name in zip(VGG_BLOCKS, self.order):
+            blocks.append(getattr(self, name))
+            tap = _TAPS.get((slice_name, idx))
+            if pool or tap or name == self.order[-1]:
+                yield blocks, pool, tap
+                blocks = []
+
     def forward(self, x):
         taps = {}
-        for (slice_name, idx, _, pool), name in zip(VGG_BLOCKS, self.order):
-            x = getattr(self, name)(x)
-            tap = _TAPS.get((slice_name, idx))
+        for blocks, pool, tap in self.chains():
+            # One halo of a row per 3x3 conv; the pool after the crop sees
+            # whole row pairs, since strips start at even rows.
+            x = halo.apply(lambda t: _run(blocks, t), x, len(blocks), dim=2)
             if tap:
                 taps[tap] = x
             if pool:
@@ -182,23 +202,29 @@ class VGG16BN(nn.Module):
         return taps["s1"], taps["s2"], taps["s3"], taps["s4"]
 
     def forward_folded(self, x):
-        """The BN-folded backbone on NHWC ``x``: one conv chain up to each
-        pool or tap (seven chains at CRAFT's layout)."""
-        taps, blocks = {}, []
-        for (slice_name, idx, _, pool), name in zip(VGG_BLOCKS, self.order):
-            blocks.append(getattr(self, name))
-            tap = _TAPS.get((slice_name, idx))
-            if not (pool or tap or name == self.order[-1]):
-                continue
+        """The BN-folded backbone on NHWC ``x``: one conv chain a chain of
+        :meth:`chains`. On a strip a pooled chain takes an even halo, so
+        that its fused pool pairs the rows as the whole image's does."""
+        taps = {}
+        for blocks, pool, tap in self.chains():
             convs = [block.chain_conv() for block in blocks]
-            blocks = []
-            x = conv_cuda.conv_chain(x, convs, pool=pool, tap_prepool=bool(tap and pool))
-            if tap and pool:
+            both = bool(tap and pool)
+            x = halo.apply(
+                lambda t: conv_cuda.conv_chain(t, convs, pool=pool, tap_prepool=both),
+                x, -(-len(convs) // 2) * 2 if pool else len(convs), dim=1,
+                shrink=(2, 1) if both else (2 if pool else 1))
+            if both:
                 x, taps[tap] = x
             elif tap:
                 taps[tap] = x
         taps["s4"] = x
         return taps["s1"], taps["s2"], taps["s3"], taps["s4"]
+
+
+def _run(modules, x):
+    for module in modules:
+        x = module(x)
+    return x
 
 
 class UpConv(nn.Module):
@@ -268,29 +294,39 @@ class CRAFT(nn.Module):
             if self.training:
                 raise ValueError("fold_bn=True is an inference-only graph")
             return self._forward_folded(x)
+        if self.backbone_name != "vgg" and halo.current() is not None:
+            raise NotImplementedError(
+                "an EfficientNet CRAFT does not run on row strips: its squeeze-excite means "
+                "need every strip's rows (ROADMAP section 1, item 13b)")
         # contiguous(): from a permuted NHWC tensor cuDNN runs every conv in
         # its channels-last fp32 kernels (CRAFT at batch 8 x 960x1280
         # measured 903 ms instead of 235 ms on an H100).
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2).contiguous()
         s1, s2, s3, s4 = self.basenet(x)
-        s5 = F.max_pool2d(s4, 3, 1, padding=1)
-        s5 = self.slice5_2(self.slice5_1(s5))
+        # The 3x3 max-pool reads a row each side, the dilated conv six.
+        s5 = halo.apply(self._s5_head, s4, 7, dim=2)
 
-        def resize_to(y, skip):
-            return resize_bilinear(y, skip.shape[2], skip.shape[3], dims=(2, 3))
+        # Each decoder block's 3x3 conv reads a row each side.
+        y = halo.apply(self.upconv1, torch.cat([s5, s4], 1), 1, dim=2)
+        for block, skip in ((self.upconv2, s3), (self.upconv3, s2), (self.upconv4, s1)):
+            y = halo.apply_upsampled(block, y, skip, 1, dims=(2, 3), channels=1)
+        y = halo.apply(self._cls_head, y, 3, dim=2)
+        if self.backbone_name != "vgg":
+            y = sigmoid(y)
+        return float32_output(y.permute(0, 2, 3, 1))
 
-        y = self.upconv1(torch.cat([s5, s4], 1))
-        y = self.upconv2(torch.cat([resize_to(y, s3), s3], 1))
-        y = self.upconv3(torch.cat([resize_to(y, s2), s2], 1))
-        y = self.upconv4(torch.cat([resize_to(y, s1), s1], 1))
+    def _s5_head(self, s4):
+        """The s5 head on NCHW ``s4``: 3x3 stride-1 max-pool, the dilated
+        conv, the 1x1 conv."""
+        return self.slice5_2(self.slice5_1(F.max_pool2d(s4, 3, 1, padding=1)))
+
+    def _cls_head(self, y):
+        """The cls head on NCHW ``y`` up to the raw maps."""
         y = F.relu(self.conv_cls_0(y))
         y = F.relu(self.conv_cls_2(y))
         y = F.relu(self.conv_cls_4(y))
         y = F.relu(self.conv_cls_6(y))
-        y = self.conv_cls_8(y)
-        if self.backbone_name != "vgg":
-            y = sigmoid(y)
-        return float32_output(y.permute(0, 2, 3, 1))
+        return self.conv_cls_8(y)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -306,17 +342,15 @@ class CRAFT(nn.Module):
         roundings, :class:`.layers.Conv2d`)."""
         x = x.to(self.compute_dtype).contiguous()
         s1, s2, s3, s4 = self.basenet.forward_folded(x)
-        s5 = F.max_pool2d(s4.permute(0, 3, 1, 2).contiguous(), 3, 1, padding=1)
-        s5 = self.slice5_2(self.slice5_1(s5)).permute(0, 2, 3, 1).contiguous()
+        s5 = halo.apply(
+            lambda t: self._s5_head(t.permute(0, 3, 1, 2).contiguous())
+            .permute(0, 2, 3, 1).contiguous(), s4, 7)
 
-        def resize_to(y, skip):
-            return resize_bilinear(y, skip.shape[1], skip.shape[2])
-
-        y = self.upconv1.forward_folded(torch.cat([s5, s4], -1))
-        y = self.upconv2.forward_folded(torch.cat([resize_to(y, s3), s3], -1))
-        y = self.upconv3.forward_folded(torch.cat([resize_to(y, s2), s2], -1))
-        y = self.upconv4.forward_folded(torch.cat([resize_to(y, s1), s1], -1))
+        y = halo.apply(self.upconv1.forward_folded, torch.cat([s5, s4], -1), 1)
+        for block, skip in ((self.upconv2, s3), (self.upconv3, s2), (self.upconv4, s1)):
+            y = halo.apply_upsampled(block.forward_folded, y, skip, 1)
         head = [(self.conv_cls_0, True), (self.conv_cls_2, True), (self.conv_cls_4, True),
                 (self.conv_cls_6, True), (self.conv_cls_8, False)]
-        y = conv_cuda.conv_chain(y, [_chain_conv(conv, relu) for conv, relu in head])
+        convs = [_chain_conv(conv, relu) for conv, relu in head]
+        y = halo.apply(lambda t: conv_cuda.conv_chain(t, convs), y, 3)
         return float32_output(y)

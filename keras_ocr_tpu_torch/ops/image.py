@@ -70,6 +70,24 @@ def _axis_taps(in_size, out_size, device):
     return lo, hi, frac
 
 
+def _resize_axis(x, dim, lo, hi, frac):
+    """``x`` interpolated along ``dim`` at the taps (lo, hi, frac) of
+    :func:`_axis_taps`, in :func:`resize_bilinear`'s arithmetic."""
+    dtype = x.dtype
+    wide_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
+    shape = [1] * x.dim()
+    shape[dim] = lo.numel()
+    frac = frac.to(wide_dtype)
+    w_lo, w_hi = 1.0 - frac, frac
+    if dtype != wide_dtype:
+        # The JAX function's interpolation matrix holds the weights in the
+        # input's dtype.
+        w_lo, w_hi = w_lo.to(dtype).to(wide_dtype), w_hi.to(dtype).to(wide_dtype)
+    wide = x.to(wide_dtype)
+    return (w_lo.reshape(shape) * wide.index_select(dim, lo)
+            + w_hi.reshape(shape) * wide.index_select(dim, hi)).to(dtype)
+
+
 def resize_bilinear(x, height, width, dims=(1, 2)):
     """Bilinear resize with half-pixel centers of an NHWC batch (``dims``
     names the two spatial dimensions of another layout).
@@ -84,22 +102,36 @@ def resize_bilinear(x, height, width, dims=(1, 2)):
     in_h, in_w = x.shape[hdim], x.shape[wdim]
     if height == 2 * in_h and width == 2 * in_w:
         return _upscale2x(x, dims)
-    dtype = x.dtype
-    wide_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
     for dim, size in ((hdim, height), (wdim, width)):
-        lo, hi, frac = _axis_taps(x.shape[dim], size, x.device)
-        shape = [1] * x.dim()
-        shape[dim] = size
-        frac = frac.to(wide_dtype)
-        w_lo, w_hi = 1.0 - frac, frac
-        if dtype != wide_dtype:
-            # The JAX function's interpolation matrix holds the weights in
-            # the input's dtype.
-            w_lo, w_hi = w_lo.to(dtype).to(wide_dtype), w_hi.to(dtype).to(wide_dtype)
-        wide = x.to(wide_dtype)
-        x = (w_lo.reshape(shape) * wide.index_select(dim, lo)
-             + w_hi.reshape(shape) * wide.index_select(dim, hi)).to(dtype)
+        x = _resize_axis(x, dim, *_axis_taps(x.shape[dim], size, x.device))
     return x
+
+
+def source_rows(in_height, height, start, stop):
+    """The rows ``[first, last)`` of a source ``in_height`` rows high that
+    rows ``[start, stop)`` of its :func:`resize_bilinear` to ``height``
+    rows read, one more on each side (clipped to the source), so that
+    taps computed on another device cannot fall outside."""
+    lo, hi, _ = _axis_taps(in_height, height, torch.device("cpu"))
+    return (max(0, int(lo[start:stop].min()) - 1),
+            min(in_height, int(hi[start:stop].max()) + 2))
+
+
+def resize_rows(x, first, in_height, height, start, stop, width, dims=(1, 2)):
+    """Rows ``[start, stop)`` of ``resize_bilinear(X, height, width,
+    dims)``, where ``x`` holds rows ``[first, first + n)`` of ``X``
+    (``in_height`` rows in all) and at least those that :func:`source_rows`
+    names: the taps are the whole image's, so the rows are those of the
+    whole resize, bit for bit (a row strip's resize)."""
+    hdim, wdim = dims
+    if height == 2 * in_height and width == 2 * x.shape[wdim]:
+        # The rows at x's own edges are clamped to x's, not the image's,
+        # unless they are the image's: source_rows keeps them out of the
+        # rows asked for.
+        return _upscale2x(x, dims).narrow(hdim, start - 2 * first, stop - start)
+    lo, hi, frac = _axis_taps(in_height, height, x.device)
+    x = _resize_axis(x, hdim, lo[start:stop] - first, hi[start:stop] - first, frac[start:stop])
+    return _resize_axis(x, wdim, *_axis_taps(x.shape[wdim], width, x.device))
 
 
 def upsample_like(source, target):

@@ -1,6 +1,6 @@
-"""The port's multi-device layer: meshes, shardings, replicas."""
+"""The port's multi-device layer: meshes, shardings, replicas, row strips."""
 
-from . import mesh, replicas
+from . import halo, mesh, replicas
 from .mesh import (
     Mesh,
     Sharding,
@@ -14,4 +14,5 @@ from .mesh import (
     shard_batch,
     shard_params,
     spatial_sharding,
+    strip_bounds,
 )

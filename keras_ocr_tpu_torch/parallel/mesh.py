@@ -10,8 +10,13 @@ as JAX's is: one Python call drives every device. The axes:
   index 0 (:func:`data_rows`);
 * ``model``: the devices of one data position. The CRNN trainer's
   ``tensor_parallel`` splits the columns of the wide kernels over them
-  (:func:`crnn_param_sharding`); otherwise they hold replicas that need not
-  compute.
+  (:func:`crnn_param_sharding`). The pipeline, where the axis has several
+  devices, cuts each image of the position into row strips
+  (:func:`strip_bounds`, JAX's :func:`spatial_sharding`), strip ``k`` on
+  the position's ``k``-th ``model`` device, and runs CRAFT strip by strip
+  with halo exchanges between neighbouring strips
+  (:mod:`.halo`). The trainers keep one replica on the first device of
+  each position.
 
 A device may appear more than once: ``devices=[torch.device("cpu")] * 8``
 makes the 8 fake devices the CPU tests use, ``[cuda:0, cuda:0]`` two
@@ -161,9 +166,24 @@ def replicated(mesh: Mesh) -> Sharding:
 
 def spatial_sharding(mesh: Mesh) -> Sharding:
     """An NHWC batch with the batch on ``data`` and the height on
-    ``model``. The port's ``Pipeline`` does not run it (the per-layer halo
-    exchange through CRAFT is not ported)."""
+    ``model``: what ``Pipeline(mesh=...)`` runs CRAFT on where ``model``
+    has several devices (row strips, :func:`strip_bounds`)."""
     return Sharding(mesh, ("data", "model"))
+
+
+# CRAFT's total stride (four 2x2 pools): strips cut at multiples of it give
+# every pool and every 2x upsampling whole row pairs at every level.
+STRIP_ROWS = 16
+
+
+def strip_bounds(height: int, parts: int) -> typing.List[int]:
+    """Row bounds of ``parts`` strips of an image ``height`` rows high:
+    strip ``k`` is rows ``[bounds[k], bounds[k + 1])``. The inner bounds
+    are multiples of :data:`STRIP_ROWS`, spread as evenly as they go; the
+    last strip takes the remainder. A height below ``STRIP_ROWS * parts``
+    leaves some strips empty."""
+    units = height // STRIP_ROWS
+    return [STRIP_ROWS * (k * units // parts) for k in range(parts)] + [height]
 
 
 def data_size(mesh: Mesh) -> int:
@@ -173,7 +193,9 @@ def data_size(mesh: Mesh) -> int:
 
 def data_rows(mesh: Mesh) -> typing.List[typing.List[torch.device]]:
     """One list per data position, in batch order (``slice`` major): the
-    devices of its ``model`` axis. A shard runs on the first of them."""
+    devices of its ``model`` axis, in ``model`` order. A shard is uploaded
+    to and post-processed on the first of them; the pipeline's CRAFT strips
+    run on all of them."""
     unknown = set(mesh.axis_names) - {"slice", "data", "model"}
     if "data" not in mesh.axis_names or unknown:
         raise ValueError(f"a batch mesh has a 'data' axis and optional 'slice' and 'model' "

@@ -22,6 +22,13 @@ the mesh. Here one Python process drives every device, so
   ``torch.func.functional_call`` of its own replica with the parameters
   moved to the shard's device, so that backward reduces the gradients into
   the module's own through the moves.
+
+The pipeline's spatial sharding runs on a kind of group of its own: one
+thread a row strip of the images, each strip on its own ``model`` device
+with its device's replica, the threads taking turns and meeting at every
+layer that reads rows across a strip edge to take their neighbours' rows
+(:class:`.halo.StripGroup`, whose threads see it as
+:func:`.halo.current`).
 """
 
 from __future__ import annotations
@@ -38,9 +45,11 @@ from . import mesh as mesh_lib
 _local = threading.local()
 
 
-def current() -> typing.Optional[typing.Tuple["ReplicaGroup", int]]:
-    """The (group, rank) of the replica forward this thread runs, else None."""
-    return getattr(_local, "replica", None)
+def current(context: str = "replica") -> typing.Optional[typing.Tuple["ReplicaGroup", int]]:
+    """The (group, rank) of the ``context`` this thread runs in (a
+    :class:`ReplicaGroup`'s replica forward; ``"strip"``: a
+    :class:`.halo.StripGroup`'s strip), else None."""
+    return getattr(_local, context, None)
 
 
 def _tensors(module: torch.nn.Module):
@@ -88,7 +97,10 @@ class ReplicaGroup:
     rank 0 in the calling thread, the others in worker threads that live
     as long as the group, so that per-thread caches (cuDNN's execution
     plans are kept per thread) outlast a step. An exception in one rank
-    breaks the barrier for the others and is raised by :meth:`run`."""
+    breaks the barrier for the others and is raised by :meth:`run`.
+    ``context`` names the thread-local slot :func:`current` reads."""
+
+    context = "replica"
 
     def __init__(self, size: int):
         self.size = size
@@ -99,18 +111,18 @@ class ReplicaGroup:
 
     def run(self, fn: typing.Callable[[int], typing.Any]) -> list:
         """``[fn(0), ..., fn(size - 1)]``, run together, each with this
-        group as :func:`current`."""
+        group as :func:`current` of its ``context``."""
 
         def work(rank):
-            outer = current()
-            _local.replica = (self, rank)
+            outer = current(self.context)
+            setattr(_local, self.context, (self, rank))
             try:
                 return fn(rank)
             except BaseException:
                 self._barrier.abort()  # the other ranks stop waiting for this one
                 raise
             finally:
-                _local.replica = outer
+                setattr(_local, self.context, outer)
 
         futures = [self._pool.submit(work, rank) for rank in range(1, self.size)]
         results, errors = [None] * self.size, []

@@ -35,7 +35,14 @@ device and its device program enqueued on that device's replica of the
 models (:class:`..parallel.replicas.ModuleReplicas`) before any result is
 waited for; the fetch gathers the shards and the escalation ladders judge
 the whole batch. A mesh whose ``model`` axis has several devices asks for
-the JAX package's spatial sharding, which is not ported.
+the JAX package's spatial sharding: each data position's images are
+upscaled and normalised on its first device, cut into row strips, one a
+``model`` device, CRAFT runs on the strips together with halo exchanges
+between them (:mod:`..parallel.halo`), and the heatmaps come back whole to
+the first device, where ``get_boxes``, refine, the crops and the CRNN run
+as without the axis. The two-stage path's ``Detector.detect`` runs CRAFT
+on the first data position's strips. An EfficientNet detector does not
+run on strips (ROADMAP section 1, item 13b) and raises.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from ..ops import refine as refine_ops
 from ..ops.image import compute_input, resize_bilinear, rgb_to_grayscale
 from ..ops.warp import WINDOW_LADDER, warp_boxes_batch, window_overflow
 from ..parallel import mesh as mesh_lib
+from ..parallel.halo import StripForward
 from ..parallel.replicas import ModuleReplicas
 from ..recognition import Recognizer
 
@@ -183,7 +191,9 @@ class Pipeline:
         pad_to: optional (height, width) every batch is padded to.
         mesh: optional :class:`..parallel.Mesh` whose ``slice`` x ``data``
             positions share each batch (data-parallel inference, the
-            models replicated); its ``model`` axis must have one device.
+            models replicated); where its ``model`` axis has several
+            devices, each position runs CRAFT on row strips over them
+            (spatial sharding; VGG detectors only).
         word_buckets: increasing word-capacity ladder ending at
             ``max_words`` (default ``(16, max_words)``).
     """
@@ -236,16 +246,24 @@ class Pipeline:
         self._detector_chunk = 16
         self.mesh = mesh
         self._shard_devices = [self.device]
+        # One StripForward a data position where the mesh asks for spatial
+        # sharding, else None.
+        self._strips = [None]
         if mesh is not None:
             mesh_lib.check_mesh(mesh)
+            rows = mesh_lib.data_rows(mesh)
+            self._shard_devices = [row[0] for row in rows]
+            self._strips = [None] * len(rows)
             if mesh.shape.get("model", 1) > 1:
-                raise NotImplementedError(
-                    f"a mesh with {mesh.shape['model']} devices on its 'model' axis asks for "
-                    "spatial sharding (image height over 'model', with conv halo exchanges "
-                    "through CRAFT), which is not ported (ROADMAP section 1, item 13: spatial "
-                    "sharding); use a mesh whose 'model' axis has one device"
-                )
-            self._shard_devices = [row[0] for row in mesh_lib.data_rows(mesh)]
+                if detector.backbone_name != "vgg":
+                    raise NotImplementedError(
+                        f"a mesh with {mesh.shape['model']} devices on its 'model' axis runs "
+                        f"CRAFT on row strips, which the {detector.backbone_name} backbone "
+                        "does not: its squeeze-excite means need every strip's rows (ROADMAP "
+                        "section 1, item 13b: spatial sharding of EfficientNet detectors); use "
+                        "a mesh whose 'model' axis has one device"
+                    )
+                self._strips = [StripForward(row) for row in rows]
         self._replicas = (ModuleReplicas(), ModuleReplicas())
 
     def _models(self, device):
@@ -258,15 +276,27 @@ class Pipeline:
         return tuple(replicas.get(owner.model, device)
                      for replicas, owner in zip(self._replicas, owners))
 
+    def _craft(self, position, craft):
+        """The CRAFT forward of data position ``position``: ``craft`` (its
+        model on the position's first device), or where the mesh asks for
+        spatial sharding that model's replicas run on the position's row
+        strips."""
+        strips = self._strips[position]
+        if strips is None:
+            return craft
+        models = [self._replicas[0].get(self.detector.model, d) for d in strips.devices]
+        return lambda x: strips(models, x)
+
     @torch.inference_mode()
-    def _device_pipeline(self, images, *args, **kwargs):
+    def _device_pipeline(self, images, *args, position=0, **kwargs):
         """:func:`device_program` of this pipeline's models (their replicas
-        on ``images``' device) on (B, H, W, 3) uint8 ``images``, under
-        inference mode."""
+        on ``images``' device; CRAFT on the row strips of data position
+        ``position`` where the mesh asks for them) on (B, H, W, 3) uint8
+        ``images``, under inference mode."""
         craft, crnn = self._models(images.device)
         chunk = self._detector_chunk if self.mesh is None else len(images)
         return device_program(
-            craft, crnn, self.recognizer.input_shape, images, *args,
+            self._craft(position, craft), crnn, self.recognizer.input_shape, images, *args,
             detector_chunk=chunk, **kwargs,
         )
 
@@ -383,8 +413,9 @@ class Pipeline:
                 num_sweeps=sweeps,
                 refine_level=refine_level,
                 warp_level=warp_level,
+                position=position,
             )
-            for shard in device_batch
+            for position, shard in enumerate(device_batch)
         ]
 
     def _fetch_escalating(
@@ -566,7 +597,11 @@ class Pipeline:
             images = [tools.read(image) for image in images]
         resized, scales, extent = self._resize_on_host(images)
         batch = self._pad_batch(resized, *extent)
-        box_groups = self.detector.detect(images=batch, **detection_kwargs)
+        if self._strips[0] is None:
+            box_groups = self.detector.detect(images=batch, **detection_kwargs)
+        else:
+            box_groups = self.detector._detect_with(
+                self._craft(0, self.detector.model), batch, **detection_kwargs)
         prediction_groups = self.recognizer.recognize_from_boxes(
             images=batch, box_groups=box_groups, **recognition_kwargs
         )
@@ -633,6 +668,11 @@ class Pipeline:
                 index into ``ops.refine.LADDER``, clamped; 0 = tier 1 only).
                 Components its proofs cannot handle surface as
                 ``refine_pending`` in :meth:`ExportedPipeline.recognize`.
+
+        On a mesh the program is traced on the mesh's first device, with
+        CRAFT whole (no row strips, also where the mesh's ``model`` axis
+        asks for them): the artifact serves one device, as the JAX export
+        ignores the mesh.
 
         The warp window is the first ``WINDOW_LADDER`` rung that holds the
         whole scaled envelope (every crop then takes the exact slice path),

@@ -11,7 +11,8 @@ full-width train step of the CRNN and of CRAFT (MSE and OHEM) on the card
 against the same step on the CPU (losses in float32, gradients in float64),
 and falling losses; the forwards' float32 parity under PyTorch's default
 TF32 flags; an EfficientNet-B0 ``Detector.detect`` on the card against its
-CPU run; the conv kernel's bfloat16 mode against its plain bf16 version,
+CPU run; the folded CRAFT on two row strips of the card against the whole
+forward; the conv kernel's bfloat16 mode against its plain bf16 version,
 the bfloat16 CRAFT (VGG, folded, B0) and CRNN on the card against their
 CPU runs, and the bfloat16 golden pipeline live and exported.
 
@@ -489,6 +490,30 @@ def test_folded_craft_on_card_matches_unfolded(device, full_fp32, shape):
     assert out.shape == ref.shape == (shape[0], shape[1] // 2, shape[2] // 2, 2)
     bar = 1e-4 * max(1.0, float(ref.abs().max()))
     assert float((out - ref).abs().max()) <= bar
+
+
+def test_folded_strips_on_card_launch_the_kernel_and_match(device, full_fp32):
+    """Spatial sharding on one card: the BN-folded CRAFT on two row strips
+    of ``[cuda, cuda]`` (``parallel/halo.py``; 136 rows, so the decoder's
+    first resize is not 2x) launches the conv kernel for all 12 chains of
+    each strip, and the heatmaps equal the unsharded forward's within
+    1e-4 x max(1, max|ref|)."""
+    from keras_ocr_tpu_torch.parallel import halo
+
+    model = init_parameters(CRAFT(width=0.25), seed=0)
+    folded = CRAFT(width=0.25, fold_bn=True)
+    folded.load_state_dict(fold_bn_state_dict(model.state_dict()))
+    folded = folded.to(device).eval()
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(2, 136, 200, 3).astype(np.float32)).to(device)
+    with torch.inference_mode():
+        ref = folded(x)
+        chains = conv_cuda.conv_chain.launches
+        out = halo.StripForward([device, device])([folded, folded], x)
+    torch.cuda.synchronize()
+    assert conv_cuda.conv_chain.launches == chains + 24
+    assert out.shape == ref.shape == (2, 68, 100, 2)
+    assert float((out - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
 
 
 # The window batches of the refine ladder on (8, 480, 640) heatmaps, as

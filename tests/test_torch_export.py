@@ -7,15 +7,15 @@ exported at its ``pad_to`` envelope, loaded and served on golden scenes:
 the loaded program's packed output must equal the live device program's
 at the baked levels bit for bit, and the served words must equal the JAX
 pipeline's with every box at IoU > 0.9. Ported from ``tests/test_pipeline.py``:
-the slice by the artifact's own ``ctc_time`` and the export against the
-live refine ladder on a multi-blob scene (CRAFT stood in by fixed
-heatmaps). One export a graph serves the file's cases (a shared fixture),
-and one JAX compile the word comparison.
+the slice by the artifact's own ``ctc_time``; the export against the live
+refine ladder on a multi-blob scene is in
+``tests/test_torch_export_multiblob.py``. One export a graph serves the
+file's cases (a shared fixture), and one JAX compile the word comparison
+of both graphs (the folded case after the standard one takes about half
+the time it takes alone, so the two stay in one file).
 """
 
 import os
-import string
-import sys
 
 import numpy as np
 import pytest
@@ -23,7 +23,7 @@ import torch
 
 from keras_ocr_tpu import evaluation
 from keras_ocr_tpu.utils import golden as jgolden
-from keras_ocr_tpu_torch import Detector, Pipeline, Recognizer, load_exported, tools
+from keras_ocr_tpu_torch import load_exported, tools
 from keras_ocr_tpu_torch.ops import cc_cuda, conv_cuda  # noqa: F401  (registers the ops)
 from keras_ocr_tpu_torch.pipeline import ExportedPipeline
 from keras_ocr_tpu_torch.utils import golden
@@ -206,49 +206,3 @@ def test_exported_pipeline_slices_by_artifact_ctc_time():
         [(word, box)] = served.recognize([image])[0]
         assert word == "aba", (extra_cols, word)
         assert box.shape == (4, 2)
-
-
-class _FixedCraft(torch.nn.Module):
-    """A CRAFT stand-in returning fixed (H/2, W/2, 2) heatmaps."""
-
-    def __init__(self, heatmaps):
-        super().__init__()
-        self.register_buffer("heatmaps", torch.from_numpy(heatmaps))
-
-    def forward(self, x):
-        return self.heatmaps[None].expand((x.shape[0],) + self.heatmaps.shape)
-
-
-def test_export_matches_live_on_multiblob_scene(tmp_path):
-    """The artifact's default refine level reproduces the live pipeline's
-    refine ladder on multi-blob components, with clean diagnostics."""
-    sys.path.insert(0, os.path.dirname(__file__))
-    from test_refine import _multiblob_heatmap
-
-    hm = _multiblob_heatmap(np.random.RandomState(5), n_words=2)
-    detector = Detector(weights=None, width=0.25, max_components=16, device="cpu")
-    detector.model = _FixedCraft(hm)
-    recognizer = Recognizer(weights=None, alphabet=string.digits + string.ascii_lowercase,
-                            build_params=golden._read_json(GOLDEN, golden.META_NAME)
-                            ["recognizer_build_params"], device="cpu")
-    image_height, image_width = hm.shape[0] * 2, hm.shape[1] * 2
-    pipeline = Pipeline(detector=detector, recognizer=recognizer, scale=1, max_words=8,
-                        pad_to=(image_height, image_width))
-    image = np.zeros((image_height, image_width, 3), dtype="uint8")
-
-    live = pipeline.recognize(images=[image])[0]
-    assert pipeline.last_run_stats["refine_escalations"] >= 1
-    assert len(live) >= 2
-
-    path = str(tmp_path / "ocr_multiblob")
-    pipeline.export(path, height=image_height, width=image_width)
-    exported, diags = load_exported(path).recognize([image], return_diagnostics=True)
-    exported = exported[0]
-    assert [w for w, _ in exported] == [w for w, _ in live]
-    for (_, box_a), (_, box_b) in zip(exported, live):
-        np.testing.assert_allclose(box_a, box_b, atol=1e-4)
-    assert diags[0]["refine_pending"] is False
-    assert diags[0]["warp_downscaled"] is False
-    assert diags[0]["converged"] is True
-    assert diags[0]["truncated"] is False
-    assert diags[0]["n_components"] >= 2

@@ -9,7 +9,9 @@ follows a device through the grid).
 - ``Pipeline(mesh=...)`` on 3 images (padding to the mesh): the words of
   the port's unsharded pipeline and of JAX's sharded one exactly, boxes
   within 1e-4 (``tests/test_pipeline.py``'s sharded case, slim models); a
-  mesh with a ``model`` axis raises ``NotImplementedError``;
+  mesh with a ``model`` axis runs a VGG detector on row strips
+  (``tests/test_torch_spatial.py``) and refuses an EfficientNet one with
+  ``NotImplementedError``;
 - BatchNorm over a replica group equals BatchNorm on the whole batch
   (outputs, gradients, running statistics).
 
@@ -19,6 +21,7 @@ computations are module fixtures.
 
 import string
 import threading
+import urllib.request
 
 import jax
 import jax.numpy as jnp
@@ -243,11 +246,32 @@ def test_pipeline_on_a_mesh_matches(pipeline_models, jax_sharded_reading, name):
     assert [[w for w, _ in r] for r in many] == [[w for w, _ in r] for r in results * 2]
 
 
+@pytest.fixture(scope="module")
+def efficientnet_detector(tmp_path_factory):
+    """A B0 detector built offline: no network, empty weight directories
+    (the ImageNet backbone file is missing, so it warns and stays random)."""
+    root = tmp_path_factory.mktemp("offline")
+    with pytest.MonkeyPatch.context() as patch:
+        def refuse(*args, **kwargs):
+            raise OSError("no network in the tests")
+
+        patch.setattr(urllib.request, "urlopen", refuse)
+        patch.setenv("KERAS_OCR_TPU_VENDORED_WEIGHTS", str(root / "vendored"))
+        patch.setenv("KERAS_OCR_TPU_CACHE_DIR", str(root / "cache"))
+        patch.delenv("KERAS_OCR_TPU_WEIGHTS_MIRROR", raising=False)
+        with pytest.warns(UserWarning, match="ImageNet"):
+            return Detector(weights=None, backbone_name="efficientnetb0", device="cpu")
+
+
 @pytest.mark.parametrize("name", ["4x2", "hybrid_2x2x2"])
-def test_pipeline_refuses_a_model_axis(pipeline_models, name):
+def test_pipeline_refuses_a_model_axis(pipeline_models, efficientnet_detector, name):
+    """A VGG detector runs on row strips (``tests/test_torch_spatial.py``);
+    an EfficientNet one does not (its squeeze-excite means span the strips)
+    and raises naming ROADMAP item 13b; a JAX mesh raises ``TypeError``."""
     _, (detector, recognizer) = pipeline_models
-    with pytest.raises(NotImplementedError, match="spatial sharding"):
-        Pipeline(detector, recognizer, mesh=_port_mesh(name))
+    with pytest.raises(NotImplementedError, match="item 13b"):
+        Pipeline(efficientnet_detector, recognizer, mesh=_port_mesh(name))
+    assert Pipeline(detector, recognizer, mesh=_port_mesh(name))._strips[0] is not None
     with pytest.raises(TypeError, match="Mesh"):
         Pipeline(detector, recognizer, mesh=_jax_mesh(name))
 
