@@ -253,7 +253,16 @@ Phases, each printing one line; any failure exits non-zero:
    no mesh and the three meshes in turns) and the first round's peak
    memory above the models; the folded graphs' CRAFT forward at
    960x1280, batch 1 and 8, without strips and on 2 and 4 (CUDA events,
-   median of 10).
+   median of 10). Then the same for the EfficientNet-B0 CRAFT in float32
+   and bfloat16 (``Detector(weights=None, backbone_name="efficientnetb0")``
+   with the network refused, seeded BatchNorm statistics, the bf16 graph
+   on the float32 one's weights): heatmaps at the same bars, every pixel
+   text and no link for the checked ``recognize_many`` (one box an image,
+   so that heatmaps within the bars give the same boxes), its sweep calls
+   held to their plain versions and counted, the timed rounds at the
+   default thresholds, the float32 forwards with the strip forward's
+   meetings; and one EfficientNet-B7 heatmap check at batch 1 on 2
+   strips, whose deeper stages meet most often.
 
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
@@ -2652,6 +2661,15 @@ SPATIAL_ROUNDS = 3
 SPATIAL_FORWARD_RUNS = 10
 SPATIAL_BAR = 1e-4
 SPATIAL_BF16_BARS = (8e-3, 1e-3)
+# detect's thresholds for the EfficientNet graphs' checks, whose random
+# sigmoid heatmaps sit near 0.5: every pixel text and no link, one box an
+# image, so that heatmaps within the bars give the same boxes. Their timed
+# rounds take the defaults, as every graph's do (a whole-image box climbs
+# the warp ladder, and random heatmaps at quantile thresholds give dozens
+# of blobs an image: either way the host's post-processing would take the
+# time).
+SPATIAL_B0_KWARGS = {"detection_threshold": -10.0, "text_threshold": -10.0,
+                     "link_threshold": 10.0, "size_threshold": 1}
 
 
 def words_and_boxes(results):
@@ -2673,16 +2691,27 @@ def spatial_phase(card, detector, folded, recognizer, scenes, wrappers):
     folded_bf16 = Detector(weights=None, width=1.0, fold_bn=True, compute_dtype=torch.bfloat16,
                            device=device)
     folded_bf16.model.load_state_dict(folded.model.state_dict())
-    graphs = {"standard": detector, "folded": folded, "folded bf16": folded_bf16}
+    # The seconds of the EfficientNet graphs' part of the phase.
+    efficientnet_s = time.perf_counter()
+    b0, warned = efficientnet_detector("efficientnetb0", device)
+    if warned:
+        seed_batch_norm(b0.model, seed=2)
+    b0_bf16, _ = efficientnet_detector("efficientnetb0", device, compute_dtype=torch.bfloat16)
+    b0_bf16.model.load_state_dict(b0.model.state_dict())
+    efficientnet_s = time.perf_counter() - efficientnet_s
+    graphs = {"standard": (detector, {}), "folded": (folded, {}),
+              "folded bf16": (folded_bf16, {}), "B0": (b0, SPATIAL_B0_KWARGS),
+              "B0 bf16": (b0_bf16, SPATIAL_B0_KWARGS)}
     meshes = {label: make(parallel, device) for label, make in SPATIAL_MESHES.items()}
     images = scenes[:SPATIAL_IMAGES]
     launches = {}
     checks_s = rates_s = forwards_s = 0.0
-    for graph, owner in graphs.items():
-        start = time.perf_counter()
+    for graph, (owner, kwargs) in graphs.items():
+        graph_start = start = time.perf_counter()
         bf16 = owner.model.dtype == torch.bfloat16
         plain = Pipeline(owner, recognizer, 2, word_buckets=(64,))
-        want_words, want_boxes = words_and_boxes(plain.recognize_many(images, batch_size=8))
+        want_words, want_boxes = words_and_boxes(plain.recognize_many(
+            images, batch_size=8, detection_kwargs=kwargs))
         with torch.inference_mode():
             x = craft_input(plain, scenes[:2])
             ref = owner.model(x)
@@ -2710,13 +2739,13 @@ def spatial_phase(card, detector, folded, recognizer, scenes, wrappers):
             undo = checked_sweeps(cc, cc_cuda, sweep_calls)
             craft_module.conv_cuda = CheckedConvs(conv_cuda, conv_calls, f"{graph} strip chain")
             try:
-                results = pipe.recognize_many(images, batch_size=8)
+                results = pipe.recognize_many(images, batch_size=8, detection_kwargs=kwargs)
             finally:
                 craft_module.conv_cuda = conv_cuda
                 undo()
             check_results(results, len(images))
             counted = {name: wrapper.launches for name, wrapper in wrappers.items()
-                       if graph != "standard" or name.startswith("cc_")}
+                       if owner.fold_bn or name.startswith("cc_")}
             if min(counted.values()) <= 0:
                 raise AssertionError(f"{graph} on the {label} mesh launched {counted}")
             words, boxes = words_and_boxes(results)
@@ -2751,11 +2780,12 @@ def spatial_phase(card, detector, folded, recognizer, scenes, wrappers):
         rates_s += time.perf_counter() - start
         start = time.perf_counter()
         # CRAFT forwards at 960x1280, batch 1 and 8: no strips, 2 and 4;
-        # the folded graphs only (the conv kernel on strips), to keep the
-        # script's time.
+        # the folded graphs (the conv kernel on strips) and the float32 B0
+        # (cuDNN's depthwise convs and the squeeze-excite meetings), to
+        # keep the script's time.
         forward_ms = {}
         with torch.inference_mode():
-            for batch in ((1, 8) if graph != "standard" else ()):
+            for batch in ((1, 8) if graph in ("folded", "folded bf16", "B0") else ()):
                 x = torch.randn((batch, 960, 1280, 3), device=device,
                                 generator=torch.Generator(device=device).manual_seed(batch))
                 for label in ("no mesh", "1x2", "1x4"):
@@ -2763,24 +2793,68 @@ def spatial_phase(card, detector, folded, recognizer, scenes, wrappers):
                     forward_ms[label, batch] = cuda_median_ms(lambda: fn(x),
                                                               runs=SPATIAL_FORWARD_RUNS)
                 del x
+        meetings = {label: strip_meetings(pipes[label]) for label in ("1x2", "1x4")}
         forwards_s += time.perf_counter() - start
         print(f"spatial ({card}): {graph} full width, {len(images)} scenes (640x480, scale 2, "
               f"one word bucket of 64) against no mesh: " + "; ".join(lines)
-              + f"; recognize_many images/s at batch 8, median [range] of {SPATIAL_ROUNDS} "
-              f"in turns, and peak GB above the models: " + ", ".join(
+              + f"; recognize_many images/s at batch 8 (default thresholds), median [range] of "
+              f"{SPATIAL_ROUNDS} in turns, and peak GB above the models: " + ", ".join(
                   f"{label} {statistics.median(v):.2f} [{min(v):.2f}-{max(v):.2f}] "
                   f"({peaks[label]:.3f} GB)" for label, v in rates.items())
               + ("" if not forward_ms else
                  f"; CRAFT forward at 960x1280 (median of {SPATIAL_FORWARD_RUNS}) batch 1 / 8: "
                  + ", ".join(f"{label} {forward_ms[label, 1]:.3f} / "
-                             f"{forward_ms[label, 8]:.3f} ms" for label in ("no mesh", "1x2", "1x4"))))
+                             f"{forward_ms[label, 8]:.3f} ms"
+                             for label in ("no mesh", "1x2", "1x4"))
+                 + f" (meetings a strip forward: 1x2 {meetings['1x2']}, 1x4 "
+                 f"{meetings['1x4']})"))
         del pipes, plain
         gc.collect()
         torch.cuda.empty_cache()
+        if owner.backbone_name != "vgg":
+            efficientnet_s += time.perf_counter() - graph_start
+    del graphs, b0, b0_bf16, folded_bf16
+    start = time.perf_counter()
+    b7_line = b7_strips(card, recognizer, scenes, meshes["1x2"])
+    checks_s += time.perf_counter() - start
+    efficientnet_s += time.perf_counter() - start
+    print(b7_line)
     print(f"spatial ({card}): launches on the strip path {launches}; phase 18 took "
           f"{time.perf_counter() - phase_start:.1f} s (checks {checks_s:.1f}, rates "
-          f"{rates_s:.1f}, forwards {forwards_s:.1f})")
+          f"{rates_s:.1f}, forwards {forwards_s:.1f}; the EfficientNet B0 and B7 part "
+          f"{efficientnet_s:.1f})")
     return launches
+
+
+def strip_meetings(pipe) -> int:
+    """The meetings of each strip in the last strip forward of ``pipe``'s
+    first data position."""
+    strips = pipe._strips[0]
+    return strips._groups[len(strips.devices)]._count[0]
+
+
+def b7_strips(card, recognizer, scenes, mesh):
+    """Phase 18's EfficientNet-B7 check: its heatmaps of one scene
+    (960x1280) on the strips of ``mesh`` against the whole forward, at
+    the float32 bar. Returns the line to print."""
+    from keras_ocr_tpu_torch import Pipeline
+
+    b7, warned = efficientnet_detector("efficientnetb7", recognizer.device, seed=18)
+    if warned:
+        seed_batch_norm(b7.model, seed=18)
+    pipe = Pipeline(b7, recognizer, 2, mesh=mesh, word_buckets=(64,))
+    with torch.inference_mode():
+        x = craft_input(pipe, scenes[:1])
+        ref = b7.model(x)
+        heatmaps = pipe._craft(0, b7.model)(x)
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((heatmaps - ref).abs().max())
+    if heatmaps.shape != ref.shape or not err <= SPATIAL_BAR * scale:
+        raise AssertionError(f"B7 strips: heatmaps {tuple(heatmaps.shape)}, max {err} "
+                             f"(bar {SPATIAL_BAR * scale})")
+    return (f"spatial ({card}): B7 heatmaps of 1 scene (960x1280) on 2 strips within {err:.3e} "
+            f"of the whole forward (bar {SPATIAL_BAR} x max(1, max|ref| {scale:.3f})), "
+            f"{strip_meetings(pipe)} meetings a strip")
 
 
 # Phase 15: bfloat16. The bf16 mode's bound: the H100 SXM's dense bf16

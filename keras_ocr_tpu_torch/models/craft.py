@@ -20,7 +20,9 @@ each pool or tap) and can run on a row strip of the images
 the cls head then take the rows their 3x3 and dilated convs and 3x3
 max-pool read across the strip's edges from the neighbouring strips, and
 each resize the rows its taps read; outside a strip forward they run as
-they are.
+they are. The EfficientNet backbones run on strips too
+(:mod:`.efficientnet`: halo rows for the depthwise convs, the whole
+image's pads for the strided ones, whole-image squeeze-excite means).
 Training mode (``model.train()``) is the JAX module's ``train=True``: the
 BatchNorms normalise with batch statistics and keep their running ones as
 Flax does (:class:`.layers.BatchNorm2d`, torch momentum 0.1 = Flax 0.9);
@@ -294,10 +296,6 @@ class CRAFT(nn.Module):
             if self.training:
                 raise ValueError("fold_bn=True is an inference-only graph")
             return self._forward_folded(x)
-        if self.backbone_name != "vgg" and halo.current() is not None:
-            raise NotImplementedError(
-                "an EfficientNet CRAFT does not run on row strips: its squeeze-excite means "
-                "need every strip's rows (ROADMAP section 1, item 13b)")
         # contiguous(): from a permuted NHWC tensor cuDNN runs every conv in
         # its channels-last fp32 kernels (CRAFT at batch 8 x 960x1280
         # measured 903 ms instead of 235 ms on an H100).

@@ -25,6 +25,17 @@ Three things follow the Flax modules rather than torch's defaults:
 A bfloat16 input runs the whole backbone in bfloat16 with float32
 parameters, rounding as the Flax modules do (:mod:`.layers`).
 
+The backbone runs on a row strip of the images (:mod:`..parallel.halo`,
+the pipeline's spatial sharding) as it runs whole: each depthwise conv and
+the stem take the rows they read across the strip's edges from the
+neighbouring strips, a strided one with the whole image's "SAME" pads at
+the image's top and bottom only (:func:`..parallel.halo.same_rows`), and
+each squeeze-excite mean adds every strip's sums
+(:func:`..parallel.halo.mean`): two meetings a block. The 1x1 convs read
+no other rows. Strip bounds on multiples of 16 rows keep every strided
+conv's output rows whole, and the last strip's remainder gives the whole
+image's ``ceil``.
+
 Module names follow the Flax tree (``stem.Conv_0``, ``block2a.expand_conv``,
 ``block2a.dw_bn``, ...), so a ``state_dict`` key is the Flax path joined
 with dots. Stages 6-7 are never built.
@@ -38,6 +49,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel import halo
 from .layers import BatchNorm2d, Conv2d, sigmoid, swish
 
 # (width_multiplier, depth_multiplier) per variant.
@@ -99,7 +111,10 @@ def _bn(channels):
 class SameConv2d(Conv2d):
     """``nn.Conv2d`` with TF/Flax "SAME" padding: the output has
     ``ceil(size / stride)`` rows and columns, and a strided conv pads
-    ``total // 2`` before and the rest after, from the input's size."""
+    ``total // 2`` before and the rest after, from the input's size
+    (:func:`..parallel.halo.same_pads`). On a row strip a conv wider than
+    a row takes its halo rows from the neighbouring strips, and a strided
+    one pads rows from the whole image's height, at its edges only."""
 
     def __init__(self, in_ch, out_ch, kernel, stride=1, groups=1, bias=False):
         # Stride 1 with an odd kernel pads k // 2 on both sides: the
@@ -108,12 +123,15 @@ class SameConv2d(Conv2d):
                          padding=kernel // 2 if stride == 1 else 0)
 
     def forward(self, x):
-        if self.stride[0] > 1:
-            pads = []
-            for size, k, s in zip(x.shape[:1:-1], self.kernel_size[::-1], self.stride[::-1]):
-                total = max((-(-size // s) - 1) * s + k - size, 0)
-                pads += [total // 2, total - total // 2]
-            x = F.pad(x, pads)
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        if kh > 1 and halo.current() is not None:
+            if sh == 1:
+                # The built-in padding pads the image's edges; the rows it
+                # pads at an inner edge are cropped.
+                return halo.apply(super().forward, x, kh // 2, dim=2)
+            x = F.pad(halo.same_rows(x, kh, sh, dim=2), halo.same_pads(x.shape[3], kw, sw))
+        elif sh > 1:
+            x = F.pad(x, halo.same_pads(x.shape[3], kw, sw) + halo.same_pads(x.shape[2], kh, sh))
         return super().forward(x)
 
 
@@ -171,7 +189,8 @@ class MBConv(nn.Module):
         """The block's output from its input ``x`` and its expand
         activation."""
         y = swish(self.dw_bn(self.dwconv(expanded)))
-        se = swish(self.se_reduce(y.mean(dim=(2, 3), keepdim=True)))
+        # On a row strip the mean is the whole image's: one meeting.
+        se = swish(self.se_reduce(halo.mean(y, (2, 3), dim=2)))
         y = y * sigmoid(self.se_expand(se))
         y = self.project_bn(self.project_conv(y))
         if self.residual:

@@ -16,15 +16,21 @@ edge. Here one Python process drives every device, so
   chain of them) on the strip extended by ``rows`` rows of the strips
   above and below and keeps the strip's own rows of the result;
   :func:`apply_upsampled` does so for a decoder step, whose bilinear
-  resize takes the rows the whole image's half-pixel taps read. Each
-  strip hands the others its tensor itself;
+  resize takes the rows the whole image's half-pixel taps read;
+  :func:`same_rows` gives a strided TF "SAME" conv (EfficientNet's stem
+  and stride-2 depthwise convs) the rows it reads, with the whole image's
+  pads at the image's top and bottom (a strip-only function: unsharded,
+  the conv pads its own input). Each strip hands the others its tensor
+  itself;
   a strip copies only the rows it takes, and only where they lie on
   another device. A strip shorter than a halo takes rows from as many
   strips as the halo reaches. At the image's edges nothing is added: the
   layer pads there as it does unsharded (zeros for a conv, ``-inf`` for a
   max-pool, clamping for a resize).
-* Outside a strip forward both are the plain function: the unsharded path
-  is unchanged.
+* A mean over the whole image (EfficientNet's squeeze-excite) is a second
+  kind of meeting: :func:`mean` adds every strip's sums of its own rows.
+* Outside a strip forward these are the plain functions: the unsharded
+  path is unchanged.
 
 Running a chain of SAME layers on rows extended by the sum of their halos
 and cropping after gives the unsharded rows exactly: a row wrong at the
@@ -34,6 +40,7 @@ at a time, by one row per layer's halo, and stays within the extension.
 
 from __future__ import annotations
 
+import math
 import threading
 import typing
 
@@ -211,6 +218,57 @@ def apply_upsampled(fn, y: torch.Tensor, skip: torch.Tensor, rows: int, dims=(1,
                                                skip.shape[channels]))
     out = fn(joined)
     return out.narrow(hdim, target.start - first, target.stop - target.start)
+
+
+def same_pads(size: int, kernel: int, stride: int) -> typing.Tuple[int, int]:
+    """TF/Flax "SAME" padding of one dimension of ``size`` entries: the
+    (before, after) pads that give ``ceil(size / stride)`` outputs,
+    ``total // 2`` before and the rest after."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def same_rows(x: torch.Tensor, kernel: int, stride: int, dim: int = 1) -> torch.Tensor:
+    """In a strip forward, where ``x`` holds rows ``[start, stop)`` of the
+    whole tensor: the whole tensor's rows that a "SAME" conv of ``kernel``
+    rows at ``stride`` reads for its output rows ``[ceil(start / stride),
+    ceil(stop / stride))``, from the strips that hold them at one meeting,
+    with the whole height's pads (zeros, :func:`same_pads`) where they
+    reach above the image's top or below its bottom and none at an inner
+    edge. A conv with no padding along ``dim`` then gives the strip's rows
+    of the whole conv. The pads come from the whole height, so an odd
+    height's shift of the sampling grid reaches every strip."""
+    group, rank = current()
+    (mine,) = group.strips(rank, dim, x)
+    before, _ = same_pads(mine.total, kernel, stride)
+    lo = -(-mine.start // stride) * stride - before
+    hi = (-(-mine.stop // stride) - 1) * stride - before + kernel
+    shape = list(x.shape)
+    shape[dim] = hi - lo
+    out = x.new_zeros(shape)
+    first, last = max(lo, 0), min(hi, mine.total)
+    if first < last:
+        mine.rows(first, last, out=out.narrow(dim, first - lo, last - first))
+    return out
+
+
+def mean(x: torch.Tensor, dims=(2, 3), dim: int = 2) -> torch.Tensor:
+    """``x.mean(dims, keepdim=True)`` where ``dims`` include the rows,
+    ``dim``. In a strip forward the mean over the whole image: each strip
+    sums its own rows in at least float32, one meeting adds every strip's
+    sums in rank order (as :meth:`.replicas.ReplicaGroup.batch_moments`
+    adds BatchNorm's), and the total is divided by the whole image's count
+    and rounded once to ``x``'s dtype. A strip of no rows adds zeros and
+    divides by nothing of its own."""
+    strip = current()
+    if strip is None:
+        return x.mean(dims, keepdim=True)
+    group, rank = strip
+    wide = torch.promote_types(x.dtype, torch.float32)
+    met = group.gather(rank, (x.sum(dims, keepdim=True, dtype=wide), x.shape[dim]))
+    total = sum(s.to(x.device) for s, _ in met)
+    count = sum(n for _, n in met) * math.prod(x.shape[d] for d in dims if d != dim)
+    return (total / count).to(x.dtype)
 
 
 class StripForward:

@@ -41,8 +41,9 @@ upscaled and normalised on its first device, cut into row strips, one a
 between them (:mod:`..parallel.halo`), and the heatmaps come back whole to
 the first device, where ``get_boxes``, refine, the crops and the CRNN run
 as without the axis. The two-stage path's ``Detector.detect`` runs CRAFT
-on the first data position's strips. An EfficientNet detector does not
-run on strips (ROADMAP section 1, item 13b) and raises.
+on the first data position's strips. Every backbone runs on strips: VGG
+and EfficientNet B0-B7, in float32 and bfloat16, the VGG graph folded or
+not.
 """
 
 from __future__ import annotations
@@ -193,7 +194,7 @@ class Pipeline:
             positions share each batch (data-parallel inference, the
             models replicated); where its ``model`` axis has several
             devices, each position runs CRAFT on row strips over them
-            (spatial sharding; VGG detectors only).
+            (spatial sharding, any backbone).
         word_buckets: increasing word-capacity ladder ending at
             ``max_words`` (default ``(16, max_words)``).
     """
@@ -255,14 +256,6 @@ class Pipeline:
             self._shard_devices = [row[0] for row in rows]
             self._strips = [None] * len(rows)
             if mesh.shape.get("model", 1) > 1:
-                if detector.backbone_name != "vgg":
-                    raise NotImplementedError(
-                        f"a mesh with {mesh.shape['model']} devices on its 'model' axis runs "
-                        f"CRAFT on row strips, which the {detector.backbone_name} backbone "
-                        "does not: its squeeze-excite means need every strip's rows (ROADMAP "
-                        "section 1, item 13b: spatial sharding of EfficientNet detectors); use "
-                        "a mesh whose 'model' axis has one device"
-                    )
                 self._strips = [StripForward(row) for row in rows]
         self._replicas = (ModuleReplicas(), ModuleReplicas())
 

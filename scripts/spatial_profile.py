@@ -2,19 +2,23 @@
 scripts/spatial_profile.py`` (one card).
 
 The full-width CRAFT (seeded BatchNorm statistics) at 960x1280, in the
-graphs ``--graph`` names (standard float32, folded float32, folded bf16),
-without strips and on the strips of one data position of 2 and 4 devices
-of the one card (``parallel/halo.py``, as ``Pipeline(mesh=...)`` runs it):
+graphs ``--graph`` names (standard float32, folded float32, folded bf16,
+and the EfficientNet-B0 CRAFT in float32 and bf16), without strips and
+on the strips of one data position of 2 and 4 devices of the one card
+(``parallel/halo.py``, as ``Pipeline(mesh=...)`` runs it):
 each forward's CUDA-event ms (median of ``--runs``), its host ms until
 the last launch is enqueued, and one call profiled with
 ``torch.profiler``: the device's busy ms, the kernels launched and the
-kernels whose device time grows most against no strips.
+kernels whose device time grows most against no strips. On strips also
+the baton's hand-overs of one call (:class:`..parallel.halo.StripGroup`):
+how many, and how long the woken strip's thread took to resume.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import statistics
 import sys
 import time
 
@@ -23,12 +27,13 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import card_line, cuda_median_ms, seed_batch_norm  # noqa: E402
+from chip_smoke import (card_line, cuda_median_ms, efficientnet_detector,  # noqa: E402
+                        seed_batch_norm)
 from keras_ocr_tpu_torch import Detector  # noqa: E402
 from keras_ocr_tpu_torch.models.craft import fold_bn_state_dict  # noqa: E402
-from keras_ocr_tpu_torch.parallel.halo import StripForward  # noqa: E402
+from keras_ocr_tpu_torch.parallel.halo import StripForward, StripGroup  # noqa: E402
 
-GRAPHS = ("standard", "folded", "folded-bf16")
+GRAPHS = ("standard", "folded", "folded-bf16", "b0", "b0-bf16")
 
 
 def profile(fn):
@@ -48,6 +53,30 @@ def profile(fn):
         count += event.count
         kernels[event.key] = kernels.get(event.key, 0.0) + ms
     return busy, count, kernels
+
+
+def baton_waits(fn):
+    """Seconds from each hand-over of the baton in one call to the moment
+    the woken strip's thread resumes."""
+    handed, waits = [0.0], []
+    hand, wait = StripGroup._pass, StripGroup._wait
+
+    def timed_hand(group, rank):
+        handed[0] = time.perf_counter()
+        hand(group, rank)
+
+    def timed_wait(group, rank):
+        wait(group, rank)
+        waits.append(time.perf_counter() - handed[0])
+
+    StripGroup._pass, StripGroup._wait = timed_hand, timed_wait
+    try:
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        StripGroup._pass, StripGroup._wait = hand, wait
+    return waits
 
 
 def enqueue_ms(fn):
@@ -82,6 +111,12 @@ def main() -> int:
                           device=device)
         folded.model.load_state_dict(fold_bn_state_dict(standard.model.state_dict()))
         models[name] = folded.model
+    b0, warned = efficientnet_detector("efficientnetb0", device)
+    if warned:
+        seed_batch_norm(b0.model, seed=2)
+    b0_bf16, _ = efficientnet_detector("efficientnetb0", device, compute_dtype=torch.bfloat16)
+    b0_bf16.model.load_state_dict(b0.model.state_dict())
+    models.update({"b0": b0.model, "b0-bf16": b0_bf16.model})
     strips = {parts: StripForward([device] * parts) for parts in (2, 4)}
     with torch.inference_mode():
         for graph in args.graph:
@@ -100,10 +135,15 @@ def main() -> int:
                     busy, count, kernels = profile(fn)
                     base = base or kernels
                     grown = sorted(kernels, key=lambda k: -(kernels[k] - base.get(k, 0.0)))
+                    waits = baton_waits(fn)
+                    batons = "" if not waits else (
+                        f", {len(waits)} baton hand-overs waited {sum(waits) * 1e3:.3f} ms "
+                        f"(median {statistics.median(waits) * 1e6:.1f} us, max "
+                        f"{max(waits) * 1e6:.1f} us)")
                     print(f"spatial forward ({card}): {graph}, batch {batch}, {label}: "
                           f"{ms:.3f} ms (CUDA events, median of {args.runs}), host enqueue "
-                          f"{host:.3f} ms, device busy {busy:.3f} ms in {count} kernels; "
-                          f"grown most against no strips: " + "; ".join(
+                          f"{host:.3f} ms{batons}, device busy {busy:.3f} ms in {count} "
+                          f"kernels; grown most against no strips: " + "; ".join(
                               f"{k[:70]} {kernels[k]:.3f} ms ({kernels[k] - base.get(k, 0.0):+.3f})"
                               for k in grown[: args.top]), flush=True)
                 del x

@@ -11,9 +11,9 @@ full-width train step of the CRNN and of CRAFT (MSE and OHEM) on the card
 against the same step on the CPU (losses in float32, gradients in float64),
 and falling losses; the forwards' float32 parity under PyTorch's default
 TF32 flags; an EfficientNet-B0 ``Detector.detect`` on the card against its
-CPU run; the folded CRAFT on two row strips of the card against the whole
-forward; the conv kernel's bfloat16 mode against its plain bf16 version,
-the bfloat16 CRAFT (VGG, folded, B0) and CRNN on the card against their
+CPU run; the folded CRAFT on two row strips of the card, and the B0 CRAFT
+on two and four, against the whole forward; the conv kernel's bfloat16
+mode against its plain bf16 version, the bfloat16 CRAFT (VGG, folded, B0) and CRNN on the card against their
 CPU runs, and the bfloat16 golden pipeline live and exported.
 
 Skipped where no CUDA device is present. On a machine with a card and no
@@ -513,6 +513,25 @@ def test_folded_strips_on_card_launch_the_kernel_and_match(device, full_fp32):
     torch.cuda.synchronize()
     assert conv_cuda.conv_chain.launches == chains + 24
     assert out.shape == ref.shape == (2, 68, 100, 2)
+    assert float((out - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("height,parts", [(136, 2), (135, 4)])
+def test_b0_strips_on_card_match(device, full_fp32, height, parts):
+    """Spatial sharding of an EfficientNet CRAFT on one card: B0 on row
+    strips of ``[cuda] * parts`` (halo rows for the depthwise convs, the
+    whole image's pads for the strided ones, whole-image squeeze-excite
+    means; an odd height on 4 strips) against the whole forward within
+    1e-4 x max(1, max|ref|)."""
+    from keras_ocr_tpu_torch.parallel import halo
+
+    model = init_parameters(CRAFT("efficientnetb0"), seed=0).to(device).eval()
+    x = torch.from_numpy(np.random.RandomState(height).randn(2, height, 200, 3)
+                         .astype(np.float32)).to(device)
+    with torch.inference_mode():
+        ref = model(x)
+        out = halo.StripForward([device] * parts)([model] * parts, x)
+    assert out.shape == ref.shape == (2, -(-height // 2), 100, 2)
     assert float((out - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
 
 

@@ -9,9 +9,9 @@ follows a device through the grid).
 - ``Pipeline(mesh=...)`` on 3 images (padding to the mesh): the words of
   the port's unsharded pipeline and of JAX's sharded one exactly, boxes
   within 1e-4 (``tests/test_pipeline.py``'s sharded case, slim models); a
-  mesh with a ``model`` axis runs a VGG detector on row strips
-  (``tests/test_torch_spatial.py``) and refuses an EfficientNet one with
-  ``NotImplementedError``;
+  mesh with a ``model`` axis runs a VGG and an EfficientNet detector on
+  row strips (``tests/test_torch_spatial.py``,
+  ``tests/test_torch_spatial_efficientnet.py``);
 - BatchNorm over a replica group equals BatchNorm on the whole batch
   (outputs, gradients, running statistics).
 
@@ -265,12 +265,13 @@ def efficientnet_detector(tmp_path_factory):
 
 @pytest.mark.parametrize("name", ["4x2", "hybrid_2x2x2"])
 def test_pipeline_refuses_a_model_axis(pipeline_models, efficientnet_detector, name):
-    """A VGG detector runs on row strips (``tests/test_torch_spatial.py``);
-    an EfficientNet one does not (its squeeze-excite means span the strips)
-    and raises naming ROADMAP item 13b; a JAX mesh raises ``TypeError``."""
+    """A mesh with a ``model`` axis: a VGG and an EfficientNet detector
+    both run on its row strips (``tests/test_torch_spatial.py``,
+    ``tests/test_torch_spatial_efficientnet.py``); a JAX mesh is refused
+    with ``TypeError``."""
     _, (detector, recognizer) = pipeline_models
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        Pipeline(efficientnet_detector, recognizer, mesh=_port_mesh(name))
+    assert Pipeline(efficientnet_detector, recognizer,
+                    mesh=_port_mesh(name))._strips[0] is not None
     assert Pipeline(detector, recognizer, mesh=_port_mesh(name))._strips[0] is not None
     with pytest.raises(TypeError, match="Mesh"):
         Pipeline(detector, recognizer, mesh=_jax_mesh(name))
