@@ -262,16 +262,33 @@ Phases, each printing one line; any failure exits non-zero:
    held to their plain versions and counted, the timed rounds at the
    default thresholds, the float32 forwards with the strip forward's
    meetings; and one EfficientNet-B7 heatmap check at batch 1 on 2
-   strips, whose deeper stages meet most often.
+   strips, whose deeper stages meet most often;
+19. synthetic data: the sha256 of the default font's render of one fixed
+   string equal to the CPU test's (numpy rasterises bit for bit on both
+   machines); the default font written to a ``.ttf`` as the only font
+   group of ``get_image_generator`` at keras-ocr's end-to-end training
+   example settings (640x640, font sizes 60-120, margin 50, X/Y tilts of
+   +-0.05 degrees, +-15 degrees about Z) on the golden scenes and the
+   fixture JPEG as backgrounds: host ms per scene (median of 16) and the
+   glyph cache's hit share; ``Detector.get_batch_generator`` (batch 4)
+   into three ``DetectorTrainer`` steps and
+   ``convert_image_generator_to_recognizer_input`` ->
+   ``Recognizer.get_batch_generator`` (batch 8) into three
+   ``RecognizerTrainer`` steps, each with its step and generator ms and
+   finite losses; then the synthetic-trained detector folded
+   (``Detector(fold_bn=True)``) with the trained CRNN in ``Pipeline`` over 4
+   generated scenes, every conv chain and sweep call held to its plain
+   version and the launches counted from zero.
 
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
 ``.pth``-loaded detector's run in 12, the EfficientNet pipeline of 13,
 the ``detect`` of 14, the bfloat16 full-width pipelines of 15, each mesh
-pipeline of 16, the trained folded bf16 path of 17 and each strip
-pipeline of 18 count their kernel launches from zero; the kernel line's
-launches are those of phases 5-7, 13, 14, 16, 17 and 18 (their sweep
-calls), and for the bf16 mode's two entries those of 15, 17 and 18;
+pipeline of 16, the trained folded bf16 path of 17, each strip
+pipeline of 18 and the synthetic-trained folded pipeline of 19 count
+their kernel launches from zero; the kernel line's launches are those of
+phases 5-7, 13, 14, 16, 17, 18 and 19 (their sweep calls), and for the
+bf16 mode's two entries those of 15, 17 and 18;
 the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
@@ -3433,6 +3450,186 @@ def bf16_training_phase(card, float32_steps, scenes, wrappers):
     return launches
 
 
+# Phase 19: synthetic data at keras-ocr's end-to-end training example
+# settings: 640x640 scenes, font sizes 60-120, a 50 px margin, small X/Y
+# tilts and +-15 degrees about Z; its text alphabet and the recognizer's
+# (the lowercased set), at most 10 characters a crop. The scenes timed one
+# at a time, the steps of each trainer, their batch sizes, the scenes of
+# the folded pipeline, and the sha256 of the default font's render of one
+# fixed string (tests/test_torch_fonts.py holds the same constant).
+SYNTH_SIZE = 640
+SYNTH_FONT_SIZE = (60, 120)
+SYNTH_MARGIN = 50
+SYNTH_ROTATIONS = {"rotationX": (-0.05, 0.05), "rotationY": (-0.05, 0.05), "rotationZ": (-15, 15)}
+SYNTH_ALPHABET = "0123456789abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ!?. "
+SYNTH_MAX_LENGTH = 10
+SYNTH_TIMED = 16
+SYNTH_DETECTOR_BATCH = 4
+SYNTH_RECOGNIZER_BATCH = 8
+SYNTH_PIPELINE_SCENES = 4
+SYNTH_DIR = os.path.join(ROOT, "build", "synthetic")
+RENDER_SHA256 = "80b4dc795d8746d0cbbcd152dd2d0a1d9a292df104670e7244b1b49761171275"
+
+
+def reference_render():
+    """The default font at 40 px drawn into a 96 x 640 RGBA canvas, as
+    tests/test_torch_fonts.py draws it."""
+    from keras_ocr_tpu_torch.data import fonts, raster
+
+    font = fonts.load_default(40)
+    canvas = np.zeros((96, 640, 4), dtype=np.uint8)
+    canvas[..., :3] = 255
+    x = 8.0
+    for character in "Synthetic fi text 0123 @&Q":
+        mask, (dx, dy) = font.getmask2(character)
+        raster.draw_bitmap(canvas, mask, (20, 30, 40, 255), (int(x) + dx, 20 + dy))
+        x += font.getsize(character)[0][0] + font.getsize(character)[1][0]
+    return canvas
+
+
+def synthetic_phase(card, wrappers):
+    """Phase 19: the port's synthetic scenes (numpy TrueType reader and
+    rasteriser, no PIL) into both trainers and the folded pipeline.
+    Returns the kernels' launches in the folded pipeline's run."""
+    from keras_ocr_tpu_torch import Detector, Pipeline, Recognizer, data_generation, detection
+    from keras_ocr_tpu_torch import tools
+    from keras_ocr_tpu_torch.data import fonts, generation
+    from keras_ocr_tpu_torch.models import craft as craft_module
+    from keras_ocr_tpu_torch.models.craft import fold_bn_state_dict
+    from keras_ocr_tpu_torch.ops import cc, cc_cuda, conv_cuda
+    from keras_ocr_tpu_torch.train import DetectorTrainer, RecognizerTrainer
+
+    phase_start = time.perf_counter()
+    device = torch.device("cuda")
+    digest = hashlib.sha256(reference_render().tobytes()).hexdigest()
+    if digest != RENDER_SHA256:
+        raise AssertionError(f"the default font's render: sha256 {digest}, the CPU test's "
+                             f"{RENDER_SHA256}")
+    shutil.rmtree(SYNTH_DIR, ignore_errors=True)
+    os.makedirs(SYNTH_DIR)
+    font_path = os.path.join(SYNTH_DIR, "default.ttf")
+    with open(font_path, "wb") as f:
+        f.write(fonts.default_font_bytes())
+    backgrounds = [tools.read(os.path.join(ARTIFACT, name))
+                   for name in sorted(os.listdir(ARTIFACT)) if name.endswith(".png")]
+    backgrounds.append(tools.read(SERVING_JPEG))
+    if not data_generation.font_supports_alphabet(font_path, SYNTH_ALPHABET.strip()):
+        raise AssertionError("the default font lacks a character of the alphabet")
+
+    def scenes():
+        text = data_generation.get_text_generator(alphabet=SYNTH_ALPHABET)
+        return data_generation.get_image_generator(
+            height=SYNTH_SIZE, width=SYNTH_SIZE, font_groups={SYNTH_ALPHABET: [font_path]},
+            text_generator=text, font_size=SYNTH_FONT_SIZE, backgrounds=list(backgrounds),
+            margin=SYNTH_MARGIN, **SYNTH_ROTATIONS)
+
+    opened = []
+    open_font = generation._open_font
+
+    def recording_open(path, size):
+        opened.append(open_font(path, size))
+        return opened[-1]
+
+    generation._open_font = recording_open
+    try:
+        # Host ms of a scene, one at a time, and the glyph cache's share.
+        random.seed(19)
+        np.random.seed(19)
+        generator = scenes()
+        scene_ms, characters = [], 0
+        for _ in range(SYNTH_TIMED):
+            start = time.perf_counter()
+            image, lines = next(generator)
+            scene_ms.append((time.perf_counter() - start) * 1e3)
+            characters += sum(len(line) for line in lines)
+            if image.shape != (SYNTH_SIZE, SYNTH_SIZE, 3) or image.dtype != np.uint8:
+                raise AssertionError(f"synthetic scene {image.shape} {image.dtype}")
+            for line in lines:
+                for box, character in line:
+                    if box.shape != (4, 2) or not np.isfinite(box).all() or len(character) != 1:
+                        raise AssertionError(f"synthetic box ({box}, {character!r})")
+        hits = sum(font.hits for font in opened)
+        misses = sum(font.misses for font in opened)
+        if not characters or not misses:
+            raise AssertionError(f"{SYNTH_TIMED} synthetic scenes drew {characters} characters")
+        print(f"synthetic ({card}): get_image_generator {SYNTH_SIZE}x{SYNTH_SIZE}, font sizes "
+              f"{SYNTH_FONT_SIZE}, margin {SYNTH_MARGIN}, {SYNTH_ROTATIONS}, the default font "
+              f"written to a .ttf, {len(backgrounds)} backgrounds: host ms per scene median "
+              f"{statistics.median(scene_ms):.1f} (min {min(scene_ms):.1f}, max "
+              f"{max(scene_ms):.1f}) of {SYNTH_TIMED}, {characters} characters; glyph cache "
+              f"hits {hits} of {hits + misses} lookups ({100 * hits / (hits + misses):.1f}%; "
+              f"host CPU {host_cpu()}); render sha256 equal to the CPU test's")
+
+        # Three DetectorTrainer steps on scenes, batch 4.
+        random.seed(20)
+        np.random.seed(20)
+        detector = Detector(weights=None, width=1.0, device=device, seed=19)
+        batches = detector.get_batch_generator(scenes(), batch_size=SYNTH_DETECTOR_BATCH)
+        craft = fed_steps(DetectorTrainer(detector), batches,
+                          {"draw_text_image": (generation, "draw_text_image"),
+                           "uniform_contour": (generation, "get_maximum_uniform_contour"),
+                           "compute_maps": (detection, "compute_maps")})
+        print(f"synthetic ({card}): get_image_generator -> Detector.get_batch_generator("
+              f"{SYNTH_DETECTOR_BATCH}) -> DetectorTrainer.fit, {DATA_STEPS} steps, full-width "
+              f"VGG CRAFT: {fit_line(craft, 6)}")
+
+        # Three RecognizerTrainer steps on the scenes' line crops, batch 8.
+        random.seed(21)
+        np.random.seed(21)
+        alphabet = "".join(sorted(set(SYNTH_ALPHABET.lower())))
+        recognizer = Recognizer(alphabet, None, device=device, seed=19)
+        crops = data_generation.convert_image_generator_to_recognizer_input(
+            scenes(), max_string_length=min(recognizer.max_string_length(), SYNTH_MAX_LENGTH),
+            target_width=recognizer.input_shape[1], target_height=recognizer.input_shape[0],
+            margin=1)
+        crnn = fed_steps(RecognizerTrainer(recognizer),
+                         recognizer.get_batch_generator(crops, batch_size=SYNTH_RECOGNIZER_BATCH,
+                                                        lowercase=True),
+                         {"draw_text_image": (generation, "draw_text_image"),
+                          "warpBox": (tools, "warpBox")})
+        print(f"synthetic ({card}): convert_image_generator_to_recognizer_input -> "
+              f"Recognizer.get_batch_generator({SYNTH_RECOGNIZER_BATCH}, lowercase) -> "
+              f"RecognizerTrainer.fit, {DATA_STEPS} steps, full-width CRNN, alphabet "
+              f"{alphabet!r}: {fit_line(crnn, 4)}")
+
+        random.seed(22)
+        np.random.seed(22)
+        generator = scenes()
+        images = [next(generator)[0] for _ in range(SYNTH_PIPELINE_SCENES)]
+    finally:
+        generation._open_font = open_font
+        shutil.rmtree(SYNTH_DIR, ignore_errors=True)
+
+    # The synthetic-trained detector, BatchNorm folded, and the trained CRNN
+    # read 4 generated scenes: every conv chain held to its plain version
+    # (phase 3's bar), every sweep call equal to its plain version, the
+    # launches counted from zero.
+    folded = Detector(weights=None, width=1.0, fold_bn=True, device=device)
+    folded.model.load_state_dict(fold_bn_state_dict(detector.model.state_dict()))
+    pipeline = Pipeline(folded, recognizer, scale=2)
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    sweep_calls, conv_calls = [], []
+    undo = checked_sweeps(cc, cc_cuda, sweep_calls)
+    craft_module.conv_cuda = CheckedConvs(conv_cuda, conv_calls, what="synthetic folded chain")
+    try:
+        results = pipeline.recognize(images)
+    finally:
+        craft_module.conv_cuda = conv_cuda
+        undo()
+    check_results(results, SYNTH_PIPELINE_SCENES)
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the folded pipeline on synthetic scenes launched {launches}")
+    print(f"synthetic ({card}): Pipeline(Detector(fold_bn=True) of the synthetic-trained "
+          f"weights, the synthetic-trained CRNN).recognize of {SYNTH_PIPELINE_SCENES} generated "
+          f"scenes: {sum(len(r) for r in results)} words; {len(conv_calls)} conv_chain calls "
+          f"within {CONV_BAR} of the plain chain, {len(sweep_calls)} sweep calls equal to their "
+          f"plain versions; launches {launches}; phase 19 in "
+          f"{time.perf_counter() - phase_start:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path", file=sys.stderr)
@@ -3632,6 +3829,10 @@ def main() -> int:
                                      all_wrappers).items():
         launches[name] += count
     lap("18")
+
+    for name, count in synthetic_phase(card, all_wrappers).items():
+        launches[name] += count
+    lap("19")
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",

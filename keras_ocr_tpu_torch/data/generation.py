@@ -1,19 +1,21 @@
-"""Synthetic text data: geometry, text and background sources, and the
-recognizer-input conversion.
+"""Synthetic text data: fonts, text rendering, the scene compositor, and
+the recognizer-input conversion.
 
-The port's copy of the parts of ``keras_ocr_tpu/data/generation.py`` that
-need no font rasteriser: ``get_rotation_matrix``, the uniform-contour
-search ``get_maximum_uniform_contour`` with its boundary trace,
-``point_in_contour``, the sentence generator ``get_text_generator``
-(``essential_generators`` when importable, else the offline generator over
-:data:`keras_ocr_tpu_torch.data.wordlist.WORDS`), ``get_backgrounds``,
-``convert_lines_to_paragraph``,
-``convert_image_generator_to_recognizer_input``,
-``compute_transformed_contour``, and the samplers the scene compositor
-uses. Rendering glyphs (``draw_text_image``, ``get_image_generator``,
-``get_fonts``, ``font_supports_alphabet``) needs PIL's font engine, which
-the port does not have yet (ROADMAP, section 1). Host numpy and scipy,
-drawing from ``random`` and ``np.random`` in the JAX package's order.
+The port's copy of ``keras_ocr_tpu/data/generation.py``:
+``get_rotation_matrix``, the uniform-contour search
+``get_maximum_uniform_contour`` with its boundary trace,
+``point_in_contour``, ``font_supports_alphabet``, the sentence generator
+``get_text_generator`` (``essential_generators`` when importable, else the
+offline generator over :data:`keras_ocr_tpu_torch.data.wordlist.WORDS`),
+``get_backgrounds``, ``get_fonts``, ``convert_lines_to_paragraph``,
+``convert_image_generator_to_recognizer_input``, ``draw_text_image``,
+``compute_transformed_contour`` and the compositor ``get_image_generator``.
+Where the JAX package asks PIL and fontTools, the port asks
+:mod:`keras_ocr_tpu_torch.data.fonts` (a numpy TrueType reader; glyphs
+rendered unhinted) and :mod:`keras_ocr_tpu_torch.data.raster` (Pillow's
+text blend and wide lines). Host numpy and scipy, drawing from ``random``
+and ``np.random`` in the JAX package's order, so that one seed gives the
+same scenes in both packages.
 """
 
 from __future__ import annotations
@@ -22,11 +24,15 @@ import glob
 import math
 import os
 import random
+import string
+import typing
 
 import numpy as np
 from scipy import ndimage as _ndimage
 
 from .. import tools
+from . import fonts as _fonts
+from . import raster
 from .wordlist import WORDS as _CORPUS_WORDS
 
 LIGATURES = {"\U0000FB01": "fi", "\U0000FB02": "fl"}
@@ -116,10 +122,9 @@ class _PolygonTester:
     inside (``cv2.pointPolygonTest(...) >= 0``). The JAX package asks
     ``matplotlib.path.Path.contains_points`` with radii of +-1e-9; here the
     crossing-number (even-odd) test on the polygon's edges, or'd with an
-    exact test for lying on an edge, in float64."""
-
-    # Points tested per block, bounding the (points, edges) work arrays.
-    _BLOCK = 4096
+    exact test for lying on an edge, in float64. Points are taken one row
+    (one y value) at a time against the edges whose y range holds the row:
+    no other edge can cross the row's ray or hold one of its points."""
 
     def __init__(self, polygon: np.ndarray):
         self.polygon = np.asarray(polygon, dtype="float64")
@@ -132,30 +137,35 @@ class _PolygonTester:
 
     def contains(self, points: np.ndarray) -> np.ndarray:
         points = np.asarray(points, dtype="float64").reshape(-1, 2)
+        inside = np.zeros(len(points), dtype=bool)
         if self._start is None or not len(points):
-            return np.zeros(len(points), dtype=bool)
-        return np.concatenate([self._contains(points[i : i + self._BLOCK])
-                               for i in range(0, len(points), self._BLOCK)])
-
-    def _contains(self, points):
+            return inside
         x0, y0 = self._start[:, 0], self._start[:, 1]
         x1, y1 = self._end[:, 0], self._end[:, 1]
-        px, py = points[:, :1], points[:, 1:]
-        # On an edge: collinear with it and inside its bounding box.
-        cross = (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)
-        on_edge = (
-            (cross == 0)
-            & (px >= np.minimum(x0, x1)) & (px <= np.maximum(x0, x1))
-            & (py >= np.minimum(y0, y1)) & (py <= np.maximum(y0, y1))
-        ).any(axis=1)
-        # Crossings of the ray to +x by edges that straddle the point's row
-        # (half-open in y, so a vertex on the ray counts once).
-        straddles = (y0 > py) != (y1 > py)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            x_cross = x0 + (py - y0) * (x1 - x0) / (y1 - y0)
-        crossings = (straddles & (px < x_cross)).sum(axis=1)
-        return on_edge | (crossings % 2 == 1)
-
+        low, high = np.minimum(y0, y1), np.maximum(y0, y1)
+        rows, which = np.unique(points[:, 1], return_inverse=True)
+        order = np.argsort(which, kind="stable")
+        bounds = np.searchsorted(which[order], np.arange(len(rows) + 1))
+        for r, py in enumerate(rows):
+            members = order[bounds[r] : bounds[r + 1]]
+            near = (low <= py) & (high >= py)
+            if not near.any():
+                continue
+            ex0, ey0, ex1, ey1 = x0[near], y0[near], x1[near], y1[near]
+            px = points[members, :1]
+            # On an edge: collinear with it and inside its bounding box.
+            cross = (ex1 - ex0) * (py - ey0) - (ey1 - ey0) * (px - ex0)
+            on_edge = (
+                (cross == 0) & (px >= np.minimum(ex0, ex1)) & (px <= np.maximum(ex0, ex1))
+            ).any(axis=1)
+            # Crossings of the ray to +x by edges that straddle the row
+            # (half-open in y, so a vertex on the ray counts once).
+            straddles = (ey0 > py) != (ey1 > py)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                x_cross = ex0 + (py - ey0) * (ex1 - ex0) / (ey1 - ey0)
+            crossings = (straddles & (px < x_cross)).sum(axis=1)
+            inside[members] = on_edge | (crossings % 2 == 1)
+        return inside
 
 
 def point_in_contour(contour: np.ndarray, point) -> bool:
@@ -197,6 +207,30 @@ def get_maximum_uniform_contour(image, fontsize, margin=0):
         contour = contour + margin
     return contour, is_dark
 
+
+
+def font_supports_alphabet(filepath, alphabet):
+    """Check a font's cmap covers the alphabet and renders cleanly.
+
+    (data_generation.py:115-137.) A font the port's reader refuses (CFF
+    outlines, a font collection, a broken table) supports nothing.
+    """
+    if alphabet == "":
+        return True
+    try:
+        face = _fonts.open_face(filepath)
+        codes = face.all_codepoints
+    except ValueError:
+        return False
+    if not all(any(ord(c) in table for table in codes) for c in alphabet):
+        return False
+    try:
+        font = _fonts.truetype(filepath)
+        for character in alphabet:
+            font.getbbox(character)
+    except Exception:  # noqa: BLE001 - any render failure disqualifies
+        return False
+    return True
 
 # Morphology + coinage tables for the offline sentence generator: the
 # ~2k-word corpus alone underrepresents the long tail the reference gets
@@ -322,6 +356,53 @@ def get_backgrounds(cache_dir=None):
             destination=backgrounds_dir,
         )
     return glob.glob(os.path.join(backgrounds_dir, "*.jpg"))
+
+
+def get_fonts(
+    cache_dir=None,
+    alphabet=string.ascii_letters + string.digits,
+    exclude_smallcaps=False,
+):
+    """Download the curated 2746-font set, filtered to the alphabet. (:212-270.)"""
+    if cache_dir is None:
+        cache_dir = tools.get_default_cache_dir()
+    fonts_dir = os.path.join(cache_dir, "fonts")
+    if len(glob.glob(os.path.join(fonts_dir, "**/*.ttf"))) != 2746:
+        print("Unzipping fonts ZIP file.")
+        tools.download_and_extract(
+            url="https://github.com/faustomorales/keras-ocr/releases/download/v0.8.4/fonts.zip",
+            sha256="d4d90c27a9bc4bf8fff1d2c0a00cfb174c7d5d10f60ed29d5f149ef04d45b700",
+            filename="fonts.zip",
+            cache_dir=cache_dir,
+            destination=fonts_dir,
+        )
+    font_filepaths = glob.glob(os.path.join(fonts_dir, "**/*.ttf"))
+    if exclude_smallcaps:
+        with open(
+            tools.download_and_verify(
+                url="https://github.com/faustomorales/keras-ocr/releases/download/v0.8.4/fonts_smallcaps.txt",
+                sha256="6531c700523c687f02852087530d1ab3c7cc0b59891bbecc77726fbb0aabe68e",
+                filename="fonts_smallcaps.txt",
+                cache_dir=cache_dir,
+            ),
+            "r",
+            encoding="utf8",
+        ) as f:
+            smallcaps_fonts = [
+                origpath.replace("/", os.path.sep) for origpath in f.read().split("\n")
+            ]
+            font_filepaths = [
+                filepath
+                for filepath in font_filepaths
+                if os.path.join(*filepath.split(os.sep)[-2:]) not in smallcaps_fonts
+            ]
+    if alphabet != "":
+        font_filepaths = [
+            filepath
+            for filepath in font_filepaths
+            if font_supports_alphabet(filepath=filepath, alphabet=alphabet)
+        ]
+    return font_filepaths
 
 
 def convert_lines_to_paragraph(lines):
@@ -471,3 +552,342 @@ def _ink_color(is_dark_region):
     if is_dark_region:
         return tuple(np.array([255, 255, 255]) - jitter)
     return tuple(jitter)
+
+
+class _Glyph(typing.NamedTuple):
+    """A measured, font-resolved character ready for layout.
+
+    ``pieces`` is the text the glyph contributes to the label: the
+    character itself, or the expansion of a ligature codepoint ("fi"/"fl"
+    for U+FB01/U+FB02) — each piece gets its own equal-width box.
+    """
+
+    char: str
+    pieces: str
+    font: _fonts.FreeTypeFont
+    size: typing.Tuple[float, float]  # rendered (width, height)
+    offset: typing.Tuple[float, float]  # rendering (dx, dy) inside the cell
+
+
+def _measure(font, character):
+    """((width, height), (offset_x, offset_y)) like PIL's font.font.getsize."""
+    return font.getsize(character)
+
+
+def _open_font(font_path, fontsize):
+    if font_path is None:
+        return _fonts.load_default()
+    return _fonts.truetype(font_path, size=fontsize)
+
+
+def _resolve_glyphs(text, fonts, fontsize, use_ligatures):
+    """Turn a string + {subalphabet: font path} mapping into _Glyphs.
+
+    Characters covered by no font group are dropped (reference behavior).
+    With ligatures enabled, groups whose font can render U+FB01/U+FB02
+    have those codepoints appended to their coverage and occurrences of
+    "fi"/"fl" in the text are collapsed to single ligature glyphs. As with
+    PIL's FreeType fonts, a font without the codepoints measures and draws
+    its ``.notdef`` glyph for them.
+    """
+    table = []  # (coverage string, opened font)
+    for subalphabet, font_path in fonts.items():
+        font = _open_font(font_path, fontsize)
+        coverage = subalphabet
+        if use_ligatures:
+            try:
+                for codepoint in LIGATURES:
+                    _measure(font, codepoint)
+            except (UnicodeEncodeError, OSError):
+                pass
+            else:
+                coverage = coverage + LIGATURE_STRING
+        table.append((coverage, font))
+    if use_ligatures:
+        for codepoint, plain in LIGATURES.items():
+            if any(codepoint in coverage for coverage, _ in table):
+                text = text.replace(plain, codepoint)
+
+    glyphs = []
+    for character in text:
+        font = next(
+            (font for coverage, font in table if character in coverage), None
+        )
+        if font is None:
+            continue
+        size, offset = _measure(font, character)
+        glyphs.append(
+            _Glyph(
+                char=character,
+                pieces=LIGATURES.get(character, character),
+                font=font,
+                size=size,
+                offset=offset,
+            )
+        )
+    return glyphs
+
+
+class _FlowLayout:
+    """Left-to-right glyph placement inside an arbitrary polygon.
+
+    Maintains a cursor that advances by ``step`` (the fontsize) whenever a
+    candidate cell collides with the polygon boundary, wrapping to the
+    row below the tallest glyph placed so far when the cursor passes the
+    polygon's right extent. Any collision-driven move also starts a new
+    output line (matching the reference layout, data_generation.py:442-459,
+    where every dodge closes the current line).
+    """
+
+    def __init__(self, polygon: np.ndarray, step: float):
+        self._tester = _PolygonTester(polygon)
+        self._min_xy = polygon.min(axis=0)
+        self._max_xy = polygon.max(axis=0)
+        self.x, self.y = self._min_xy
+        self._row_floor = self.y  # lowest extent of glyphs placed so far
+        self.exhausted = False
+        self.line_break_pending = False
+
+    def _cell_fits(self, glyph):
+        right = self.x + glyph.size[0] + glyph.offset[0]
+        bottom = self.y + glyph.size[1] + glyph.offset[1]
+        # Corners truncate to integers before the polygon test, as the
+        # reference casts each point to int (data_generation.py:440-443).
+        corners = np.trunc(
+            np.array(
+                [
+                    [self.x, self.y],
+                    [right, self.y],
+                    [right, bottom],
+                    [self.x, bottom],
+                ],
+                dtype="float64",
+            )
+        )
+        return bool(self._tester.contains(corners).all()), right
+
+    def place(self, glyph, step):
+        """Find the next position fitting ``glyph``; None once out of room."""
+        while True:
+            fits, right_edge = self._cell_fits(glyph)
+            if fits:
+                break
+            if right_edge > self._max_xy[0]:
+                descend = max(1, self._row_floor - self.y)
+                if self.y + descend > self._max_xy[1]:
+                    self.exhausted = True
+                    return None
+                self.y += descend
+                self.x = self._min_xy[0]
+            else:
+                self.x += step
+            self.line_break_pending = True
+        self._row_floor = max(self.y + glyph.size[1] + glyph.offset[1], self._row_floor)
+        return self.x, self.y
+
+
+def _draw_text(canvas, xy, text, ink, font):
+    """PIL's ``ImageDraw.text(xy, text, fill=ink, font=font)`` on a numpy
+    canvas: the mask goes at the position's whole pixels plus its offset,
+    the fractions passed on as PIL passes them."""
+    start = (math.modf(xy[0])[0], math.modf(xy[1])[0])
+    mask, (dx, dy) = font.getmask2(text, start=start)
+    raster.draw_bitmap(canvas, mask, ink, (int(xy[0]) + dx, int(xy[1]) + dy))
+
+
+def draw_text_image(
+    text,
+    fontsize,
+    height,
+    width,
+    fonts,
+    use_ligatures=False,
+    thetaX=0,
+    thetaY=0,
+    thetaZ=0,
+    color=(0, 0, 0),
+    permitted_contour=None,
+    draw_contour=False,
+):
+    """Render text into a transparent canvas, tracking character boxes.
+
+    Behavior parity with the reference renderer
+    (data_generation.py:317-494): glyphs flow left-to-right inside the
+    (pre-transformed) permitted contour, dodging by ``fontsize`` on
+    collisions and wrapping to new rows; the canvas is then
+    perspective-warped by the 3-D rotation matrix and the tracked
+    character boxes transformed along with it. Ligature (fi/fl) glyphs
+    are split back into per-letter boxes.
+
+    Returns (RGBA image, lines) where lines are lists of (box(4,2), char).
+    """
+    empty = np.zeros((height, width, 4), dtype="uint8")
+    glyphs = _resolve_glyphs(text, fonts, fontsize, use_ligatures)
+    rotation = get_rotation_matrix(
+        width=width, height=height, thetaZ=thetaZ, thetaX=thetaX, thetaY=thetaY
+    )
+    if permitted_contour is None:
+        permitted_contour = np.array(
+            [[0, 0], [width, 0], [width, height], [0, height]], dtype="float32"
+        )
+    if not glyphs:
+        return empty, []
+
+    # Smallest rendered extent (width+dx or height+dy) across all glyphs —
+    # sets the slot spacing of the flow region like the reference's
+    # character_sizes.sum(axis=1).min().
+    smallest_cell = min(
+        min(g.size[0] + g.offset[0], g.size[1] + g.offset[1]) for g in glyphs
+    )
+    flow_region = compute_transformed_contour(
+        width=width,
+        height=height,
+        fontsize=max(int(smallest_cell), 1),
+        M=rotation,
+        contour=permitted_contour,
+    )
+    if flow_region is None or len(flow_region) < 3:
+        return empty, []
+
+    canvas = np.zeros((height, width, 4), dtype="uint8")
+    canvas[..., :3] = 255
+    ink = tuple(int(c) for c in color) + (255,)
+    layout = _FlowLayout(flow_region, step=fontsize)
+    lines: typing.List[typing.List[typing.Tuple[np.ndarray, str]]] = [[]]
+    for glyph in glyphs:
+        position = layout.place(glyph, step=fontsize)
+        if position is None:
+            break
+        if layout.line_break_pending:
+            if lines[-1]:
+                lines.append([])
+            layout.line_break_pending = False
+        gx, gy = position
+        _draw_text(canvas, (gx, gy), glyph.char, ink, glyph.font)
+        # Each piece of the glyph (one for plain chars, two for ligatures)
+        # gets an equal horizontal share of the rendered cell.
+        ox, oy = glyph.offset
+        piece_w = glyph.size[0] / len(glyph.pieces)
+        bottom = gy + glyph.size[1] + oy
+        for i, piece in enumerate(glyph.pieces):
+            left = gx + i * piece_w
+            cell = np.array(
+                [
+                    [left + ox, gy + oy],
+                    [left + piece_w + ox, gy + oy],
+                    [left + piece_w + ox, bottom],
+                    [left + ox, bottom],
+                ],
+                dtype="float32",
+            )
+            lines[-1].append((cell, piece))
+        layout.x = gx + glyph.size[0]
+
+    image = tools.warp_perspective(canvas, rotation, dsize=(width, height))
+    if draw_contour:
+        image = _draw_polygon(
+            image,
+            permitted_contour,
+            color=(255, 0, 0, 255),
+            thickness=max(int(width / 100), 1),
+        )
+    return image, [
+        [(_transform_points(cell, rotation), piece) for cell, piece in line]
+        for line in _strip_lines(lines)
+    ]
+
+
+def _draw_polygon(image, polygon, color, thickness):
+    """The closed polygon drawn into a copy of ``image`` with Pillow's wide
+    line (``ImageDraw.line(..., width=thickness)``)."""
+    canvas = np.array(image, dtype=np.uint8, copy=True)
+    pts = np.asarray(polygon, dtype=np.float64).reshape(-1, 2)
+    raster.thick_polyline(canvas, np.concatenate([pts, pts[:1]]), tuple(color), thickness)
+    return canvas
+
+
+def get_image_generator(
+    height,
+    width,
+    font_groups,
+    text_generator,
+    font_size: typing.Union[int, typing.Tuple[int, int]] = 18,
+    backgrounds: typing.Optional[typing.List] = None,
+    background_crop_mode="crop",
+    rotationX: typing.Union[int, typing.Tuple[int, int]] = 0,
+    rotationY: typing.Union[int, typing.Tuple[int, int]] = 0,
+    rotationZ: typing.Union[int, typing.Tuple[int, int]] = 0,
+    margin=0,
+    use_ligatures=False,
+    augmenter=None,
+    draw_contour=False,
+    draw_contour_text=False,
+):
+    """Full scene compositor: backgrounds + rendered text + boxes.
+
+    Same contract as the reference compositor
+    (data_generation.py:577-726): each yielded scene pairs the next
+    sentence from ``text_generator`` with the next background (the
+    background list is reshuffled once per full pass) and one font per
+    group (each group cycles through its files independently), renders
+    the text into the largest uniform region, and alpha-blends it over
+    the background. Yields (image, lines).
+    """
+    if backgrounds is None:
+        backgrounds = [np.zeros((height, width, 3), dtype="uint8")]
+    alphabet = "".join(font_groups.keys())
+    if len(set(alphabet)) != len(alphabet):
+        raise ValueError("Each character can appear in the subalphabet for only one font group.")
+    background_order = _RoundRobin(range(len(backgrounds)))
+    font_pickers = {
+        subalphabet: _RoundRobin(files) for subalphabet, files in font_groups.items()
+    }
+    for text in text_generator:
+        background_index = background_order.advance()
+        if background_order.wrapped:
+            random.shuffle(backgrounds)
+        scene_fonts = {
+            subalphabet: picker.advance()
+            for subalphabet, picker in font_pickers.items()
+        }
+        scene_font_size = _sample_size(font_size)
+        theta_x, theta_y, theta_z = (
+            math.radians(_sample_angle(rotation))
+            for rotation in (rotationX, rotationY, rotationZ)
+        )
+        background = _stage_background(
+            backgrounds[background_index],
+            width=width,
+            height=height,
+            crop_mode=background_crop_mode,
+            augmenter=augmenter,
+        )
+        permitted_contour, is_dark = get_maximum_uniform_contour(
+            image=background, fontsize=scene_font_size, margin=margin
+        )
+        if permitted_contour is None:
+            continue
+        text_image, lines = draw_text_image(
+            text=text,
+            width=width,
+            height=height,
+            fontsize=scene_font_size,
+            fonts=scene_fonts,
+            thetaX=theta_x,
+            thetaY=theta_y,
+            thetaZ=theta_z,
+            use_ligatures=use_ligatures,
+            permitted_contour=permitted_contour,
+            color=_ink_color(is_dark),
+            draw_contour=draw_contour_text,
+        )
+        alpha = text_image[..., -1:].astype("float32") / 255
+        image = (alpha * text_image[..., :3] + (1 - alpha) * background).astype("uint8")
+        if draw_contour:
+            image = _draw_polygon(
+                image,
+                permitted_contour,
+                color=(255, 0, 0),
+                thickness=max(int(width / 100), 1),
+            )
+        yield image, lines

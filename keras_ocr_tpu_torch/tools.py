@@ -6,8 +6,10 @@ Counterparts of ``keras_ocr_tpu/tools.py`` (``read``, ``pad``,
 ``warp_perspective``, ``get_rotated_box``, ``warpBox``, the line
 helpers ``flatten``, ``combine_line``, ``adjust_boxes``, ``fix_line``, and
 ``augment``, which moves boxes through a
-:mod:`keras_ocr_tpu_torch.data.augmentation` augmenter with their image)
-with numpy and the standard library only. PNG files are decoded by a small
+:mod:`keras_ocr_tpu_torch.data.augmentation` augmenter with their image,
+and the drawing functions ``drawBoxes`` and ``drawAnnotations``)
+with numpy and the standard library only (``drawAnnotations`` imports
+matplotlib when called). PNG files are decoded by a small
 reader: colour types 0, 2, 3, 4 and 6 at every bit depth the format
 allows, plain or Adam7-interlaced, to RGB uint8 as PIL's ``convert("RGB")``
 gives them. JPEG files (sequential or progressive Huffman, 8-bit, grey or
@@ -1261,6 +1263,79 @@ def fix_line(line):
     else:
         axis, orientation = 0, "horizontal"
     return [oriented[i] for i in centers[:, axis].argsort()], orientation
+
+
+# ---------------------------------------------------------------------------
+# Drawing
+# ---------------------------------------------------------------------------
+
+
+def drawBoxes(image, boxes, color=(255, 0, 0), thickness=5, boxes_format="boxes"):
+    """Draw boxes onto a copy of an image: each box's closed outline with
+    Pillow's wide line and round joints (``ImageDraw.line(..., width=thickness,
+    joint="curve")``, through :func:`keras_ocr_tpu_torch.data.raster.thick_polyline`).
+
+    ``boxes_format`` is ``"boxes"`` (a list of (4, 2) boxes), ``"lines"``
+    (lists of (box, character)) or ``"predictions"`` ((word, box) pairs).
+    """
+    from .data import raster
+
+    if len(boxes) == 0:
+        return image
+    if boxes_format == "lines":
+        boxes = [box for line in boxes for box, _ in line]
+    if boxes_format == "predictions":
+        boxes = [box for _, box in boxes]
+    canvas = np.array(image, copy=True)
+    for box in boxes:
+        pts = np.asarray(box, dtype=np.float64).reshape(-1, 2)
+        raster.thick_polyline(canvas, np.concatenate([pts, pts[:1]]), tuple(color),
+                              thickness, joint="curve")
+    return canvas
+
+
+def drawAnnotations(image, predictions, ax=None):
+    """Render predictions as a boxed image with labels in the margins:
+    words whose boxes start in the left half of the image are labelled down
+    the left margin (top to bottom in reading order), the rest down the
+    right margin, each label arrowed to its box's first corner.
+    ``matplotlib`` is imported here, on the call: without it the call raises
+    ``ImportError``."""
+    import matplotlib.pyplot as plt
+
+    if ax is None:
+        _, ax = plt.subplots()
+    ax.imshow(drawBoxes(image=image, boxes=predictions, boxes_format="predictions"))
+    ax.set_xticks([])
+    ax.set_yticks([])
+
+    img_height, img_width = image.shape[:2]
+    in_reading_order = sorted(predictions, key=lambda p: p[1][:, 1].min())
+    columns = {
+        "left": [p for p in in_reading_order if p[1][:, 0].min() < img_width / 2],
+        "right": [p for p in in_reading_order if p[1][:, 0].min() >= img_width / 2],
+    }
+
+    def place_label(side, slot, total, text, box):
+        # Anchor the arrow at the box's first corner, in axes fractions
+        # (matplotlib's y axis points up, the image's points down).
+        anchor_x = box[0][0] / img_width
+        anchor_y = 1 - box[0][1] / img_height
+        ax.annotate(
+            text=text,
+            xy=(anchor_x, anchor_y),
+            xytext=(-0.05 if side == "left" else 1.05, 1 - slot / total),
+            xycoords="axes fraction",
+            arrowprops={"arrowstyle": "->", "color": "r"},
+            color="r",
+            fontsize=14,
+            horizontalalignment="right" if side == "left" else "left",
+        )
+
+    for side, group in columns.items():
+        for slot, (text, box) in enumerate(group):
+            place_label(side, slot, len(group), text, box)
+    return ax
 
 
 # ---------------------------------------------------------------------------

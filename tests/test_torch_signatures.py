@@ -10,7 +10,9 @@ value that is not a dtype ``TypeError``. Also the names JAX's modules
 bind that the port lacked (the package's submodules, ``utils``'s
 re-exports, ``golden.artifact_available``, ``detection``'s aliases) and the
 TPU-only parameters in JAX's positions (``word_chunk``, ``tile_h``,
-``interpret``, ``out_dtype``).
+``interpret``, ``out_dtype``), and the synthetic-data and drawing functions
+(``data_generation.draw_text_image`` and the rest, ``tools.drawBoxes``,
+``drawAnnotations``) with JAX's signatures.
 """
 
 import inspect
@@ -279,3 +281,19 @@ def test_warp_boxes_batch_ignores_word_chunk():
     whole = warp.warp_boxes_batch(images, boxes, 31, 200, 64, 512, 0)
     torch.testing.assert_close(warp.warp_boxes_batch(images, boxes, 31, 200, 64, 512, 2), whole,
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("module, name", [
+    ("data_generation", "draw_text_image"), ("data_generation", "get_image_generator"),
+    ("data_generation", "get_fonts"), ("data_generation", "font_supports_alphabet"),
+    ("tools", "drawBoxes"), ("tools", "drawAnnotations")])
+def test_rendering_and_drawing_names_take_jax_signatures(module, name):
+    """The synthetic-data and drawing functions are bound where JAX binds
+    them, with JAX's parameters, defaults and order."""
+    import importlib
+
+    ours = getattr(importlib.import_module(f"keras_ocr_tpu_torch.{module}"), name)
+    ref = getattr(importlib.import_module(f"keras_ocr_tpu.{module}"), name)
+    theirs, mine = inspect.signature(ref).parameters, inspect.signature(ours).parameters
+    assert list(mine) == list(theirs)
+    assert [p.default for p in mine.values()] == [p.default for p in theirs.values()]
