@@ -208,7 +208,7 @@ Phases, each printing one line; any failure exits non-zero:
    exactly, boxes within 1e-4 (the two-replica mesh against batch 4, its
    shard's size), every sweep-kernel call of the replicas equal to its
    plain version, each kernel of the path launched; images/s of the three in
-   turns. One full-width CRNN step (batch 8, dropout 0) and one CRAFT step
+   turns (2 rounds). One full-width CRNN step (batch 8, dropout 0) and one CRAFT step
    (640x640, batch 8) from one state on each mesh must equal the step
    without a mesh in float64 (loss within 1e-4 relative, every parameter
    and BatchNorm statistic within 1e-4 * max(1, max|ref|)); the float32
@@ -249,11 +249,11 @@ Phases, each printing one line; any failure exits non-zero:
    every conv chain held to its plain version (phase 3's bar, phase 15's
    in bf16) and every sweep call equal to its plain version, the words
    equal and boxes within 1e-4, every kernel of the path launched
-   (counted from zero); ``recognize_many`` images/s (median of 3 rounds,
+   (counted from zero); ``recognize_many`` images/s (median of 2 rounds,
    no mesh and the three meshes in turns) and the first round's peak
    memory above the models; the folded graphs' CRAFT forward at
    960x1280, batch 1 and 8, without strips and on 2 and 4 (CUDA events,
-   median of 10). Then the same for the EfficientNet-B0 CRAFT in float32
+   median of 5). Then the same for the EfficientNet-B0 CRAFT in float32
    and bfloat16 (``Detector(weights=None, backbone_name="efficientnetb0")``
    with the network refused, seeded BatchNorm statistics, the bf16 graph
    on the float32 one's weights): heatmaps at the same bars, every pixel
@@ -279,16 +279,39 @@ Phases, each printing one line; any failure exits non-zero:
    (``Detector(fold_bn=True)``) with the trained CRNN in ``Pipeline`` over 4
    generated scenes, every conv chain and sweep call held to its plain
    version and the launches counted from zero.
+20. codecs: the GIF fixtures of ``tests/fixtures/gif`` (written by
+   ``scripts/make_gif_fixtures.py``) read with ``tools.read`` must decode
+   to the sha256 of PIL's decode (``hashes.json``), and each, written by
+   the ICDAR 2019 loader's JPEG encoder, to PIL's file byte for byte (else
+   to its pixels, decoded by the port; the line says which); a 640x480
+   GIF's decode MB/s and the encoder's ms per megapixel (medians of 5);
+   ``get_icdar_2019_semisupervised_dataset`` on a cache of the fixtures
+   under ``build/icdar2019_cache`` (removed), ``urlopen`` refused: every
+   GIF converted to PIL's ``.jpg`` bytes and removed.
+21. distributed: two processes spawned with ``torch.multiprocessing``,
+   one ``gloo`` group, both on cuda:0, each running 3 full-width CRNN
+   steps (batch 8) and 3 VGG CRAFT steps (640x640, batch 4) in float32 and
+   in bf16 on ``create_hybrid_mesh(2, (1, 1))`` (``slice`` across the
+   processes), from one state: the ranks' losses and parameters bit for
+   bit equal, and against the same steps on the one-process mesh of two
+   replicas of the card the losses within 1e-4 relative and the
+   parameters within 1e-4 * max(1, max|ref|), both under deterministic
+   algorithms (the reference in this process, whose cuBLAS workspace is
+   fixed at the start); step ms of both; a rank's failure fails the
+   phase, and both are killed at a timeout. Rank 0's float32 checkpoints, restored here, the
+   CRAFT folded on load, through ``Pipeline.recognize`` of 4 golden scenes
+   with every conv chain and sweep call held to its plain version.
 
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
 ``.pth``-loaded detector's run in 12, the EfficientNet pipeline of 13,
 the ``detect`` of 14, the bfloat16 full-width pipelines of 15, each mesh
 pipeline of 16, the trained folded bf16 path of 17, each strip
-pipeline of 18 and the synthetic-trained folded pipeline of 19 count
-their kernel launches from zero; the kernel line's launches are those of
-phases 5-7, 13, 14, 16, 17, 18 and 19 (their sweep calls), and for the
-bf16 mode's two entries those of 15, 17 and 18;
+pipeline of 18, the synthetic-trained folded pipeline of 19 and the
+distributed checkpoint's pipeline of 21 count their kernel launches from
+zero; the kernel line's launches are those of phases 5-7, 13, 14, 16, 17,
+18, 19 and 21 (their sweep calls), and for the bf16 mode's two entries
+those of 15, 17 and 18;
 the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
@@ -2492,7 +2515,7 @@ def data_phase(card, sweep_wrappers):
 MESH_CRAFT_STEP = (8, 640, 640)
 MESH_STEP_RUNS = 5
 MESH_IMAGES = 16
-MESH_ROUNDS = 3
+MESH_ROUNDS = 2  # 3 until phases 20-21 came
 MESH_BAR = 1e-4
 
 
@@ -2674,8 +2697,9 @@ SPATIAL_MESHES = {
         2, (1, 2), devices=[device] * 4),
 }
 SPATIAL_IMAGES = 8
-SPATIAL_ROUNDS = 3
-SPATIAL_FORWARD_RUNS = 10
+# Cut from 3 rounds and 10 runs to keep the script's time with phases 20-21.
+SPATIAL_ROUNDS = 2
+SPATIAL_FORWARD_RUNS = 5
 SPATIAL_BAR = 1e-4
 SPATIAL_BF16_BARS = (8e-3, 1e-3)
 # detect's thresholds for the EfficientNet graphs' checks, whose random
@@ -3629,11 +3653,346 @@ def synthetic_phase(card, wrappers):
           f"{time.perf_counter() - phase_start:.1f} s")
     return launches
 
+# Phase 20: the GIF decoder and the JPEG writer of the ICDAR 2019 loader.
+GIF_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "gif")
+ICDAR_2019_DIR = os.path.join(ROOT, "build", "icdar2019_cache")
+CODEC_TIMED = 5
+
+
+def codecs_phase(card):
+    """Phase 20: the GIF fixtures decoded to the sha256 of PIL's decode,
+    each written by the JPEG encoder (its bytes against PIL's file, else
+    its pixels decoded by the port), decode MB/s and encode ms per
+    megapixel on a 640x480 GIF, and the ICDAR 2019 loader's conversion of
+    a cache of the fixtures with the network refused."""
+    from keras_ocr_tpu_torch import tools
+    from keras_ocr_tpu_torch.data import datasets
+
+    phase_start = time.perf_counter()
+    with open(os.path.join(GIF_FIXTURES, "hashes.json"), encoding="utf8") as f:
+        hashes = json.load(f)
+    kinds = {}
+    for name, expected in sorted(hashes.items()):
+        image = tools.read(os.path.join(GIF_FIXTURES, name))
+        digest = hashlib.sha256(image.tobytes()).hexdigest()
+        if list(image.shape) != expected["shape"] or digest != expected["decoded_sha256"]:
+            raise AssertionError(f"{name}: decoded {image.shape} sha256 {digest}, PIL's "
+                                 f"{expected['shape']} {expected['decoded_sha256']}")
+        encoded = tools._encode_jpeg(image)
+        if hashlib.sha256(encoded).hexdigest() == expected["jpeg_sha256"]:
+            kinds[name] = "bytes"
+        elif hashlib.sha256(tools.decode_jpeg(encoded).tobytes()).hexdigest() \
+                == expected["jpeg_decoded_sha256"]:
+            kinds[name] = "pixels"
+        else:
+            raise AssertionError(f"{name}: the JPEG encoder's file decodes to other pixels "
+                                 "than PIL's file")
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from make_gif_fixtures import write_gif
+
+    yy, xx = np.mgrid[:480, :640]
+    scene = (((xx // 7) ^ (yy // 5)) % 61 + (xx * yy) % 3).astype(np.uint8)
+    palette = np.random.RandomState(20).randint(0, 256, (256, 3)).astype(np.uint8)
+    blob = write_gif(scene, global_palette=palette, min_size=8)
+    decode_s, decoded = median_seconds(lambda: tools.decode_gif(blob), runs=CODEC_TIMED)
+    if not np.array_equal(decoded, palette[scene]):
+        raise AssertionError("the 640x480 GIF did not decode to its palette's colours")
+    encode_s, _ = median_seconds(lambda: tools._encode_jpeg(decoded), runs=CODEC_TIMED)
+    megapixels = decoded.shape[0] * decoded.shape[1] / 1e6
+
+    shutil.rmtree(ICDAR_2019_DIR, ignore_errors=True)
+    main_dir = os.path.join(ICDAR_2019_DIR, "icdar2019")
+    entries = []
+    for index, name in enumerate(sorted(hashes)):
+        part = "ImagesPart1" if index % 2 else "ImagesPart2"
+        os.makedirs(os.path.join(main_dir, part), exist_ok=True)
+        shutil.copyfile(os.path.join(GIF_FIXTURES, name),
+                        os.path.join(main_dir, part, f"tr_img_{index:05d}.gif"))
+        entries.append({"filepath": f"{part}/tr_img_{index:05d}.jpg", "percent_complete": 1.0,
+                        "lines": [{"line": [[[1, 1], [9, 1], [9, 7], [1, 7]]]}]})
+    with open(os.path.join(main_dir, "mlt2019_dataset.json"), "w", encoding="utf8") as f:
+        json.dump({"dataset": entries}, f)
+    extract = datasets.tools.download_and_extract
+    datasets.tools.download_and_extract = lambda *args, **kwargs: None
+    try:
+        with offline(os.path.join(ICDAR_2019_DIR, "weights")) as urls, \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            start = time.perf_counter()
+            records = datasets.get_icdar_2019_semisupervised_dataset(cache_dir=ICDAR_2019_DIR)
+            convert_s = time.perf_counter() - start
+        if urls:
+            raise AssertionError(f"the ICDAR 2019 loader asked the network for {urls}")
+        for index, name in enumerate(sorted(hashes)):
+            path = records[index][0]
+            with open(path, "rb") as f:
+                if hashlib.sha256(f.read()).hexdigest() != hashes[name]["jpeg_sha256"] \
+                        and kinds[name] == "bytes":
+                    raise AssertionError(f"{path}: not the bytes PIL writes for {name}")
+        left = [n for _, _, files in os.walk(main_dir) for n in files if n.endswith(".gif")]
+        if len(records) != len(hashes) or left:
+            raise AssertionError(f"ICDAR 2019: {len(records)} records, GIFs left: {left}")
+    finally:
+        datasets.tools.download_and_extract = extract
+        shutil.rmtree(ICDAR_2019_DIR, ignore_errors=True)
+    equal = sorted(n for n, k in kinds.items() if k == "bytes")
+    which = "bytes" if len(equal) == len(kinds) else "pixels"
+    print(f"codecs ({card}): {len(hashes)} GIF fixtures decoded to the sha256 of PIL's "
+          f"decode; the JPEG encoder's files equal PIL's {which} "
+          f"({len(equal)} of {len(kinds)} byte for byte: {kinds}); a 640x480 8-bit GIF "
+          f"({len(blob)} bytes) decodes in {decode_s * 1e3:.1f} ms = "
+          f"{decoded.nbytes / 1e6 / decode_s:.2f} MB/s of RGB out, "
+          f"{len(blob) / 1e6 / decode_s:.2f} MB/s of file in (median of {CODEC_TIMED}), "
+          f"encodes to JPEG in "
+          f"{encode_s * 1e3 / megapixels:.1f} ms per megapixel (host CPU {host_cpu()}); the "
+          f"ICDAR 2019 loader converted {len(records)} GIFs in {convert_s:.3f} s with the "
+          f"network refused; phase 20 in {time.perf_counter() - phase_start:.1f} s")
+
+
+# Phase 21: both trainers on a mesh across two processes of the one card.
+DIST_DIR = os.path.join(ROOT, "build", "distributed")
+DIST_WORLD = 2
+DIST_STEPS = 3
+DIST_CRNN_BATCH = 8
+DIST_CRAFT = (4, 640, 640)
+DIST_LOSS_BAR = 1e-4
+DIST_PARAM_BAR = 1e-4
+DIST_TIMEOUT = 240.0
+
+
+def distributed_steps(mesh, dtype, state, device):
+    """DIST_STEPS steps of each trainer from ``state`` on ``mesh``: per
+    model (losses, step ms, the variable tree after the steps)."""
+    from keras_ocr_tpu_torch import Detector, Recognizer, weights
+    from keras_ocr_tpu_torch.train import DetectorTrainer, RecognizerTrainer
+
+    rng = np.random.RandomState(21)
+    crnn = [crnn_batch(rng, DIST_CRNN_BATCH, 48, 36) for _ in range(DIST_STEPS)]
+    craft = [craft_batch(rng, *DIST_CRAFT) for _ in range(DIST_STEPS)]
+    out = {}
+    for label, make, trainer_cls, bridge, batches in (
+            ("crnn", lambda: Recognizer(weights=None, device=device, compute_dtype=dtype),
+             RecognizerTrainer, weights.crnn_variables, crnn),
+            ("craft", lambda: Detector(weights=None, width=1.0, device=device,
+                                       compute_dtype=dtype),
+             DetectorTrainer, weights.craft_variables, craft)):
+        facade = make()
+        facade.model.load_state_dict(state[label])
+        trainer = trainer_cls(facade, mesh=mesh)
+        losses, step_ms = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            losses.append(trainer.train_step(batch))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - start) * 1e3)
+        out[label] = losses, step_ms, bridge(facade.model)
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` and deterministic cuDNN
+    for the block, the process's settings restored after. The full-width
+    CRNN's float32 step is not the same from run to run on an H100
+    without them (PERF.md §6); cuBLAS's share needs the fixed
+    workspace ``main`` sets before the first CUDA call."""
+    saved = torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
+
+
+def distributed_rank(rank, port):
+    """One process of phase 21: a rank of the ``gloo`` group on cuda:0, on
+    the hybrid mesh whose ``slice`` axis spans the processes, running both
+    trainers' steps in float32 and bf16 under deterministic algorithms;
+    rank 0 saves the float32 models' checkpoints. Results go to
+    ``DIST_DIR/rank<r>.pt``, a failure's traceback to ``rank<r>.err``."""
+    import datetime
+    import traceback
+
+    try:
+        sys.path.insert(0, ROOT)
+        from keras_ocr_tpu_torch import parallel
+        from keras_ocr_tpu_torch.train import checkpoint
+
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+        parallel.initialize_distributed(backend="gloo", init_method=f"tcp://localhost:{port}",
+                                        rank=rank, world_size=DIST_WORLD,
+                                        timeout=datetime.timedelta(seconds=DIST_TIMEOUT / 2))
+        mesh = parallel.create_hybrid_mesh(DIST_WORLD, (1, 1), devices=[device])
+        state = torch.load(os.path.join(DIST_DIR, "state.pt"), map_location=device)
+        results = {"mesh": repr(mesh), "spans": mesh.spans_processes}
+        with deterministic_algorithms():
+            for dtype in (torch.float32, torch.bfloat16):
+                steps = distributed_steps(mesh, dtype, state, device)
+                results[str(dtype)] = steps
+                if dtype == torch.float32:
+                    for label, (_, _, tree) in steps.items():
+                        checkpoint.save(os.path.join(DIST_DIR, f"{label}.npz"), tree)
+        results["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.save(results, os.path.join(DIST_DIR, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(DIST_DIR, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(target, world, timeout):
+    """Start ``world`` processes of ``target(rank, port)`` (spawned), wait
+    for all of them at most ``timeout`` seconds, and kill them all as soon
+    as one fails or the time is up; raises naming the failed rank."""
+    import socket
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    context = mp.get_context("spawn")
+    procs = [context.Process(target=target, args=(rank, port), daemon=True)
+             for rank in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the {world} ranks did not finish in {timeout} s")
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+        for proc in procs:
+            proc.join(10)
+    for rank, proc in enumerate(procs):
+        if proc.exitcode != 0:
+            error = os.path.join(DIST_DIR, f"rank{rank}.err")
+            text = open(error).read() if os.path.exists(error) else "no traceback"
+            raise AssertionError(f"rank {rank} exited with {proc.exitcode}:\n{text}")
+
+
+def distributed_phase(card, scenes, wrappers):
+    """Phase 21: two processes, one ``gloo`` group on the one card, each
+    trainer on a mesh whose ``slice`` axis spans them, against the same
+    steps on the one-process mesh of two replicas; then the checkpoint
+    rank 0 wrote, folded, through the pipeline. Returns the kernels'
+    launches in that pipeline's run."""
+    from keras_ocr_tpu_torch import Detector, Pipeline, Recognizer, parallel
+    from keras_ocr_tpu_torch.models import craft as craft_module
+    from keras_ocr_tpu_torch.ops import cc, cc_cuda, conv_cuda
+    from keras_ocr_tpu_torch.train import checkpoint
+
+    phase_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    state = {"crnn": Recognizer(weights=None, device=device, seed=21).model.state_dict(),
+             "craft": Detector(weights=None, width=1.0, device=device,
+                               seed=22).model.state_dict()}
+    torch.save(state, os.path.join(DIST_DIR, "state.pt"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    run_ranks(distributed_rank, DIST_WORLD, DIST_TIMEOUT)
+    ranks_s = time.perf_counter() - start
+    ranks = [torch.load(os.path.join(DIST_DIR, f"rank{r}.pt"), weights_only=False)
+             for r in range(DIST_WORLD)]
+    # The reference here: the same steps on the one-process mesh of the
+    # same shape, two replicas of the card.
+    one_process = parallel.create_hybrid_mesh(DIST_WORLD, (1, 1), devices=[device] * DIST_WORLD)
+    if not ranks[0]["spans"] or one_process.spans_processes:
+        raise AssertionError(f"meshes: {ranks[0]['mesh']}, {one_process}")
+    start = time.perf_counter()
+    with deterministic_algorithms():
+        reference = {str(dtype): distributed_steps(one_process, dtype, state, device)
+                     for dtype in (torch.float32, torch.bfloat16)}
+    reference_s = time.perf_counter() - start
+    lines = []
+    for dtype, steps in reference.items():
+        for label, (ref_losses, ref_ms, ref_tree) in steps.items():
+            losses, step_ms, tree = ranks[0][dtype][label]
+            ours, ref_leaves = dict(tree_leaves(tree)), dict(tree_leaves(ref_tree))
+            for other in ranks[1:]:
+                other_losses, _, other_tree = other[dtype][label]
+                theirs = dict(tree_leaves(other_tree))
+                if other_losses != losses or any(not np.array_equal(theirs[k], v)
+                                                 for k, v in ours.items()):
+                    raise AssertionError(f"{dtype} {label}: the ranks' losses or parameters "
+                                         "differ")
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+            errors = {k: float(np.abs(ours[k].astype(np.float64) - v).max())
+                      / max(1.0, float(np.abs(v).max())) for k, v in ref_leaves.items()}
+            worst = max(errors, key=errors.get)
+            if not (loss_err <= DIST_LOSS_BAR and errors[worst] <= DIST_PARAM_BAR):
+                raise AssertionError(f"{dtype} {label} across processes: losses {losses} vs "
+                                     f"{ref_losses} ({loss_err:.3e} relative), worst leaf "
+                                     f"{worst} {errors[worst]:.3e}")
+            lines.append(f"{dtype.replace('torch.', '')} {label}: losses "
+                         f"{', '.join(f'{x:.6f}' for x in losses)} within {loss_err:.2e} "
+                         f"relative, parameters within {errors[worst]:.2e} ({worst}); step ms "
+                         f"two processes {', '.join(f'{x:.1f}' for x in step_ms)} vs one "
+                         f"process {', '.join(f'{x:.1f}' for x in ref_ms)}")
+    print(f"distributed ({card}): {DIST_WORLD} processes (gloo, both on cuda:0, "
+          f"{ranks[0]['mesh']}), {DIST_STEPS} steps each of the full-width CRNN (batch "
+          f"{DIST_CRNN_BATCH}) and the VGG CRAFT ({'x'.join(map(str, DIST_CRAFT))}) against "
+          f"the one-process mesh of two replicas (bars "
+          f"{DIST_LOSS_BAR} / {DIST_PARAM_BAR}), all under deterministic algorithms, the "
+          f"ranks' parameters bit for bit equal: " + "; ".join(lines)
+          + f"; wall {ranks_s:.1f} s for the ranks (start-up included), {reference_s:.1f} s "
+          f"for the reference, peak {max(r['peak_gb'] for r in ranks):.2f} GB a rank")
+
+    # The checkpoints rank 0 wrote: the CRAFT folded on load, with the CRNN,
+    # through the pipeline on the golden scenes, each kernel call checked.
+    folded = Detector(weights=None, width=1.0, fold_bn=True, device=device).load_variables(
+        checkpoint.restore(os.path.join(DIST_DIR, "craft.npz")))
+    recognizer = Recognizer(weights=None, device=device).load_variables(
+        checkpoint.restore(os.path.join(DIST_DIR, "crnn.npz")))
+    pipeline = Pipeline(folded, recognizer, scale=2)
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    sweep_calls, conv_calls = [], []
+    undo = checked_sweeps(cc, cc_cuda, sweep_calls)
+    craft_module.conv_cuda = CheckedConvs(conv_cuda, conv_calls, what="distributed folded chain")
+    try:
+        results = pipeline.recognize(scenes[:4])
+    finally:
+        craft_module.conv_cuda = conv_cuda
+        undo()
+    check_results(results, 4)
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the pipeline of the distributed checkpoint launched {launches}")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    print(f"distributed ({card}): rank 0's checkpoints restored here, the CRAFT folded on "
+          f"load: Pipeline.recognize of 4 golden scenes, {sum(len(r) for r in results)} "
+          f"words; {len(conv_calls)} conv_chain calls within {CONV_BAR} of the plain chain, "
+          f"{len(sweep_calls)} sweep calls equal to their plain versions; launches {launches}; "
+          f"phase 21 in {time.perf_counter() - phase_start:.1f} s")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path", file=sys.stderr)
         return 1
+    # cuBLAS's workspace fixed at the H100's default size (32 MiB, what
+    # PyTorch takes on sm_90), so that phase 21 can turn deterministic
+    # algorithms on in this process and in the ones it spawns.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     started = time.perf_counter()
     laps, lap_start = {}, [started]
 
@@ -3833,6 +4192,13 @@ def main() -> int:
     for name, count in synthetic_phase(card, all_wrappers).items():
         launches[name] += count
     lap("19")
+
+    codecs_phase(card)
+    lap("20")
+
+    for name, count in distributed_phase(card, scenes, all_wrappers).items():
+        launches[name] += count
+    lap("21")
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",

@@ -9,8 +9,9 @@ loaders fetch through ``tools.download_and_verify`` /
 ``download_and_extract`` (a filled cache needs no network) and the
 generators draw from the module-level ``random`` and ``np.random`` in the
 JAX package's order, so that one seed gives the same samples in both
-packages. The ICDAR 2019 loader refuses a cache that still holds GIF
-images: the port has no GIF decoder.
+packages. The ICDAR 2019 loader converts the set's GIF images to JPEG
+files as JAX's does through PIL (:func:`..tools.decode_gif`, then the
+bytes PIL's ``save`` writes).
 """
 
 from __future__ import annotations
@@ -308,15 +309,12 @@ def get_icdar_2019_semisupervised_dataset(cache_dir=None):
     )
     with open(ground_truth, "r", encoding="utf8") as f:
         character_level_dataset = json.loads(f.read())["dataset"]
-    gifs = glob.glob(os.path.join(main_dir, "**", "*.gif"))
-    if gifs:
-        # The JAX package converts these to JPEG through PIL; the port has no
-        # GIF decoder yet (ROADMAP, section 1).
-        raise NotImplementedError(
-            f"{len(gifs)} GIF images under {main_dir} (e.g. {gifs[0]}) need converting to "
-            "JPEG, and the port has no GIF decoder yet (ROADMAP, section 1); convert them "
-            "to .jpg files of the same name first"
-        )
+    for gif_filepath in glob.glob(os.path.join(main_dir, "**", "*.gif")):
+        # JAX's loader saves PIL's RGB conversion as a .jpg of the same stem;
+        # the port decodes the GIF and writes the bytes PIL writes.
+        with open(os.path.splitext(gif_filepath)[0] + ".jpg", "wb") as f:
+            f.write(tools._encode_jpeg(tools.read(gif_filepath)))
+        os.remove(gif_filepath)
     return [
         (
             os.path.join(main_dir, entry["filepath"]),

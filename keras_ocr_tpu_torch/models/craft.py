@@ -128,13 +128,17 @@ class PerImageConv2d(Conv2d):
     batch 1's implicit GEMM at every batch (3.9 ms at batch 8), with each
     image's output bit for bit what it is alone. Same parameters and keys
     as ``nn.Conv2d``; training, autograd and the BatchNorm after it see the
-    whole batch as before."""
+    whole batch as before. The images' gradients of a parameter add up in
+    one view of it and reach the parameter once a forward, so that the
+    replicas of a mesh add theirs in the same order however the positions
+    lie over devices and processes."""
 
     def forward(self, x):
         if x.shape[0] <= 1:
             return super().forward(x)
-        return torch.cat([self._conv_forward(image, self.weight, self.bias)
-                          for image in x.split(1)])
+        weight = self.weight.view_as(self.weight)
+        bias = None if self.bias is None else self.bias.view_as(self.bias)
+        return torch.cat([self._conv_forward(image, weight, bias) for image in x.split(1)])
 
 
 class ConvBN(nn.Module):

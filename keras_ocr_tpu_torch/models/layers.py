@@ -156,10 +156,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     input (:class:`.efficientnet.MBConv`).
 
     In a replica forward of a mesh trainer (:func:`..parallel.replicas.current`)
-    the statistics are the whole batch's, over every replica's shard, as
-    Flax's are under ``jit`` on a batch-sharded array; the same arithmetic
-    with cross-replica sums, and rank 0 alone updates the running
-    statistics.
+    the statistics are the whole batch's, over every replica's shard (every
+    process's, on a mesh across processes), as Flax's are under ``jit`` on
+    a batch-sharded array; the same arithmetic with cross-replica sums, and
+    each process's rank 0 alone updates its running statistics.
     """
 
     updates_per_call = 1

@@ -3,6 +3,7 @@
 from . import halo, mesh, replicas
 from .mesh import (
     Mesh,
+    RemoteDevice,
     Sharding,
     batch_sharding,
     create_hybrid_mesh,
@@ -10,6 +11,9 @@ from .mesh import (
     crnn_param_sharding,
     hybrid_batch_sharding,
     initialize_distributed,
+    local_rows,
+    process_count,
+    process_index,
     replicated,
     shard_batch,
     shard_params,

@@ -1,9 +1,8 @@
 """Device meshes and shardings of the port.
 
 Counterpart of ``keras_ocr_tpu/parallel/mesh.py`` with JAX's names and
-meanings, as PyTorch values. A :class:`Mesh` is a grid of ``torch.device``
-objects with named axes; the mesh is single-process and single-controller,
-as JAX's is: one Python call drives every device. The axes:
+meanings, as PyTorch values. A :class:`Mesh` is a grid of devices with
+named axes. The axes:
 
 * ``data`` (and ``slice`` on a hybrid mesh): the batch is split over them
   (data parallel); each position runs its shard on the device at model
@@ -22,9 +21,23 @@ A device may appear more than once: ``devices=[torch.device("cpu")] * 8``
 makes the 8 fake devices the CPU tests use, ``[cuda:0, cuda:0]`` two
 replicas on one card. :class:`Sharding` carries a ``PartitionSpec``'s
 meaning (a tuple of axis names, or of tuples of names, per array axis).
-Cross-process meshes are not ported: :func:`initialize_distributed` starts a
-process group where the environment asks for one, and the mesh still holds
-this process's devices only.
+
+Without a process group (or in a group of one) the mesh holds this
+process's devices and one Python call drives them all, as JAX's single
+controller does. Once :func:`initialize_distributed` has started a group of
+several processes, :func:`create_mesh` and :func:`create_hybrid_mesh` build
+the grid over every process's devices in rank order, as JAX's mesh spans
+processes after ``jax.distributed.initialize``: a device of another process
+is a :class:`RemoteDevice` that names its rank. The contract is JAX's
+multi-controller one: every process makes the same calls with the same
+global batch and runs the data positions whose devices it holds
+(:func:`local_rows`; :func:`shard_batch` hands it their shards). A
+``model`` row stays within one process (the trainers' tensor parallelism
+and the strips' batons are in-process mechanisms), and
+``create_hybrid_mesh(dcn_data=world_size)`` puts ``slice`` across the
+processes, as JAX puts it on DCN. The process group is the caller's, with
+the caller's backend: ``gloo`` on the CPU, ``nccl`` with one process per
+card, ``gloo`` on CUDA tensors for several processes on one card.
 """
 
 from __future__ import annotations
@@ -51,17 +64,51 @@ def canonical_device(device) -> torch.device:
     return device
 
 
+@dataclasses.dataclass(frozen=True)
+class RemoteDevice:
+    """A device of another process of the group: the process's rank and
+    the device's name there. This process never places data on it."""
+
+    process_index: int
+    name: str
+
+    def __str__(self):
+        return f"{self.name}@{self.process_index}"
+
+
+def process_count() -> int:
+    """The processes of the running group (JAX's ``jax.process_count``):
+    1 without a group."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    """This process's rank in the running group, 0 without one."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if process_count() > 1 else 0
+
+
+def is_local(device) -> bool:
+    """Whether ``device`` of a mesh is this process's (not a
+    :class:`RemoteDevice`)."""
+    return not isinstance(device, RemoteDevice)
+
+
 class Mesh:
     """A grid of devices with named axes (``jax.sharding.Mesh``).
 
-    ``devices`` is the numpy object array of ``torch.device``; ``shape`` an
+    ``devices`` is the numpy object array of ``torch.device`` (this
+    process's) and :class:`RemoteDevice` (other processes'); ``shape`` an
     ordered dict from axis name to size; ``axis_names`` the names in order.
     """
 
     def __init__(self, devices, axis_names: typing.Sequence[str]):
         grid = np.asarray(devices, dtype=object)
         flat = np.empty(grid.size, dtype=object)
-        flat[:] = [torch.device(d) for d in grid.ravel()]
+        flat[:] = [d if isinstance(d, RemoteDevice) else torch.device(d) for d in grid.ravel()]
         self.devices = flat.reshape(grid.shape)
         self.axis_names = tuple(axis_names)
         if len(self.axis_names) != self.devices.ndim:
@@ -77,6 +124,11 @@ class Mesh:
     @property
     def size(self) -> int:
         return self.devices.size
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether some device of the mesh is another process's."""
+        return not all(is_local(d) for d in self.devices.ravel())
 
     def __repr__(self):
         return f"Mesh({dict(self.shape)}, devices={[str(d) for d in self.devices.ravel()]})"
@@ -113,7 +165,10 @@ def initialize_distributed(**kwargs) -> None:
     """``torch.distributed.init_process_group(**kwargs)`` where a
     multi-process environment is set (``WORLD_SIZE`` above 1, or a
     ``world_size`` argument above 1) and no group is running; a no-op
-    otherwise, as the JAX function is on one host."""
+    otherwise, as the JAX function is on one host. The backend, address,
+    rank and world size are the caller's (``backend="gloo"``,
+    ``init_method="tcp://localhost:<port>"``, ...): nothing is chosen
+    here."""
     import torch.distributed as dist
 
     world = int(kwargs.get("world_size", os.environ.get("WORLD_SIZE", 1)))
@@ -122,15 +177,56 @@ def initialize_distributed(**kwargs) -> None:
     dist.init_process_group(**kwargs)
 
 
+def _process_devices(devices: list) -> list:
+    """Every process's devices in rank order where a group of several
+    processes runs (``all_gather_object`` of each one's list): this
+    process's as given, the others' as :class:`RemoteDevice`; else
+    ``devices`` themselves."""
+    world = process_count()
+    if world == 1:
+        return devices
+    import torch.distributed as dist
+
+    names: list = [None] * world
+    dist.all_gather_object(names, [str(torch.device(d)) for d in devices])
+    rank = dist.get_rank()
+    return [device for index, listed in enumerate(names)
+            for device in (devices if index == rank
+                           else [RemoteDevice(index, name) for name in listed])]
+
+
+def _process_of(device) -> int:
+    return device.process_index if isinstance(device, RemoteDevice) else process_index()
+
+
+def _check_rows(mesh: Mesh) -> Mesh:
+    """``mesh``, where each of its ``model`` rows lies within one process
+    (or it holds this process's devices only, or has no batch axes);
+    ``ValueError`` otherwise."""
+    axes = set(mesh.axis_names)
+    if not mesh.spans_processes or "data" not in axes or axes - {"slice", "data", "model"}:
+        return mesh
+    for row in _rows(mesh):
+        if len({_process_of(d) for d in row}) > 1:
+            raise ValueError(
+                f"a 'model' row of {mesh} spans processes ({', '.join(map(str, row))}); "
+                "tensor parallelism and row strips run within one process: give each "
+                "process whole rows (create_hybrid_mesh(dcn_data=world_size, ...))")
+    return mesh
+
+
 def create_mesh(
     shape: typing.Optional[typing.Tuple[int, int]] = None,
     axis_names: typing.Tuple[str, str] = ("data", "model"),
     devices=None,
 ) -> Mesh:
     """A (data, model) mesh; by default every CUDA device on ``data``
-    (``(n, 1)``). Without a card pass ``devices``."""
-    devices = _default_devices(devices)
-    return Mesh(_grid(devices, shape or (len(devices), 1)), axis_names)
+    (``(n, 1)``). Without a card pass ``devices``. In a group of several
+    processes ``devices`` are this process's, and the mesh holds every
+    process's in rank order; a ``model`` row across processes raises
+    ``ValueError``."""
+    devices = _process_devices(_default_devices(devices))
+    return _check_rows(Mesh(_grid(devices, shape or (len(devices), 1)), axis_names))
 
 
 def create_hybrid_mesh(
@@ -141,10 +237,12 @@ def create_hybrid_mesh(
 ) -> Mesh:
     """A (slice, data, model) mesh: ``dcn_data`` slices of ``ici_shape``
     (default: all of a slice's devices on ``data``), the devices grouped
-    contiguously, as JAX groups devices without a slice topology."""
-    devices = _default_devices(devices)
+    contiguously, as JAX groups devices without a slice topology. In a
+    group of several processes the devices are every process's in rank
+    order, so ``dcn_data=world_size`` makes each process a slice."""
+    devices = _process_devices(_default_devices(devices))
     ici_shape = ici_shape or (len(devices) // dcn_data, 1)
-    return Mesh(_grid(devices, (dcn_data,) + tuple(ici_shape)), axis_names)
+    return _check_rows(Mesh(_grid(devices, (dcn_data,) + tuple(ici_shape)), axis_names))
 
 
 def hybrid_batch_sharding(mesh: Mesh) -> Sharding:
@@ -191,11 +289,7 @@ def data_size(mesh: Mesh) -> int:
     return mesh.shape.get("slice", 1) * mesh.shape["data"]
 
 
-def data_rows(mesh: Mesh) -> typing.List[typing.List[torch.device]]:
-    """One list per data position, in batch order (``slice`` major): the
-    devices of its ``model`` axis, in ``model`` order. A shard is uploaded
-    to and post-processed on the first of them; the pipeline's CRAFT strips
-    run on all of them."""
+def _rows(mesh: Mesh) -> list:
     unknown = set(mesh.axis_names) - {"slice", "data", "model"}
     if "data" not in mesh.axis_names or unknown:
         raise ValueError(f"a batch mesh has a 'data' axis and optional 'slice' and 'model' "
@@ -205,20 +299,52 @@ def data_rows(mesh: Mesh) -> typing.List[typing.List[torch.device]]:
     return [list(row) for row in grid]
 
 
+def data_rows(mesh: Mesh) -> list:
+    """One list per data position, in batch order (``slice`` major): the
+    devices of its ``model`` axis, in ``model`` order. A shard is uploaded
+    to and post-processed on the first of them; the pipeline's CRAFT strips
+    run on all of them. On a mesh across processes some rows are other
+    processes' (:func:`local_rows`); ``ValueError`` where a row spans
+    processes."""
+    return _rows(_check_rows(mesh))
+
+
+def local_rows(mesh: Mesh) -> typing.List[typing.Tuple[int, typing.List[torch.device]]]:
+    """This process's data positions: (global index, row of devices) of
+    each row whose devices are this process's, in batch order. Every row on
+    a mesh of this process's devices only."""
+    return [(index, row) for index, row in enumerate(data_rows(mesh)) if is_local(row[0])]
+
+
+def local_indices(mesh: Mesh, size: int) -> torch.Tensor:
+    """The samples of a global batch of ``size`` that this process's data
+    positions hold: position ``i`` of ``n`` holds the ``i``-th of ``n``
+    equal chunks. ``ValueError`` where the batch does not divide."""
+    positions = data_size(mesh)
+    if size % positions:
+        raise ValueError(f"a batch of {size} does not divide over the {positions} data "
+                         f"positions of {mesh}")
+    chunk = size // positions
+    return torch.cat([torch.arange(i * chunk, (i + 1) * chunk) for i, _ in local_rows(mesh)])
+
+
 def shard_batch(batch, mesh: Mesh):
-    """Split each array of a (nested tuple, list or dict) ``batch`` along
-    its first axis over the data positions: each leaf becomes a list of
-    tensors, shard ``i`` on the device of data position ``i``. Raises
-    ``ValueError`` where a batch does not divide, as ``jax.device_put``
-    does."""
-    devices = [row[0] for row in data_rows(mesh)]
+    """Split each array of a (nested tuple, list or dict) global ``batch``
+    along its first axis over the data positions and keep this process's:
+    each leaf becomes a list of tensors, one per :func:`local_rows` entry,
+    on its row's first device (every shard on a mesh of this process's
+    devices). Raises ``ValueError`` where a batch does not divide over the
+    mesh's (global) positions, as ``jax.device_put`` does."""
+    rows = local_rows(mesh)
+    positions = data_size(mesh)
 
     def split(leaf):
         tensor = _tensor(leaf)
-        if tensor.shape[0] % len(devices):
+        if tensor.shape[0] % positions:
             raise ValueError(f"a batch of {tensor.shape[0]} does not divide over the "
-                             f"{len(devices)} data positions of {mesh}")
-        return [part.to(device) for part, device in zip(tensor.chunk(len(devices)), devices)]
+                             f"{positions} data positions of {mesh}")
+        parts = tensor.chunk(positions)
+        return [parts[index].to(row[0]) for index, row in rows]
 
     return _tree_map(split, batch)
 
@@ -268,13 +394,17 @@ def shard_params(variables, mesh: Mesh, rules=None) -> list:
     (``mesh.devices.ravel()``): each leaf a new tensor on that device,
     whole where its sharding is replicated, its block of columns (by the
     device's ``model`` index) where a rule (:func:`crnn_param_sharding`)
-    splits it. Default: every leaf replicated."""
+    splits it. Default: every leaf replicated. Another process's device
+    gets None."""
     specs = rules(variables) if rules is not None else _tree_map(lambda _: replicated(mesh),
                                                                  variables)
     names = mesh.axis_names
     copies = []
     for index in np.ndindex(mesh.devices.shape):
         device = mesh.devices[index]
+        if not is_local(device):
+            copies.append(None)
+            continue
 
         def put(leaf, sharding):
             tensor = _tensor(leaf)

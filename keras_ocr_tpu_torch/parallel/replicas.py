@@ -1,7 +1,8 @@
 """Module replicas on a mesh and their cross-replica reductions.
 
 No JAX counterpart: there XLA's SPMD partitioner splits one program over
-the mesh. Here one Python process drives every device, so
+the mesh. Here each process drives its own devices of the mesh
+(:func:`.mesh.local_rows`: every device without a process group), so
 
 * :class:`ModuleReplicas` keeps one copy of a module per device, for the
   pipeline's inference: the module itself on its own device, a copy on each
@@ -9,19 +10,25 @@ the mesh. Here one Python process drives every device, so
   the module when one of its tensors changed. Per-tensor caches of the
   kernels (``ops/conv_cuda.py:prepared_weight``, ``models/craft.py:_chain_conv``)
   thus stay per replica.
-* :class:`ReplicaGroup` runs the training forwards of a batch's shards
-  together, one thread a shard, which meet at each cross-replica reduction:
-  :class:`..models.layers.BatchNorm2d` in training mode asks
+* :class:`ReplicaGroup` runs the training forwards of this process's
+  shards together, one thread a shard, which meet at each cross-replica
+  reduction: :class:`..models.layers.BatchNorm2d` in training mode asks
   :func:`current` for its group and takes its batch statistics over the
-  whole batch (:meth:`ReplicaGroup.batch_moments`), as a BatchNorm under
-  ``jit`` does on a batch-sharded array. Each thread reads the others'
+  whole global batch (:meth:`ReplicaGroup.batch_moments`), as a BatchNorm
+  under ``jit`` does on a batch-sharded array. Each thread reads the others'
   partial sums as graph tensors, so one backward over every shard's output
-  differentiates the global statistics; there is no barrier in backward.
-* :class:`DataParallel` runs a module's training forward on a mesh: the
-  parameters stay on the module's device, each shard runs
-  ``torch.func.functional_call`` of its own replica with the parameters
-  moved to the shard's device, so that backward reduces the gradients into
-  the module's own through the moves.
+  differentiates the global statistics. On a mesh across processes the
+  process's sum then goes through one ``all_reduce`` of the process group
+  (:func:`all_reduce_sum`, whose backward all-reduces the gradient), so the
+  backward meets the other processes once per such sum, in the reverse of
+  the forward's order on every process.
+* :class:`DataParallel` runs a module's training forward on this process's
+  data positions: the parameters stay on the module's device, each shard
+  runs ``torch.func.functional_call`` of its own replica with the
+  parameters moved to the shard's device, so that backward reduces the
+  gradients into the module's own through the moves. Across processes the
+  trainers then add every process's gradients
+  (:func:`all_reduce_gradients`).
 
 The pipeline's spatial sharding runs on a kind of group of its own: one
 thread a row strip of the images, each strip on its own ``model`` device
@@ -92,18 +99,72 @@ class ModuleReplicas:
         return entry[1]
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of ``x`` over the processes of the group. Its gradient is the
+    sum of every process's incoming gradient: each process's loss holds its
+    own share of the global loss, so the global loss's gradient with
+    respect to the sum is the sum of the shares' gradients."""
+
+    @staticmethod
+    def forward(ctx, x):
+        import torch.distributed as dist
+
+        out = x.detach().clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad)
+        return grad
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the processes of the running group, differentiable
+    (one ``all_reduce`` forward, one backward); ``x`` itself without a
+    group of several processes."""
+    return _AllReduceSum.apply(x) if mesh_lib.process_count() > 1 else x
+
+
+def all_reduce_gradients(params: typing.Iterable[torch.nn.Parameter]) -> None:
+    """Add every process's ``.grad`` into each process's: one flat buffer
+    and one ``all_reduce`` per gradient dtype and device, in the
+    parameters' order. Parameters without a gradient take no part (every
+    process runs the same graph, so they are the same ones)."""
+    if mesh_lib.process_count() == 1:
+        return
+    import torch.distributed as dist
+
+    buckets: dict = {}
+    for param in params:
+        if param.grad is not None:
+            buckets.setdefault((param.grad.dtype, param.grad.device), []).append(param.grad)
+    for key in sorted(buckets, key=str):
+        grads = buckets[key]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        for grad, part in zip(grads, flat.split([g.numel() for g in grads])):
+            grad.copy_(part.view_as(grad))
+
+
 class ReplicaGroup:
     """Runs one function per shard, all at once, meeting at :meth:`gather`:
     rank 0 in the calling thread, the others in worker threads that live
     as long as the group, so that per-thread caches (cuDNN's execution
     plans are kept per thread) outlast a step. An exception in one rank
     breaks the barrier for the others and is raised by :meth:`run`.
-    ``context`` names the thread-local slot :func:`current` reads."""
+    ``context`` names the thread-local slot :func:`current` reads. With
+    ``across_processes`` the group is this process's part of a mesh across
+    processes, and its reductions add the other processes' sums."""
 
     context = "replica"
 
-    def __init__(self, size: int):
+    def __init__(self, size: int, across_processes: bool = False):
         self.size = size
+        self.across_processes = across_processes
         self._barrier = threading.Barrier(size)
         self._slots: list = [None] * size
         self._pool = (concurrent.futures.ThreadPoolExecutor(size - 1, "replica")
@@ -153,42 +214,72 @@ class ReplicaGroup:
     def batch_moments(self, rank: int, x: torch.Tensor):
         """Per-channel mean and biased variance of an NCHW ``x`` across
         every rank's ``x`` (the global batch), in two passes as
-        ``torch.var_mean``; each rank gets them on its own device, summed in
-        rank order. The sums are at least float32 (a bfloat16 ``x`` is
-        promoted, as Flax's statistics and XLA's cross-device sums are)."""
+        ``torch.var_mean``: the (sum, count) pass, then the centred-sum
+        pass. Each rank gets them on its own device. A shard's sums are at
+        least float32 (a bfloat16 ``x`` is promoted, as Flax's statistics
+        and XLA's cross-device sums are); the shards' sums are added in
+        float64 (:meth:`_sum`), and the statistics rounded once to ``x``'s
+        (promoted) dtype."""
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3)
         count = x.numel() // x.shape[1]
         sums = self.gather(rank, (x.sum(dims), count))
-        total = sum(n for _, n in sums)
-        mean = sum(s.to(x.device) for s, _ in sums) / total
+        mean, total = self._sum(rank, [s for s, _ in sums], sum(n for _, n in sums), x.device)
+        mean = (mean / total).to(x.dtype)
         centred = (x - mean.reshape(1, -1, 1, 1)).square().sum(dims)
-        var = sum(s.to(x.device) for s in self.gather(rank, centred)) / total
-        return mean, var
+        var, _ = self._sum(rank, self.gather(rank, centred), None, x.device)
+        return mean, (var / total).to(x.dtype)
+
+    def _sum(self, rank: int, parts: list, count, device):
+        """(every rank's ``parts`` added, ``count``) on ``device``. Rank 0
+        adds them once for all ranks, in rank order in float64, where float32
+        sums add without rounding, so that the total (and the gradient that
+        backward adds into it) does not depend on how the shards are split
+        over devices or processes. Across processes it then all-reduces the
+        total, ``count`` appended, in one ``all_reduce``
+        (:func:`all_reduce_sum`). Every rank reads the result."""
+        total = None
+        if rank == 0:
+            total = sum(p.to(device, torch.float64) for p in parts)
+            if self.across_processes:
+                if count is not None:
+                    total = torch.cat([total, total.new_full((1,), count)])
+                total = all_reduce_sum(total)
+        total = self.gather(rank, total)[0].to(device)
+        if self.across_processes and count is not None:
+            return total[:-1], total[-1]
+        return total, count
 
 
 class DataParallel:
-    """The training forward of ``module`` over a mesh's data positions.
+    """The training forward of ``module`` over this process's data
+    positions of a mesh (all of them on a mesh of this process's devices).
 
-    Each data position has a replica of ``module`` on its first device (a
+    Each such position has a replica of ``module`` on its first device (a
     copy whose own tensors are never read: ``functional_call`` swaps in the
     module's parameters, moved to that device, and its buffers as they are,
     so that one BatchNorm updates the module's running statistics).
     ``configure(replica, row)`` may adapt each replica to its row of
-    ``model``-axis devices (tensor parallelism)."""
+    ``model``-axis devices (tensor parallelism). ``positions`` are the
+    positions' global indices, ``devices`` their first devices."""
 
     def __init__(self, module: torch.nn.Module, mesh, configure=None):
         self.module = module
         self.mesh = mesh
-        self.rows = mesh_lib.data_rows(mesh)
+        local = mesh_lib.local_rows(mesh)
+        if not local:
+            raise ValueError(f"{mesh} holds no device of this process")
+        self.positions = [index for index, _ in local]
+        self.rows = [row for _, row in local]
         self.devices = [row[0] for row in self.rows]
+        self.across_processes = mesh.spans_processes
         self.replicas = []
         for row in self.rows:
             replica = copy.deepcopy(module).to(row[0])
             if configure is not None:
                 configure(replica, row)
             self.replicas.append(replica)
-        self.group = ReplicaGroup(len(self.rows))
+        self.group = ReplicaGroup(len(self.rows), self.across_processes)
 
     def __call__(self, shards: typing.Sequence[tuple], kwargs=None) -> list:
         """``module(*shards[i], **kwargs[i])`` on each data position's

@@ -194,7 +194,9 @@ class Pipeline:
             positions share each batch (data-parallel inference, the
             models replicated); where its ``model`` axis has several
             devices, each position runs CRAFT on row strips over them
-            (spatial sharding, any backbone).
+            (spatial sharding, any backbone). A mesh across processes
+            raises ``ValueError``, as JAX's fetch of a global array needs
+            every shard in the process.
         word_buckets: increasing word-capacity ladder ending at
             ``max_words`` (default ``(16, max_words)``).
     """
@@ -251,7 +253,13 @@ class Pipeline:
         # sharding, else None.
         self._strips = [None]
         if mesh is not None:
-            mesh_lib.check_mesh(mesh)
+            if mesh_lib.check_mesh(mesh).spans_processes:
+                # JAX's pipeline cannot serve there either: its fetch reads
+                # the global output array, which needs every shard here.
+                raise ValueError(
+                    f"Pipeline(mesh=...) needs a mesh of this process's devices only; {mesh} "
+                    "spans processes (build it without a process group, or from "
+                    "parallel.Mesh on this process's devices)")
             rows = mesh_lib.data_rows(mesh)
             self._shard_devices = [row[0] for row in rows]
             self._strips = [None] * len(rows)

@@ -1000,13 +1000,428 @@ def _assemble(frame, jfif, adobe_transform, name):
     return _ycc_to_rgb(*planes)
 
 
+# ---------------------------------------------------------------------------
+# GIF (the first frame, as PIL's GifImagePlugin opens it)
+# ---------------------------------------------------------------------------
+
+
+def _gif_palette(raw: bytes):
+    """A colour table as an (n, 3) uint8 array, or None where it is the
+    grey ramp ``(i, i, i)`` (PIL then opens the image in mode ``L``, whose
+    value is the index itself)."""
+    table = np.frombuffer(raw, np.uint8).reshape(-1, 3)
+    ramp = np.arange(len(table), dtype=np.uint8)[:, None]
+    return None if np.array_equal(table, np.broadcast_to(ramp, table.shape)) else table
+
+
+def _gif_sub_blocks(blob: bytes, pos: int, name: str) -> typing.Tuple[bytes, int]:
+    """The data of the sub-blocks starting at ``pos`` and the offset after
+    their zero-length terminator."""
+    parts = []
+    while True:
+        if pos >= len(blob):
+            raise ValueError(f"{name}: truncated GIF in a data block")
+        size = blob[pos]
+        if not size:
+            return b"".join(parts), pos + 1
+        if pos + 1 + size > len(blob):
+            raise ValueError(f"{name}: truncated GIF in a data block")
+        parts.append(blob[pos + 1 : pos + 1 + size])
+        pos += 1 + size
+
+
+def _gif_lzw(data: bytes, min_size: int, count: int, name: str) -> bytes:
+    """The first ``count`` indices of a GIF LZW stream: codes LSB first,
+    ``min_size + 1`` bits after each clear code, one more bit each time the
+    next free code reaches the width's limit, at most 12; a full table
+    (4096 codes) stays as it is until a clear code (the deferred clear),
+    and a code equal to the next free one is the previous string plus its
+    own first index (KwKwK). Raises ``ValueError`` on an undefined code and
+    where the stream ends, or its end code comes, before ``count``."""
+    clear = 1 << min_size
+    end = clear + 1
+    roots = [bytes([i]) for i in range(clear)] + [b"", b""]
+    table = list(roots)
+    size = min_size + 1
+    mask = (1 << size) - 1
+    out = []
+    produced = 0
+    prev = None
+    acc = nbits = pos = 0
+    length = len(data)
+    while produced < count:
+        while nbits < size:
+            if pos >= length:
+                raise ValueError(f"{name}: truncated GIF: the image data ends after "
+                                 f"{produced} of {count} pixels")
+            acc |= data[pos] << nbits
+            pos += 1
+            nbits += 8
+        code = acc & mask
+        acc >>= size
+        nbits -= size
+        if code == clear:
+            del table[end + 1 :]
+            size = min_size + 1
+            mask = (1 << size) - 1
+            prev = None
+            continue
+        if code == end:
+            raise ValueError(f"{name}: corrupt GIF: the end code after {produced} of "
+                             f"{count} pixels")
+        if prev is None:
+            if code >= clear:
+                raise ValueError(f"{name}: corrupt GIF: code {code} after a clear code")
+            entry = table[code]
+        else:
+            if code < len(table):
+                entry = table[code]
+            elif code == len(table):
+                entry = prev + prev[:1]
+            else:
+                raise ValueError(f"{name}: corrupt GIF: code {code} past the table "
+                                 f"({len(table)} entries)")
+            if len(table) < 4096:
+                table.append(prev + entry[:1])
+                if len(table) == mask + 1 and size < 12:
+                    size += 1
+                    mask = (1 << size) - 1
+        out.append(entry)
+        produced += len(entry)
+        prev = entry
+    return b"".join(out)[:count]
+
+
+def _gif_rows(height: int) -> np.ndarray:
+    """The row each stored row of an interlaced frame lands on: every 8th
+    from 0, every 8th from 4, every 4th from 2, every 2nd from 1."""
+    return np.concatenate([np.arange(start, height, step)
+                           for start, step in ((0, 8), (4, 8), (2, 4), (1, 2))])
+
+
+def decode_gif(blob: bytes, name: str = "image") -> np.ndarray:
+    """The first frame of a GIF (87a or 89a) as (H, W, 3) uint8, as PIL's
+    ``Image.open(...).convert("RGB")`` gives it.
+
+    As PIL does: the logical screen grows to hold a frame that reaches past
+    it; the frame's colour table is its local one, else the global one; a
+    table that is the grey ramp ``(i, i, i)`` counts as none (a grey local
+    table leaves the global one in force), and without a table an index
+    ``i`` is the grey ``(i, i, i)``; an index past the table is black;
+    outside a frame smaller
+    than the screen lies the index that the graphic-control extension names
+    transparent, else index 0 (not the background index); the transparent
+    index shows its own colour. Bytes between blocks that start neither an
+    extension nor an image are skipped, as PIL skips them.
+
+    Raises ValueError on a truncated or corrupt file.
+    """
+    if blob[:6] not in (b"GIF87a", b"GIF89a") or len(blob) < 13:
+        raise ValueError(f"{name} is not a GIF file")
+    width, height, flags = struct.unpack_from("<HHB", blob, 6)
+    pos = 13
+    palette = None
+    if flags & 0x80:
+        size = 3 << ((flags & 7) + 1)
+        if pos + size > len(blob):
+            raise ValueError(f"{name}: truncated GIF in the global colour table")
+        palette = _gif_palette(blob[pos : pos + size])
+        pos += size
+    transparency = None
+    while True:
+        if pos >= len(blob) or blob[pos] == 0x3B:
+            raise ValueError(f"{name}: corrupt GIF: no image")
+        tag = blob[pos]
+        pos += 1
+        if tag == 0x21:
+            if pos >= len(blob):
+                raise ValueError(f"{name}: truncated GIF in an extension")
+            label = blob[pos]
+            first = blob[pos + 2 : pos + 2 + blob[pos + 1]] if pos + 1 < len(blob) else b""
+            if label == 0xF9 and first:
+                if len(first) < 4:
+                    raise ValueError(f"{name}: corrupt GIF: a short graphic-control block")
+                if first[0] & 1:
+                    transparency = first[3]
+            _, pos = _gif_sub_blocks(blob, pos + 1, name)
+        elif tag == 0x2C:
+            break
+    if pos + 9 > len(blob):
+        raise ValueError(f"{name}: truncated GIF in an image descriptor")
+    x0, y0, fw, fh, flags = struct.unpack_from("<HHHHB", blob, pos)
+    pos += 9
+    if flags & 0x80:
+        size = 3 << ((flags & 7) + 1)
+        if pos + size > len(blob):
+            raise ValueError(f"{name}: truncated GIF in a local colour table")
+        local = _gif_palette(blob[pos : pos + size])
+        palette = palette if local is None else local
+        pos += size
+    if pos >= len(blob):
+        raise ValueError(f"{name}: truncated GIF before the image data")
+    min_size = blob[pos]
+    if not 1 <= min_size <= 11:
+        raise ValueError(f"{name}: corrupt GIF: LZW code size {min_size}")
+    data, _ = _gif_sub_blocks(blob, pos + 1, name)
+    width, height = max(width, x0 + fw), max(height, y0 + fh)
+    canvas = np.full((height, width), 0 if transparency is None else transparency, np.uint8)
+    if fw and fh:
+        frame = np.frombuffer(_gif_lzw(data, min_size, fw * fh, name), np.uint8)
+        frame = frame.reshape(fh, fw)
+        if flags & 0x40:
+            frame = frame[np.argsort(_gif_rows(fh), kind="stable")]
+        canvas[y0 : y0 + fh, x0 : x0 + fw] = frame
+    if palette is None:
+        return np.ascontiguousarray(np.repeat(canvas[..., None], 3, axis=-1))
+    colours = np.zeros((256, 3), np.uint8)
+    colours[: len(palette)] = palette[:256]
+    return colours[canvas]
+
+
+# ---------------------------------------------------------------------------
+# Baseline JPEG encoding, as PIL's ``Image.save(path.jpg)`` of an RGB image
+# ---------------------------------------------------------------------------
+
+# jcparam.c's tables (natural order) and jstdhuff.c's Huffman tables:
+# (code counts by length 1-16, symbols).
+_STD_LUMINANCE_QUANT = (
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99)
+_STD_CHROMINANCE_QUANT = (
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99)
+_STD_HUFFMAN = {
+    "dc_luminance": ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), tuple(range(12))),
+    "ac_luminance": ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D), bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a16"
+        "1718191a25262728292a3435363738393a434445464748494a535455565758595a636465666768"
+        "696a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4"
+        "b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5"
+        "f6f7f8f9fa")),
+    "dc_chrominance": ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), tuple(range(12))),
+    "ac_chrominance": ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77), bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a1624"
+        "34e125f11718191a262728292a35363738393a434445464748494a535455565758595a63646566"
+        "6768696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aa"
+        "b2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4"
+        "f5f6f7f8f9fa")),
+}
+
+
+def _quant_table(basic) -> np.ndarray:
+    """``jcparam.c:jpeg_add_quant_table`` at PIL's default quality 75
+    (``jpeg_quality_scaling``: 50%) with ``force_baseline``: each entry
+    scaled, rounded, clamped to 1-255."""
+    return np.clip((np.array(basic, np.int64) * 50 + 50) // 100, 1, 255)
+
+
+def _huffman_codes(counts, symbols) -> typing.Tuple[np.ndarray, np.ndarray]:
+    """Canonical codes of a table as (code, length) arrays by symbol."""
+    code_of, length_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code = index = 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            code_of[symbols[index]], length_of[symbols[index]] = code, length
+            code += 1
+            index += 1
+        code <<= 1
+    return code_of, length_of
+
+
+def _edge_pad(plane: np.ndarray, height: int, width: int) -> np.ndarray:
+    """``plane`` extended to (height, width) by repeating its last row and
+    column (libjpeg's ``expand_bottom_edge`` / ``expand_right_edge``)."""
+    return np.pad(plane, ((0, height - plane.shape[0]), (0, width - plane.shape[1])), "edge")
+
+
+def _fdct_1d(d, out_shift):
+    """One pass of ``jfdctint.c:jpeg_fdct_islow`` on eight int64 arrays; the
+    even outputs 0 and 4 are shifted left by ``PASS1_BITS`` in the first
+    pass (``out_shift`` None) and descaled by it in the second."""
+    tmp0, tmp7 = d[0] + d[7], d[0] - d[7]
+    tmp1, tmp6 = d[1] + d[6], d[1] - d[6]
+    tmp2, tmp5 = d[2] + d[5], d[2] - d[5]
+    tmp3, tmp4 = d[3] + d[4], d[3] - d[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    if out_shift is None:  # pass 1: CONST_BITS - PASS1_BITS, evens scaled up
+        shift = 13 - 2
+        out0, out4 = (tmp10 + tmp11) << 2, (tmp10 - tmp11) << 2
+    else:  # pass 2: CONST_BITS + PASS1_BITS, evens descaled by PASS1_BITS
+        shift = 13 + 2
+        out0, out4 = (tmp10 + tmp11 + 2) >> 2, (tmp10 - tmp11 + 2) >> 2
+    half = 1 << (shift - 1)
+    z1 = (tmp12 + tmp13) * 4433
+    out2 = (z1 + tmp13 * 6270 + half) >> shift
+    out6 = (z1 + tmp12 * -15137 + half) >> shift
+    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * 9633
+    tmp4, tmp5, tmp6, tmp7 = tmp4 * 2446, tmp5 * 16819, tmp6 * 25172, tmp7 * 12299
+    z1, z2 = z1 * -7373, z2 * -20995
+    z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+    return [out0, (tmp7 + z1 + z4 + half) >> shift, out2, (tmp6 + z2 + z3 + half) >> shift,
+            out4, (tmp5 + z2 + z4 + half) >> shift, out6, (tmp4 + z1 + z3 + half) >> shift]
+
+
+def _quantised_blocks(plane: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """A plane whose sides are multiples of 8 as (rows, cols, 64) quantised
+    coefficients in zigzag order: samples less 128, the islow forward DCT
+    (rows, then columns; outputs 8x a true DCT's), then
+    ``jcdctmgr.c``'s rounded division by 8x the table, toward zero."""
+    rows, cols = plane.shape[0] // 8, plane.shape[1] // 8
+    blocks = plane.reshape(rows, 8, cols, 8).transpose(0, 2, 1, 3).astype(np.int64) - 128
+    work = np.stack(_fdct_1d([blocks[..., k] for k in range(8)], None), axis=-1)
+    coefs = np.stack(_fdct_1d([work[..., k, :] for k in range(8)], 2), axis=-2)
+    divisor = quant.reshape(8, 8) * 8
+    magnitude = (np.abs(coefs) + divisor // 2) // divisor
+    quantised = np.where(coefs < 0, -magnitude, magnitude).reshape(rows, cols, 64)
+    return quantised[..., _NATURAL[:64]]
+
+
+def _value_bits(values: np.ndarray) -> typing.Tuple[np.ndarray, np.ndarray]:
+    """JPEG's magnitude category of each value and its extra bits (a
+    negative value as its ones' complement in that many bits)."""
+    size = np.zeros(values.shape, np.int64)
+    magnitude = np.abs(values)
+    while np.any(magnitude >> size):
+        size += (magnitude >> size) > 0
+    return size, np.where(values < 0, values + (1 << size) - 1, values)
+
+
+def _entropy_code(blocks: np.ndarray, chroma: np.ndarray, tables) -> bytes:
+    """The Huffman-coded scan of (N, 64) zigzag blocks in stream order whose
+    ``[:, 0]`` holds the DC differences; ``chroma`` says which blocks take
+    the chrominance tables. Each block is its DC code, then per nonzero AC
+    coefficient a ZRL per 16 zeros before it and its (run, size) code, then
+    an EOB where the block ends in zeros. Returns the stuffed bytes, the
+    last byte filled with ones."""
+    count = len(blocks)
+    block, index = np.nonzero(blocks[:, 1:])
+    position = index + 1
+    previous = np.zeros_like(position)
+    follows = block[1:] == block[:-1]
+    previous[1:][follows] = position[:-1][follows]
+    run = position - previous - 1
+    last = np.zeros(count, np.int64)
+    last[block] = position  # the last write of a block is its last nonzero
+    eob = np.nonzero(last < 63)[0]
+    zeros = run >> 4
+    zrl = np.repeat(block, zeros)
+    dc_size, dc_bits = _value_bits(blocks[:, 0])
+    ac_size, ac_bits = _value_bits(blocks[block, position])
+    # (blocks, symbols, extra bits, their count, table pair, sort keys)
+    events = [
+        (np.arange(count), dc_size, dc_bits, dc_size, 0, np.arange(count) * 130),
+        (block, ((run & 15) << 4) | ac_size, ac_bits, ac_size, 1, block * 130 + position * 2),
+        (zrl, np.full(len(zrl), 0xF0), 0, 0, 1, zrl * 130 + np.repeat(position, zeros) * 2 - 1),
+        (eob, np.zeros(len(eob), np.int64), 0, 0, 1, eob * 130 + 128),
+    ]
+    words, lengths, keys = [], [], []
+    for which, symbol, extra, nextra, ac, key in events:
+        luma, chrom = tables[ac], tables[ac + 2]
+        table_chroma = chroma[which]
+        code = np.where(table_chroma, chrom[0][symbol], luma[0][symbol])
+        length = np.where(table_chroma, chrom[1][symbol], luma[1][symbol])
+        words.append((code << nextra) | extra)
+        lengths.append(length + nextra)
+        keys.append(key)
+    order = np.argsort(np.concatenate(keys), kind="stable")
+    words = np.concatenate(words)[order]
+    lengths = np.concatenate(lengths)[order]
+    total = int(lengths.sum())
+    event = np.repeat(np.arange(len(words)), lengths)
+    offset = np.arange(total) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+    stream = ((words[event] >> (lengths[event] - 1 - offset)) & 1).astype(np.uint8)
+    stream = np.concatenate([stream, np.ones(-total % 8, np.uint8)])
+    return np.packbits(stream).tobytes().replace(b"\xff", b"\xff\x00")
+
+
+def _encode_jpeg(image: np.ndarray) -> bytes:
+    """The bytes PIL writes for ``Image.fromarray(image).save(path.jpg)`` of
+    an (H, W, 3) uint8 RGB image: baseline JPEG with a JFIF header, quality
+    75, 4:2:0, the standard Huffman tables, by libjpeg's integer arithmetic
+    (``jccolor.c``, ``jcsample.c:h2v2_downsample``, ``jfdctint.c``,
+    ``jcdctmgr.c``; ``jccoefct.c``'s dummy blocks past the image). The
+    ICDAR 2019 loader writes its converted GIFs with it."""
+    image = np.asarray(image)
+    if image.ndim != 3 or image.shape[2] != 3 or image.dtype != np.uint8:
+        raise ValueError(f"an (H, W, 3) uint8 image is needed, got {image.dtype} "
+                         f"{image.shape}")
+    height, width = image.shape[:2]
+    if not (0 < height < 65536 and 0 < width < 65536):
+        raise ValueError(f"a JPEG cannot hold a {width}x{height} image")
+    r, g, b = (image[..., k].astype(np.int64) for k in range(3))
+    # jccolor.c: SCALEBITS 16, Cb/Cr rounded with ONE_HALF - 1.
+    half, offset = 1 << 15, 128 << 16
+    y = (19595 * r + 38470 * g + 7471 * b + half) >> 16
+    cb = (-11059 * r - 21709 * g + 32768 * b + offset + half - 1) >> 16
+    cr = (32768 * r - 27439 * g - 5329 * b + offset + half - 1) >> 16
+    mcus_x, mcus_y = _ceil_div(width, 16), _ceil_div(height, 16)
+    blocks_x, blocks_y = _ceil_div(width, 8), _ceil_div(height, 8)
+    luma_q = _quant_table(_STD_LUMINANCE_QUANT)
+    chroma_q = _quant_table(_STD_CHROMINANCE_QUANT)
+    luma = _quantised_blocks(_edge_pad(y, blocks_y * 8, blocks_x * 8), luma_q)
+    # jccoefct.c: blocks of the MCU grid past the image's are zero with the
+    # DC of the block to their left, below the image of the MCU's top right.
+    grid = np.zeros((mcus_y * 2, mcus_x * 2, 64), np.int64)
+    grid[:blocks_y, :blocks_x] = luma
+    if blocks_x % 2:
+        grid[:blocks_y, blocks_x, 0] = luma[:, -1, 0]
+    if blocks_y % 2:
+        grid[blocks_y, :, 0] = np.repeat(grid[blocks_y - 1, 1::2, 0], 2)
+    planes = []
+    for plane in (cb, cr):
+        # jcsample.c:h2v2_downsample on rows and columns extended to whole
+        # MCUs, the bias alternating 1, 2 along a row; then the rows to a
+        # whole block row, repeating the last.
+        full = _edge_pad(plane, 2 * _ceil_div(height, 2), mcus_x * 16)
+        bias = np.tile([1, 2], mcus_x * 4)
+        small = (full[0::2, 0::2] + full[0::2, 1::2] + full[1::2, 0::2] + full[1::2, 1::2]
+                 + bias) >> 2
+        planes.append(_quantised_blocks(_edge_pad(small, mcus_y * 8, mcus_x * 8), chroma_q))
+    luma_mcus = grid.reshape(mcus_y, 2, mcus_x, 2, 64).transpose(0, 2, 1, 3, 4)
+    stream = np.concatenate([luma_mcus.reshape(mcus_y, mcus_x, 4, 64),
+                             planes[0][:, :, None], planes[1][:, :, None]], axis=2)
+    stream = stream.reshape(-1, 6, 64).copy()
+    for slots in ((0, 1, 2, 3), (4,), (5,)):  # DC differences per component
+        dc = stream[:, list(slots), 0].reshape(-1)
+        stream[:, list(slots), 0] = np.diff(dc, prepend=0).reshape(-1, len(slots))
+    chroma = np.tile([False] * 4 + [True] * 2, len(stream))
+    tables = [_huffman_codes(*_STD_HUFFMAN[name]) for name in
+              ("dc_luminance", "ac_luminance", "dc_chrominance", "ac_chrominance")]
+    data = _entropy_code(stream.reshape(-1, 64), chroma, tables)
+
+    def segment(marker, body):
+        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + bytes(body)
+
+    zigzag = _NATURAL[:64]
+    out = [b"\xff\xd8", segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for table_id, table in enumerate((luma_q, chroma_q)):
+        out.append(segment(0xDB, bytes([table_id]) + bytes(table[zigzag].tolist())))
+    out.append(segment(0xC0, struct.pack(">BHHB", 8, height, width, 3)
+                       + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    for table_class, table_id, name in ((0, 0, "dc_luminance"), (1, 0, "ac_luminance"),
+                                        (0, 1, "dc_chrominance"), (1, 1, "ac_chrominance")):
+        counts, symbols = _STD_HUFFMAN[name]
+        out.append(segment(0xC4, bytes([table_class << 4 | table_id, *counts, *symbols])))
+    out.append(segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
+    out += [data, b"\xff\xd9"]
+    return b"".join(out)
+
+
 def _decode(blob: bytes, name: str) -> np.ndarray:
-    """A PNG or JPEG file's bytes as (H, W, 3) uint8 RGB."""
+    """A PNG, JPEG or GIF file's bytes as (H, W, 3) uint8 RGB."""
     if blob[:8] == _PNG_SIGNATURE:
         return decode_png(blob, name)
     if blob[:3] == _JPEG_SIGNATURE:
         return decode_jpeg(blob, name)
-    raise ValueError(f"{name} is neither a PNG nor a JPEG file")
+    if blob[:6] in (b"GIF87a", b"GIF89a"):
+        return decode_gif(blob, name)
+    raise ValueError(f"{name} is neither a PNG, a JPEG nor a GIF file")
 
 
 def read(filepath_or_buffer: typing.Union[str, typing.BinaryIO, np.ndarray]) -> np.ndarray:

@@ -2,7 +2,9 @@
 
 Port of ``keras_ocr_tpu/train/callbacks.py``, with the same stop and CSV
 semantics. A callback reads and writes its trainer's ``variables``, a numpy
-tree that shares no storage with the live model.
+tree that shares no storage with the live model. On a mesh across
+processes every process runs the callbacks on the same logs; the files are
+written by rank 0 (:func:`.checkpoint.write_once`).
 """
 
 from __future__ import annotations
@@ -77,12 +79,18 @@ class CSVLogger(Callback):
         self._initialized = False
 
     def on_epoch_end(self, epoch, logs, owner):
+        from .checkpoint import write_once
+
         write_header = not self._initialized and not os.path.exists(self.filename)
-        with open(self.filename, "a", newline="") as f:
-            writer = csv.writer(f)
-            if write_header:
-                writer.writerow(["epoch"] + sorted(logs))
-            writer.writerow([epoch] + [logs[k] for k in sorted(logs)])
+
+        def write():
+            with open(self.filename, "a", newline="") as f:
+                writer = csv.writer(f)
+                if write_header:
+                    writer.writerow(["epoch"] + sorted(logs))
+                writer.writerow([epoch] + [logs[k] for k in sorted(logs)])
+
+        write_once(write)
         self._initialized = True
         return False
 

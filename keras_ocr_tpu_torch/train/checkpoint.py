@@ -3,7 +3,9 @@
 Port of ``keras_ocr_tpu/train/checkpoint.py`` without orbax: a tree is
 flattened to ``a/b/c`` keys, the JAX package's layout, so each package
 reads the other's ``.npz`` checkpoints. An orbax directory written by the
-JAX package is not readable here.
+JAX package is not readable here. In a group of several processes (a
+trainer on a mesh across processes) rank 0 writes and the others wait for
+it at a barrier (:func:`write_once`); every process can restore.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import os
 import typing
 
 import numpy as np
+
+from ..parallel import mesh as mesh_lib
 
 
 def _flatten(tree, prefix=""):
@@ -45,21 +49,45 @@ def _cast(flat, cast):
     }
 
 
+def write_once(write: typing.Callable[[], typing.Any]) -> None:
+    """``write()`` in this process; in a group of several processes on rank
+    0 only, every process then waiting at a barrier until it is done."""
+    if mesh_lib.process_count() == 1:
+        write()
+        return
+    import torch.distributed as dist
+
+    try:
+        if dist.get_rank() == 0:
+            write()
+    finally:
+        dist.barrier()
+
+
 def save(path: str, variables) -> str:
     """Save a variable tree as ``path`` + ``.npz`` (uncompressed, the JAX
-    package's fallback format); returns the file's path."""
+    package's fallback format); returns the file's path. Rank 0 of a group
+    writes (:func:`write_once`)."""
     if not path.endswith(".npz"):
         path = path + ".npz"
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    np.savez(path, **_flatten(variables))
+
+    def write():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path, **_flatten(variables))
+
+    write_once(write)
     return path
 
 
 def save_npz(path: str, variables, cast: typing.Optional[type] = None) -> str:
     """Save a variable tree as one compressed ``.npz`` file; ``cast`` (say
-    ``np.float16``) casts the float leaves."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    np.savez_compressed(path, **_cast(_flatten(variables), cast))
+    ``np.float16``) casts the float leaves. Rank 0 of a group writes."""
+
+    def write():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez_compressed(path, **_cast(_flatten(variables), cast))
+
+    write_once(write)
     return path
 
 

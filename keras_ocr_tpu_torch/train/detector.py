@@ -6,7 +6,10 @@ CRAFT paper's online hard-example mining. The standard graph trains (the
 BN-folded one is inference only) with cuDNN's convolutions and autograd. On
 a mesh the batch is split over its data positions as in
 :mod:`.recognizer`: BatchNorm takes the whole batch's statistics and the
-loss is taken once on the gathered heatmaps.
+loss is taken once on the gathered heatmaps; across processes once per
+process on its own positions' heatmaps, weighted by their share of the
+batch (a ``loss`` callable must be a mean over the samples), with the
+gradients summed over the processes before the optimiser steps.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 from .. import weights as weights_lib
 from ..models.layers import full_float32
 from .optim import adam
-from .recognizer import OptimizerFactory, data_parallel, fit_loop, sharded_forward, trainable
+from .recognizer import (OptimizerFactory, data_parallel, finish_step, fit_loop, local_part,
+                         sharded_forward, trainable)
 
 
 def _mse_loss(preds, targets, sample_weights):
@@ -106,7 +110,8 @@ class DetectorTrainer:
     def train_step(self, batch) -> float:
         """One step on ``(images, targets[, sample_weights])`` of
         ``Detector.get_batch_generator``: normalised (B, H, W, 3) images and
-        (B, H/2, W/2, 2) maps. Returns the loss."""
+        (B, H/2, W/2, 2) maps. Returns the loss (the global batch's on
+        every process of a mesh across processes)."""
         images, targets, *rest = batch
         weights = rest[0] if rest else np.ones((len(images),), dtype="float32")
 
@@ -127,12 +132,16 @@ class DetectorTrainer:
                     preds = self.model(images)
                 else:
                     preds = sharded_forward(self.parallel, images, self.device)
+                (targets, weights), share = local_part(self.parallel, targets, weights)
                 loss = self.loss(preds, targets, weights)
+                if share != 1.0:
+                    loss = loss * share
                 loss.backward()
+            loss = finish_step(self.parallel, self.model, loss)
             self.optimizer.step()
         finally:
             self.model.eval()
-        return float(loss.detach())
+        return loss
 
     def fit(self, batch_generator, steps_per_epoch: int, epochs: int = 1,
             callbacks: typing.Optional[list] = None) -> typing.List[float]:

@@ -16,6 +16,15 @@ batch, as JAX's SPMD step is. ``tensor_parallel`` splits the kernels that
 columns over that axis's devices. With ``mesh=None`` the step runs on the
 model's device (JAX's default mesh is every device: the port's models carry
 their device).
+
+On a mesh across processes every process calls ``train_step`` with the
+same global batch and runs its own positions: its loss is the sum over its
+shards divided by the global count (its share of the global mean), the
+BatchNorm sums are all-reduced, and after ``backward`` the gradients are
+summed over the processes (one flat buffer per dtype) before the optimiser
+steps, so every process returns the global loss and holds the same
+parameters. A position's dropout generator is seeded by its global index,
+whichever process holds it.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ from .. import weights as weights_lib
 from ..models.layers import full_float32
 from ..ops.ctc import ctc_loss
 from ..parallel import mesh as mesh_lib
-from ..parallel.replicas import DataParallel
+from ..parallel.replicas import DataParallel, all_reduce_gradients, all_reduce_sum
 from .callbacks import CallbackList
 from .optim import RMSprop
 
@@ -51,11 +60,45 @@ def data_parallel(model: torch.nn.Module, mesh, configure=None) -> typing.Option
 
 
 def sharded_forward(parallel: DataParallel, images: torch.Tensor, device, kwargs=None):
-    """The model's output on the whole batch ``images``: split over the
-    data positions (``ValueError`` where it does not divide), each shard on
-    its replica, the outputs gathered on ``device``."""
+    """The model's output on this process's part of the global batch
+    ``images`` (all of it on a mesh of this process's devices): split over
+    the data positions (``ValueError`` where it does not divide), each of
+    this process's shards on its replica, the outputs gathered on
+    ``device`` in batch order (:func:`local_part`)."""
     shards = [(shard,) for shard in mesh_lib.shard_batch(images, parallel.mesh)]
     return torch.cat([out.to(device) for out in parallel(shards, kwargs)])
+
+
+def local_part(parallel: typing.Optional[DataParallel], *tensors):
+    """The rows of ``tensors`` (each indexed by the global batch) that this
+    process's positions hold, and their share of the batch: the tensors
+    and 1 without a mesh across processes."""
+    if parallel is None or not parallel.across_processes:
+        return tensors, 1.0
+    index = mesh_lib.local_indices(parallel.mesh, len(tensors[0]))
+    return tuple(t[index.to(t.device)] for t in tensors), len(index) / len(tensors[0])
+
+
+def finish_step(parallel: typing.Optional[DataParallel], model: torch.nn.Module,
+                loss: torch.Tensor) -> float:
+    """After ``backward``: across processes, every process's gradients
+    summed into each one's (:func:`..parallel.replicas.all_reduce_gradients`)
+    and the global loss (the sum of the shares); elsewhere the loss."""
+    if parallel is None or not parallel.across_processes:
+        return float(loss.detach())
+    all_reduce_gradients(trainable(model))
+    return float(all_reduce_sum(loss.detach().to(torch.float64)))
+
+
+def position_generators(parallel: DataParallel, generator: torch.Generator) -> list:
+    """One generator per data position of this process, seeded by the
+    position's global index: one draw from ``generator`` for each of the
+    mesh's positions in batch order, each seeding a generator on its
+    position's device, kept where the position is this process's."""
+    seeds = [torch.randint(0, 2**62, (1,), generator=generator, device=generator.device)
+             for _ in range(mesh_lib.data_size(parallel.mesh))]
+    return [torch.Generator(device=device).manual_seed(int(seeds[position]))
+            for position, device in zip(parallel.positions, parallel.devices)]
 
 
 def tensor_parallel_layers(model: torch.nn.Module, mesh) -> typing.List[str]:
@@ -116,8 +159,9 @@ class RecognizerTrainer:
         """One step on a batch of ``Recognizer.get_batch_generator``:
         ``((images, labels, input_length, label_length), y[, sample_weights])``.
         ``generator`` draws the dropout mask (default: the trainer's own); on
-        a mesh it seeds one generator per shard, in mesh order, and each
-        shard draws its mask from its own. Returns the loss."""
+        a mesh it seeds one generator per data position, in mesh order
+        (:func:`position_generators`), and each shard draws its mask from
+        its own. Returns the loss (the global batch's on every process)."""
         (images, labels, input_length, label_length), _y, *rest = batch
         weights = rest[0] if rest else np.ones((len(images),), dtype="float32")
 
@@ -142,14 +186,19 @@ class RecognizerTrainer:
                     logits = self.model(images, return_logits=True, generator=generator)
                 else:
                     logits = sharded_forward(self.parallel, images, self.device, [
-                        {"return_logits": True, "generator": shard_generator(generator, device)}
-                        for device in self.parallel.devices])
+                        {"return_logits": True, "generator": shard}
+                        for shard in position_generators(self.parallel, generator)])
+                (labels, input_length, label_length, weights), share = local_part(
+                    self.parallel, labels, input_length, label_length, weights)
                 loss = torch.mean(ctc_loss(logits, labels, input_length, label_length) * weights)
+                if share != 1.0:
+                    loss = loss * share
                 loss.backward()
+            loss = finish_step(self.parallel, self.model, loss)
             self.optimizer.step()
         finally:
             self.model.eval()
-        return float(loss.detach())
+        return loss
 
     def fit(self, batch_generator, steps_per_epoch: int, epochs: int = 1,
             callbacks: typing.Optional[list] = None, seed: int = 0) -> typing.List[float]:
@@ -159,12 +208,6 @@ class RecognizerTrainer:
         losses."""
         return fit_loop(self, batch_generator, steps_per_epoch, epochs, callbacks,
                         torch.Generator(device=self.device).manual_seed(seed))
-
-
-def shard_generator(generator: torch.Generator, device) -> torch.Generator:
-    """A generator on ``device`` seeded by one draw from ``generator``."""
-    seed = torch.randint(0, 2**62, (1,), generator=generator, device=generator.device)
-    return torch.Generator(device=device).manual_seed(int(seed))
 
 
 def fit_loop(trainer, batch_generator, steps_per_epoch, epochs, callbacks, *step_args):

@@ -235,8 +235,9 @@ def test_cocotext_loader_matches_jax(tmp_path, offline, monkeypatch):
 
 
 def test_icdar_2019_loader(tmp_path, offline, monkeypatch):
-    """Equal to JAX's on a converted cache; a cache that still holds GIF
-    images is refused (the port has no GIF decoder)."""
+    """Equal to JAX's on a converted cache; a GIF in the cache becomes a
+    ``.jpg`` of the same stem and goes, and a corrupt one raises and stays
+    (``tests/test_torch_gif.py`` holds the conversion to JAX's)."""
     main = tmp_path / "icdar2019"
     (main / "ImagesPart1").mkdir(parents=True)
     entries = [{"filepath": f"ImagesPart1/tr_img_{i:05d}.jpg", "percent_complete": p,
@@ -250,9 +251,17 @@ def test_icdar_2019_loader(tmp_path, offline, monkeypatch):
         theirs = jdatasets.get_icdar_2019_semisupervised_dataset(cache_dir=str(tmp_path))
     assert len(ours) == 2
     _assert_records_equal(ours, theirs)
+    shutil.copyfile(os.path.join(FIXTURES, "gif", "code_size_2.gif"),
+                    main / "ImagesPart1" / "tr_img_00008.gif")
+    with pytest.warns(UserWarning):
+        again = datasets.get_icdar_2019_semisupervised_dataset(cache_dir=str(tmp_path))
+    _assert_records_equal(again, theirs)
+    assert not (main / "ImagesPart1" / "tr_img_00008.gif").exists()
+    assert tools.read(str(main / "ImagesPart1" / "tr_img_00008.jpg")).shape == (64, 64, 3)
     (main / "ImagesPart1" / "tr_img_00009.gif").write_bytes(b"GIF89a")
-    with pytest.warns(UserWarning), pytest.raises(NotImplementedError, match="GIF"):
+    with pytest.warns(UserWarning), pytest.raises(ValueError, match="GIF"):
         datasets.get_icdar_2019_semisupervised_dataset(cache_dir=str(tmp_path))
+    assert (main / "ImagesPart1" / "tr_img_00009.gif").exists()
 
 
 def _detector_labels():

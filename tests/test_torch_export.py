@@ -13,6 +13,16 @@ refine ladder on a multi-blob scene is in
 file's cases (a shared fixture), and one JAX compile the word comparison
 of both graphs (the folded case after the standard one takes about half
 the time it takes alone, so the two stay in one file).
+
+The live golden pipeline against JAX's on four scenes (words equal, every
+box at IoU > 0.9, the same escalation steps) is here too, on the same JAX
+pipeline object, so that its compiled programs (the batch and its warp
+escalation) serve both; it sat in ``tests/test_torch_pipeline.py``, which
+compiled them a second time. Random weights are not used there: their
+heatmaps sit on threshold knife edges. The BN-folded detector's scenes:
+``tests/test_torch_pipeline_folded.py``; the port's own golden check,
+``recognize_many``, the entry points and the run with JAX blocked:
+``tests/test_torch_pipeline_entry.py``.
 """
 
 import os
@@ -33,6 +43,8 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "fixtures", "golden_offline")
 SCENES = ["scene_00.png", "scene_01.png"]
+# The scenes the live pipeline is held to JAX's on.
+READ_SCENES = SCENES + ["scene_02.png", "scene_03.png"]
 OPS = torch.ops.keras_ocr_tpu_torch
 
 
@@ -110,13 +122,20 @@ def artifacts(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def readings(artifacts):
+def jax_golden():
+    """JAX's golden pipeline, one object for the file: its jit keeps the
+    compiled programs."""
+    return jgolden.load_golden_pipeline(GOLDEN)[0]
+
+
+@pytest.fixture(scope="module")
+def readings(artifacts, jax_golden):
     """The golden scenes (JAX ``read``), the JAX pipeline's results, and per
     graph the served (results, diagnostics) with the packed tensor the
     loaded program returned."""
     from keras_ocr_tpu import tools as jtools
 
-    jax_pipeline, _ = jgolden.load_golden_pipeline(GOLDEN)
+    jax_pipeline = jax_golden
     images = [jtools.read(os.path.join(GOLDEN, scene)) for scene in SCENES]
     served_out = {}
     for label, (_, _, served) in artifacts.items():
@@ -206,3 +225,29 @@ def test_exported_pipeline_slices_by_artifact_ctc_time():
         [(word, box)] = served.recognize([image])[0]
         assert word == "aba", (extra_cols, word)
         assert box.shape == (4, 2)
+
+
+@pytest.fixture(scope="module")
+def pipelines(jax_golden):
+    return jax_golden, golden.load_golden_pipeline(GOLDEN, device="cpu")[0]
+
+
+def _assert_same_reading(jax_pipeline, port_pipeline, scene):
+    from keras_ocr_tpu import tools as jtools
+
+    image = jtools.read(os.path.join(GOLDEN, scene))
+    ref = jax_pipeline.recognize([image])[0]
+    out = port_pipeline.recognize([image])[0]
+    assert [word for word, _ in out] == [word for word, _ in ref]
+    for (_, box), (_, ref_box) in zip(out, ref):
+        assert box.shape == (4, 2) and box.dtype == np.float32
+        assert evaluation.iou_score(box, ref_box) > 0.9
+    common = set(jax_pipeline.last_run_stats) & set(port_pipeline.last_run_stats)
+    assert {k: port_pipeline.last_run_stats[k] for k in common} == {
+        k: jax_pipeline.last_run_stats[k] for k in common
+    }
+
+
+@pytest.mark.parametrize("scene", READ_SCENES)
+def test_golden_scene_matches_jax_pipeline(pipelines, scene):
+    _assert_same_reading(*pipelines, scene)

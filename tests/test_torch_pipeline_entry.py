@@ -14,7 +14,7 @@ import torch
 from keras_ocr_tpu_torch.utils import golden
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_pipeline import GOLDEN, ROOT, SCENES  # noqa: E402
+from test_torch_export import GOLDEN, READ_SCENES as SCENES, ROOT  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -27,7 +27,7 @@ META_SLIM = {
 
 @pytest.fixture(scope="module")
 def pipelines():
-    """The port's golden pipeline, where ``tests/test_torch_pipeline.py``
+    """The port's golden pipeline, where ``tests/test_torch_export.py``
     pairs it with JAX's."""
     return None, golden.load_golden_pipeline(GOLDEN, device="cpu")[0]
 

@@ -2,9 +2,12 @@
 ``Detector(fold_bn=True)`` on the folded checkpoint (``fold_bn_variables``)
 and the port's, which folds the standard checkpoint on load, read the same
 words on the same scenes, every box at IoU > 0.9, with the same escalation
-steps (the checks of ``tests/test_torch_pipeline.py``).
+steps (the checks of ``tests/test_torch_export.py``), on each of the
+golden artifact's 12 scenes: after the first two, whose JAX programs (the
+batch and its warp escalation) compile, a scene costs its two runs.
 """
 
+import json
 import os
 import sys
 
@@ -15,7 +18,10 @@ from keras_ocr_tpu.utils import golden as jgolden
 from keras_ocr_tpu_torch.utils import golden
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_pipeline import GOLDEN, SCENES, _assert_same_reading  # noqa: E402
+from test_torch_export import GOLDEN, _assert_same_reading  # noqa: E402
+
+with open(os.path.join(GOLDEN, "expected.json"), encoding="utf8") as _f:
+    ALL_SCENES = [entry["image"] for entry in json.load(_f)["scenes"]]
 
 torch.set_num_threads(2)
 
@@ -44,6 +50,6 @@ def folded_pipelines():
     return jax_folded, port_folded
 
 
-@pytest.mark.parametrize("scene", SCENES[:2])
+@pytest.mark.parametrize("scene", ALL_SCENES)
 def test_folded_golden_scene_matches_jax_pipeline(folded_pipelines, scene):
     _assert_same_reading(*folded_pipelines, scene)

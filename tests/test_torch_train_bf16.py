@@ -44,7 +44,7 @@ L2 error ||port - JAX|| / ||JAX||; the issue's max-relative error
   The gradient bar, not the loss, tells float32 from bf16.
 
 The JAX steps run op by op (about 70 s here for the two CRNNs; CRAFT's,
-about 90 s, and its tests are in ``tests/test_torch_train_bf16_craft.py``);
+about 90 s, and its tests are in ``tests/test_torch_train_detector.py``);
 they are module fixtures.
 """
 

@@ -18,9 +18,18 @@ arithmetic (a conv bias that a BatchNorm follows; at 64x64 also
 ``slice4_37``'s BatchNorm shift, which every path hands to a BatchNorm as a
 per-channel constant) are held to rounding noise instead: below 1e-5 of
 the model's largest gradient.
+
+Also the bfloat16 CRAFT step (VGG at width 0.25 on a (2, 64, 96) batch)
+against the JAX trainer's step op by op and, on two CPU devices, against
+the one-device step, with the bars and helpers of
+``tests/test_torch_train_bf16.py`` (in ``tests/test_torch_train_bf16_craft.py``
+before: a file of two tests, which ``pytest-xdist``'s ``--dist loadfile``
+queued last, as it queues files by their number of tests, so that its
+op-by-op JAX step ended the run).
 """
 
 import os
+import sys
 import types
 
 import jax
@@ -36,9 +45,15 @@ from keras_ocr_tpu.train import DetectorTrainer as JaxDetectorTrainer
 from keras_ocr_tpu.train.detector import ohem_mse_loss as jax_ohem_mse_loss
 from keras_ocr_tpu_torch import Detector, weights
 from keras_ocr_tpu_torch.models import CRAFT
+from keras_ocr_tpu_torch.parallel import mesh as port_mesh
 from keras_ocr_tpu_torch.train import DetectorTrainer
 from keras_ocr_tpu_torch.train.callbacks import CSVLogger
 from keras_ocr_tpu_torch.train.detector import ohem_mse_loss
+
+sys.path.insert(0, os.path.dirname(__file__))
+from test_torch_train_bf16 import (CPU, assert_float32_state, assert_step_close,  # noqa: E402
+                                   check_against_jax, craft_variables, jax_craft_step,
+                                   port_craft_step, zero_leaves)
 
 torch.set_num_threads(2)
 
@@ -256,3 +271,24 @@ def test_fit_on_the_batch_generator(tmp_path):
     assert not detector.model.training
     with open(log) as f:
         assert len(f.read().strip().splitlines()) == 3
+
+
+@pytest.fixture(scope="module")
+def craft_case():
+    variables = craft_variables()
+    return {"variables": variables, "jax": jax_craft_step(variables),
+            "float32": port_craft_step(variables, torch.float32)}
+
+
+def test_craft_bf16_step_matches_jax(craft_case):
+    step = port_craft_step(craft_case["variables"])
+    assert step["trainer"].detector.model.dtype == torch.bfloat16
+    check_against_jax(craft_case, step)
+
+
+def test_craft_bf16_step_on_a_mesh_matches_one_device(craft_case):
+    one = port_craft_step(craft_case["variables"])
+    step = port_craft_step(craft_case["variables"],
+                           mesh=port_mesh.create_mesh(devices=[CPU] * 2))
+    assert_float32_state(step)
+    assert_step_close(step, one, zero_leaves(craft_case["float32"]["grads"]), "data_parallel")
