@@ -301,17 +301,28 @@ Phases, each printing one line; any failure exits non-zero:
    phase, and both are killed at a timeout. Rank 0's float32 checkpoints, restored here, the
    CRAFT folded on load, through ``Pipeline.recognize`` of 4 golden scenes
    with every conv chain and sweep call held to its plain version.
+22. image formats: every fixture of ``tests/fixtures/images`` (TIFF with
+   CCITT Group 3 / 4, LZW, Deflate, PackBits and JPEG; BMP; PNM; CMYK and
+   YCCK JPEG; written by ``scripts/make_image_fixtures.py``) read with
+   ``tools.read`` must decode to the sha256 of PIL's decode
+   (``hashes.json``); host decode ms and MB/s of RGB out of the 2550x3300
+   Group 4 page and of a 640x480 LZW RGB TIFF (median of 5); the
+   full-width folded pipeline's ``recognize`` of the page by path must
+   equal that of its decoded array, with the decode's share of the call; the 12 golden scenes written as PPM, 24-bit BMP and
+   uncompressed TIFF by the numpy writers here (``write_ppm``,
+   ``write_bmp24``, ``write_tiff_rgb``) read by path through the golden
+   folded pipeline must reach ``pass_fraction`` with the PNG run's words.
 
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
 ``.pth``-loaded detector's run in 12, the EfficientNet pipeline of 13,
 the ``detect`` of 14, the bfloat16 full-width pipelines of 15, each mesh
 pipeline of 16, the trained folded bf16 path of 17, each strip
-pipeline of 18, the synthetic-trained folded pipeline of 19 and the
-distributed checkpoint's pipeline of 21 count their kernel launches from
-zero; the kernel line's launches are those of phases 5-7, 13, 14, 16, 17,
-18, 19 and 21 (their sweep calls), and for the bf16 mode's two entries
-those of 15, 17 and 18;
+pipeline of 18, the synthetic-trained folded pipeline of 19, the
+distributed checkpoint's pipeline of 21 and the folded pipelines of 22
+count their kernel launches from zero; the kernel line's launches are
+those of phases 5-7, 13, 14, 16, 17, 18, 19, 21 and 22 (their sweep
+calls), and for the bf16 mode's two entries those of 15, 17 and 18;
 the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
@@ -331,8 +342,10 @@ import platform
 import random
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -3749,6 +3762,132 @@ def codecs_phase(card):
           f"network refused; phase 20 in {time.perf_counter() - phase_start:.1f} s")
 
 
+# Phase 22: the scan and photo formats of tools.read.
+IMAGE_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "images")
+IMAGE_TIMED = 5
+
+
+def write_ppm(rgb):
+    """A raw PPM (P6, maxval 255) of (H, W, 3) uint8."""
+    return b"P6\n%d %d\n255\n" % (rgb.shape[1], rgb.shape[0]) + rgb.tobytes()
+
+
+def write_bmp24(rgb):
+    """A 24-bit BI_RGB BMP (BITMAPINFOHEADER, bottom-up rows)."""
+    height, width = rgb.shape[:2]
+    stride = (width * 3 + 3) & ~3
+    rows = np.zeros((height, stride), np.uint8)
+    rows[:, : width * 3] = rgb[::-1, :, ::-1].reshape(height, -1)
+    info = struct.pack("<IiiHHIIiiII", 40, width, height, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    return b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54) + info + rows.tobytes()
+
+
+def write_tiff_rgb(rgb):
+    """An uncompressed little-endian RGB TIFF: the IFD at byte 8, then
+    BitsPerSample's three values, then the one strip."""
+    height, width = rgb.shape[:2]
+    bits_at = 8 + 2 + 12 * 9 + 4
+    entries = ((256, 4, width), (257, 4, height), (258, 3, bits_at), (259, 3, 1), (262, 3, 2),
+               (273, 4, bits_at + 6), (277, 3, 3), (278, 4, height), (279, 4, rgb.size))
+    ifd = struct.pack("<H", len(entries))
+    for tag, kind, value in entries:
+        count = 3 if tag == 258 else 1
+        field = struct.pack("<I" if kind == 4 or count > 1 else "<HH", value, *(
+            () if kind == 4 or count > 1 else (0,)))
+        ifd += struct.pack("<HHI", tag, kind, count) + field
+    return (b"II*\x00" + struct.pack("<I", 8) + ifd + struct.pack("<I", 0)
+            + struct.pack("<HHH", 8, 8, 8) + rgb.tobytes())
+
+
+def image_formats_phase(card, folded_pipeline, golden_folded, golden_scenes, pass_fraction,
+                        wrappers):
+    """Phase 22: every fixture of ``tests/fixtures/images`` decoded to the
+    sha256 of PIL's decode; host decode ms and MB/s of the Group 4 page
+    and a 640x480 LZW RGB TIFF (median of 5); the full-width folded
+    pipeline's ``recognize`` of the page by path against its decoded
+    array (words and boxes equal), with the decode's share of the call;
+    the golden scenes written as PPM, BMP and TIFF read by path through the
+    golden folded pipeline (``pass_fraction``, words equal to the PNG
+    run's). Returns the launches of the kernels, counted from zero."""
+    from keras_ocr_tpu_torch import tools
+    from keras_ocr_tpu_torch.utils import golden
+
+    phase_start = time.perf_counter()
+    with open(os.path.join(IMAGE_FIXTURES, "hashes.json"), encoding="utf8") as f:
+        hashes = json.load(f)
+    for name, expected in sorted(hashes.items()):
+        image = tools.read(os.path.join(IMAGE_FIXTURES, name))
+        digest = hashlib.sha256(image.tobytes()).hexdigest()
+        if list(image.shape) != expected["shape"] or digest != expected["decoded_sha256"]:
+            raise AssertionError(f"{name}: decoded {image.shape} sha256 {digest}, PIL's "
+                                 f"{expected['shape']} {expected['decoded_sha256']}")
+    page_path = os.path.join(IMAGE_FIXTURES, "page_g4.tif")
+    with open(page_path, "rb") as f:
+        page_blob = f.read()
+    page_s, page = median_seconds(lambda: tools.decode_tiff(page_blob), runs=IMAGE_TIMED)
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from make_image_fixtures import scene, write_tiff
+
+    photo = scene(480, 640)
+    lzw_blob = write_tiff(photo, photometric=2, compression=5, rows_per_strip=64)
+    lzw_s, lzw = median_seconds(lambda: tools.decode_tiff(lzw_blob), runs=IMAGE_TIMED)
+    if not np.array_equal(lzw, photo):
+        raise AssertionError("the 640x480 LZW TIFF did not decode to its pixels")
+    print(f"image formats ({card}): {len(hashes)} fixtures (TIFF, BMP, PNM, CMYK/YCCK JPEG) "
+          f"decoded to the sha256 of PIL's decode; host decode (median of {IMAGE_TIMED}, host "
+          f"CPU {host_cpu()}): the 2550x3300 Group 4 page ({len(page_blob)} bytes) "
+          f"{page_s * 1e3:.1f} ms = {page.nbytes / 1e6 / page_s:.2f} MB/s of RGB out, a "
+          f"640x480 LZW RGB TIFF ({len(lzw_blob)} bytes) {lzw_s * 1e3:.1f} ms = "
+          f"{lzw.nbytes / 1e6 / lzw_s:.2f} MB/s of RGB out")
+
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    by_path = folded_pipeline.recognize([page_path])
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    by_path = folded_pipeline.recognize([page_path])
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - start
+    by_array = folded_pipeline.recognize([page])
+    if [w for w, _ in by_path[0]] != [w for w, _ in by_array[0]] or not all(
+            np.array_equal(a, b) for (_, a), (_, b) in zip(by_path[0], by_array[0])):
+        raise AssertionError("the page read by path gave other words or boxes than its array")
+    with open(os.path.join(ARTIFACT, "expected.json"), encoding="utf8") as f:
+        expected = json.load(f)["scenes"]
+    pngs = [os.path.join(ARTIFACT, entry["image"]) for entry in expected]
+    words = {"png": [[w for w, _ in r] for r in golden_folded.recognize(pngs)]}
+    fractions = {}
+    with tempfile.TemporaryDirectory() as folder:
+        for kind, writer in (("ppm", write_ppm), ("bmp", write_bmp24), ("tif", write_tiff_rgb)):
+            paths = []
+            for index, png in enumerate(pngs):
+                path = os.path.join(folder, f"scene_{index:02d}.{kind}")
+                with open(path, "wb") as f:
+                    f.write(writer(golden_scenes[index]))
+                if not np.array_equal(tools.read(path), golden_scenes[index]):
+                    raise AssertionError(f"{path} did not decode to the scene's pixels")
+                paths.append(path)
+            words[kind] = [[w for w, _ in r] for r in golden_folded.recognize(paths)]
+            hits = sum(golden._word_match_fraction(entry["words"], found) * len(entry["words"])
+                       for entry, found in zip(expected, words[kind]))
+            fractions[kind] = hits / max(sum(len(e["words"]) for e in expected), 1)
+            if words[kind] != words["png"] or fractions[kind] < pass_fraction:
+                raise AssertionError(f"golden scenes as {kind}: fraction {fractions[kind]} "
+                                     f"(pass >= {pass_fraction}), words equal to the PNG "
+                                     f"run's: {words[kind] == words['png']}")
+    launches = {name: w.launches for name, w in wrappers.items()}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the folded path was never launched: {launches}")
+    print(f"image formats, pipelines ({card}): the full-width folded pipeline's recognize of "
+          f"the Group 4 page by path equals that of its decoded array ({len(by_path[0])} "
+          f"words; random weights); the call {call_s * 1e3:.1f} ms, of which the host decode "
+          f"{page_s * 1e3:.1f} ms = {page_s / call_s:.1%}; the golden folded pipeline read "
+          f"the 12 scenes as PPM, BMP and TIFF with the PNG run's words, fractions "
+          f"{ {k: round(v, 4) for k, v in fractions.items()} } (pass >= {pass_fraction}); "
+          f"launches {launches}; phase 22 in {time.perf_counter() - phase_start:.1f} s")
+    return launches
+
+
 # Phase 21: both trainers on a mesh across two processes of the one card.
 DIST_DIR = os.path.join(ROOT, "build", "distributed")
 DIST_WORLD = 2
@@ -4199,6 +4338,12 @@ def main() -> int:
     for name, count in distributed_phase(card, scenes, all_wrappers).items():
         launches[name] += count
     lap("21")
+
+    for name, count in image_formats_phase(card, folded_pipeline, golden_folded,
+                                           golden_images, pass_fraction,
+                                           all_wrappers).items():
+        launches[name] += count
+    lap("22")
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",

@@ -28,7 +28,7 @@ from . import native, tools
 from . import weights as weights_lib
 from .data.detection_targets import compute_maps
 from .models import CRAFT, check_compute_dtype, init_parameters
-from .models.craft import fold_bn_state_dict
+from .models.craft import fold_bn_state_dict, fold_bn_variables
 from .models.efficientnet import EfficientNetBackbone
 from .ops import cc as cc_ops
 from .ops import image as image_ops
@@ -527,23 +527,14 @@ def upsample_like(source, target):
 UpsampleLike = upsample_like
 
 
-# The JAX module's names for the reference's Keras graph builders and its
-# BatchNorm fold (keras_ocr_tpu/detection.py:24, :504-507), on the port's
-# modules.
+# The JAX module's names for the reference's Keras graph builders
+# (keras_ocr_tpu/detection.py:504-507), on the port's modules.
 from .data.detection_targets import map_to_rgb  # noqa: E402
 from .models.craft import ConvBN as make_vgg_block  # noqa: E402
 from .models.craft import UpConv as upconv  # noqa: E402
 from .models.craft import VGG16BN as build_vgg_backbone  # noqa: E402
 
 PRETRAINED_WEIGHTS = weights_lib.DETECTOR_PRETRAINED
-
-
-def fold_bn_variables(variables: dict, eps: float = 1e-5) -> dict:
-    """JAX's fold of every ConvBN pair's BatchNorm into its conv, on a
-    variable tree (numpy copies, for ``Detector(fold_bn=True)``): the
-    tree through :func:`.models.craft.fold_bn_state_dict`."""
-    return weights_lib.craft_variables(
-        fold_bn_state_dict(weights_lib.craft_state_dict(variables), eps))
 
 
 def build_model(backbone_name: str = "vgg", weights_path: typing.Optional[str] = None,

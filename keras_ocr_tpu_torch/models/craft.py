@@ -41,6 +41,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops import conv_cuda
+from ..ops.image import resize_bilinear  # noqa: F401 (JAX's models.craft binds it)
 from ..parallel import halo
 from .efficientnet import EfficientNetBackbone
 from .layers import BatchNorm2d, Conv2d, float32_output, full_float32, sigmoid
@@ -108,6 +109,17 @@ def fold_bn_state_dict(state: dict, eps: float = 1e-5) -> dict:
             state[f"{prefix}.conv.bias"] - state[f"{prefix}.bn.running_mean"]
         ) * inv + state[f"{prefix}.bn.bias"]
     return folded
+
+
+def fold_bn_variables(variables: dict, eps: float = 1e-5) -> dict:
+    """Counterpart of ``keras_ocr_tpu/models/craft.py:fold_bn_variables``:
+    the fold of every ConvBN pair's BatchNorm into its conv, on a JAX-layout
+    variable tree (numpy copies, for ``Detector(fold_bn=True)``), through
+    :func:`fold_bn_state_dict`."""
+    from .. import weights
+
+    return weights.craft_variables(
+        fold_bn_state_dict(weights.craft_state_dict(variables), eps))
 
 
 def _scaled(filters: int, width: float) -> int:

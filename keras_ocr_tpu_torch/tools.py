@@ -12,9 +12,11 @@ with numpy and the standard library only (``drawAnnotations`` imports
 matplotlib when called). PNG files are decoded by a small
 reader: colour types 0, 2, 3, 4 and 6 at every bit depth the format
 allows, plain or Adam7-interlaced, to RGB uint8 as PIL's ``convert("RGB")``
-gives them. JPEG files (sequential or progressive Huffman, 8-bit, grey or
-three components) are decoded by :func:`decode_jpeg` with the arithmetic
-of PIL's libjpeg-turbo. The
+gives them. JPEG files (sequential or progressive Huffman, 8-bit, grey,
+three components, CMYK or YCCK) are decoded by :func:`decode_jpeg` with
+the arithmetic of PIL's libjpeg-turbo, GIF files by :func:`decode_gif`,
+and TIFF, BMP and PNM files by :mod:`.codecs` (:func:`decode_tiff`,
+:func:`decode_bmp`, :func:`decode_pnm`). The
 download helpers (``sha256sum``, ``md5sum``, ``get_default_cache_dir``,
 ``download_and_verify``, ``safe_extract_zip``, ``download_and_extract``)
 serve the weight registry (:mod:`.weights`).
@@ -35,6 +37,9 @@ import zipfile
 import zlib
 
 import numpy as np
+
+from .codecs import (PNM_PREFIXES, TIFF_SIGNATURES, cmyk_to_rgb, decode_bmp,  # noqa: F401
+                     decode_pnm, decode_tiff)
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_SIGNATURE = b"\xff\xd8\xff"
@@ -617,12 +622,18 @@ def _ycc_to_rgb(y, cb, cr):
 
 def decode_jpeg(blob: bytes, name: str = "image") -> np.ndarray:
     """Decode a Huffman-coded JPEG (SOF0 baseline, SOF1 extended sequential
-    or SOF2 progressive, 8-bit) of 1 or 3 components, sampling factors 1-2
-    on each axis, into (H, W, 3) uint8 as PIL's ``Image.open(...).convert("RGB")``
-    gives it: libjpeg-turbo's islow IDCT, fancy upsampling and YCbCr
-    tables; grey repeated over three channels; no colour conversion for an
-    Adobe transform 0 or component ids R, G, B (a JFIF marker means
-    YCbCr). The EXIF orientation is not applied, as PIL's ``open`` does not.
+    or SOF2 progressive, 8-bit) of 1, 3 or 4 components, sampling factors
+    1-2 on each axis, into (H, W, 3) uint8 as PIL's
+    ``Image.open(...).convert("RGB")`` gives it: libjpeg-turbo's islow
+    IDCT, fancy upsampling and YCbCr tables; grey repeated over three
+    channels; no colour conversion for an Adobe transform 0 or component
+    ids R, G, B (a JFIF marker means YCbCr). Four components are CMYK
+    (Adobe transform 0, or no Adobe marker) or YCCK (any other transform:
+    YCbCr to RGB on the first three, inverted, as libjpeg's
+    ``ycck_cmyk_convert``); PIL reads them in Adobe's inverted polarity
+    (raw mode ``CMYK;I``) and converts with
+    :func:`keras_ocr_tpu_torch.codecs.cmyk_to_rgb`. The EXIF orientation is
+    not applied, as PIL's ``open`` does not.
 
     A progressive file's scans (DC first and refinement, AC spectral bands
     with successive approximation and EOB runs, restart intervals) fill the
@@ -631,9 +642,16 @@ def decode_jpeg(blob: bytes, name: str = "image") -> np.ndarray:
     is complete).
 
     Raises NotImplementedError naming the kind of a lossless,
-    hierarchical, arithmetic-coded, 12-bit or 4-component JPEG, and
-    ValueError on a truncated or corrupt stream.
+    hierarchical, arithmetic-coded or 12-bit JPEG, and ValueError on a
+    truncated or corrupt stream.
     """
+    return _assemble(*_jpeg_frame(blob, name), name)
+
+
+def _jpeg_frame(blob: bytes, name: str):
+    """Read a JPEG stream's markers and scans: (the frame with each
+    component's decoded coefficients, whether a JFIF marker came, the
+    Adobe marker's transform or None)."""
     if blob[:2] != b"\xff\xd8":
         raise ValueError(f"{name} is not a JPEG file")
     quant, tables = {}, {}
@@ -715,7 +733,7 @@ def decode_jpeg(blob: bytes, name: str = "image") -> np.ndarray:
             pos = end
     if frame is None or not scans:
         raise ValueError(f"{name}: corrupt JPEG: no frame or no scan")
-    return _assemble(frame, jfif, adobe_transform, name)
+    return frame, jfif, adobe_transform
 
 
 def _read_frame(segment, name, progressive=False):
@@ -726,9 +744,7 @@ def _read_frame(segment, name, progressive=False):
     precision, height, width, count = struct.unpack(">BHHB", segment[:6])
     if precision != 8:
         raise NotImplementedError(f"{name}: {precision}-bit JPEG is not supported")
-    if count == 4:
-        raise NotImplementedError(f"{name}: 4-component (CMYK or YCCK) JPEG is not supported")
-    if count not in (1, 3) or len(segment) < 6 + 3 * count:
+    if count not in (1, 3, 4) or len(segment) < 6 + 3 * count:
         raise NotImplementedError(f"{name}: {count}-component JPEG is not supported")
     if height == 0 or width == 0:
         raise NotImplementedError(f"{name}: JPEG with a DNL-defined or zero size")
@@ -972,8 +988,9 @@ def _decode_ac_refine(data, blocks, name, start, end, low):
     _check_end(pos, data, name)
 
 
-def _assemble(frame, jfif, adobe_transform, name):
-    """Dequantise, IDCT, upsample and convert the decoded coefficients."""
+def _jpeg_planes(frame, name) -> list:
+    """Dequantise, IDCT and upsample the decoded coefficients: one uint8
+    plane of the image's size per component."""
     width, height = frame["width"], frame["height"]
     planes = []
     for c in frame["components"]:
@@ -986,8 +1003,19 @@ def _assemble(frame, jfif, adobe_transform, name):
         rh, rv = frame["hmax"] // c["h"], frame["vmax"] // c["v"]
         real = samples[: _ceil_div(height, rv), : _ceil_div(width, rh)]
         planes.append(_upsample(real, rh, rv, width, height))
+    return planes
+
+
+def _assemble(frame, jfif, adobe_transform, name):
+    """The decoded coefficients as RGB, converted as libjpeg and PIL
+    convert them."""
+    planes = _jpeg_planes(frame, name)
     if len(planes) == 1:
         return np.ascontiguousarray(np.repeat(planes[0][..., None], 3, axis=-1))
+    if len(planes) == 4:
+        if adobe_transform not in (None, 0):
+            planes[:3] = np.moveaxis(255 - _ycc_to_rgb(*planes[:3]), -1, 0)
+        return cmyk_to_rgb(255 - np.stack(planes, -1))
     ids = tuple(c["id"] for c in frame["components"])
     if jfif:
         rgb = False
@@ -1414,20 +1442,32 @@ def _encode_jpeg(image: np.ndarray) -> bytes:
 
 
 def _decode(blob: bytes, name: str) -> np.ndarray:
-    """A PNG, JPEG or GIF file's bytes as (H, W, 3) uint8 RGB."""
+    """A PNG, JPEG, GIF, TIFF, BMP or PNM file's bytes as (H, W, 3) uint8
+    RGB, by its magic bytes."""
     if blob[:8] == _PNG_SIGNATURE:
         return decode_png(blob, name)
     if blob[:3] == _JPEG_SIGNATURE:
         return decode_jpeg(blob, name)
     if blob[:6] in (b"GIF87a", b"GIF89a"):
         return decode_gif(blob, name)
-    raise ValueError(f"{name} is neither a PNG, a JPEG nor a GIF file")
+    if blob[:4] in TIFF_SIGNATURES:
+        return decode_tiff(blob, name)
+    if blob[:2] == b"BM":
+        return decode_bmp(blob, name)
+    if blob[:2] in PNM_PREFIXES:
+        return decode_pnm(blob, name)
+    raise ValueError(f"{name} is neither a PNG, JPEG, GIF, TIFF, BMP nor PNM (P1-P6) file")
 
 
 def read(filepath_or_buffer: typing.Union[str, typing.BinaryIO, np.ndarray]) -> np.ndarray:
     """An ndarray as is; a path, an ``http(s)://`` URL (fetched with
-    :mod:`urllib.request`), or an object with ``.read``, whose PNG or JPEG
-    bytes are decoded to RGB uint8."""
+    :mod:`urllib.request`), or an object with ``.read``, whose bytes are
+    decoded to RGB uint8 as PIL's ``Image.open(...).convert("RGB")`` gives
+    them: PNG, JPEG (baseline, extended or progressive Huffman; grey, RGB,
+    CMYK or YCCK), GIF (the first frame), TIFF (the first image; CCITT
+    Group 3 and 4, LZW, Deflate, PackBits, JPEG or none), BMP and PNM
+    (P1-P6). Other formats, and the kinds of these that are not read
+    (:mod:`.codecs`), raise ``ValueError`` or ``NotImplementedError``."""
     if isinstance(filepath_or_buffer, np.ndarray):
         return filepath_or_buffer
     if hasattr(filepath_or_buffer, "read"):

@@ -520,10 +520,12 @@ def test_get_fonts_matches_jax(tmp_path, monkeypatch, built_font, default_font_p
 
 
 def test_new_modules_import_without_pil_fonttools_matplotlib_or_jax(tmp_path):
-    """The reader, the rasteriser, the generation module and the drawing
-    functions import and run with PIL, fontTools, matplotlib, h5py, jax,
-    flax and the JAX package unimportable, as on the card's machine;
-    ``drawAnnotations`` raises ``ImportError`` there."""
+    """The reader, the rasteriser, the generation module, the drawing
+    functions and the image codecs (``tools.read`` of a TIFF, BMP, PNM and
+    YCCK JPEG fixture, to the sha256 of PIL's decode) import and run with
+    PIL, fontTools, matplotlib, h5py, jax, flax and the JAX package
+    unimportable, as on the card's machine; ``drawAnnotations`` raises
+    ``ImportError`` there."""
     code = (
         "import sys\n"
         "for name in ('PIL', 'matplotlib', 'fontTools', 'h5py', 'jax', 'jaxlib', 'flax',\n"
@@ -543,6 +545,13 @@ def test_new_modules_import_without_pil_fonttools_matplotlib_or_jax(tmp_path):
         "    pass\n"
         "else:\n"
         "    raise AssertionError('drawAnnotations ran without matplotlib')\n"
+        "import hashlib, json, os\n"
+        "from keras_ocr_tpu_torch import codecs\n"
+        "images = os.path.join('tests', 'fixtures', 'images')\n"
+        "hashes = json.load(open(os.path.join(images, 'hashes.json')))\n"
+        "for name in ('g4.tif', 'rle4.bmp', 'plain.pgm', 'ycck.jpg'):\n"
+        "    out = tools.read(os.path.join(images, name))\n"
+        "    assert hashlib.sha256(out.tobytes()).hexdigest() == hashes[name]['decoded_sha256']\n"
         "assert not any(m.split('.')[0] in ('PIL', 'matplotlib', 'fontTools', 'h5py', 'jax',"
         " 'flax', 'keras_ocr_tpu') for m in sys.modules if sys.modules[m] is not None)\n"
         "print('fonts ok')\n"

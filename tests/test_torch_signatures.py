@@ -204,18 +204,29 @@ def test_artifact_available(tmp_path):
 
 def test_detection_aliases():
     """``PRETRAINED_WEIGHTS``, ``fold_bn_variables`` (the JAX fold on a
-    variable tree, bit for bit), ``map_to_rgb`` and the reference's graph
-    builder names."""
+    variable tree, bit for bit, bound in ``models.craft`` as JAX binds it
+    and imported from there by ``detection``), ``resize_bilinear`` in
+    ``models.craft``, ``map_to_rgb`` and the reference's graph builder
+    names."""
+    from keras_ocr_tpu.models import craft as jcraft
     from keras_ocr_tpu_torch.models import craft
+    from keras_ocr_tpu_torch.models.craft import fold_bn_variables, resize_bilinear
+    from keras_ocr_tpu_torch.ops import image
 
     assert detection.PRETRAINED_WEIGHTS.keys() == jdetection.PRETRAINED_WEIGHTS.keys()
+    assert detection.fold_bn_variables is fold_bn_variables
+    assert resize_bilinear is image.resize_bilinear
+    assert _positional(fold_bn_variables) == _positional(jcraft.fold_bn_variables)
     tree = jax.tree.map(np.asarray, JaxDetector(weights=None, width=0.125,
                                                 max_components=16).variables)
-    ours = dict(_leaves(detection.fold_bn_variables(tree)))
-    ref = dict(_leaves(jax.tree.map(np.asarray, jdetection.fold_bn_variables(tree))))
+    ours = dict(_leaves(fold_bn_variables(tree)))
+    ref = dict(_leaves(jax.tree.map(np.asarray, jcraft.fold_bn_variables(tree))))
     assert ours.keys() == ref.keys()
     for path, value in ref.items():
         np.testing.assert_array_equal(ours[path], value, err_msg=path)
+    x = np.random.RandomState(1).rand(2, 5, 7, 3).astype(np.float32)
+    np.testing.assert_array_equal(resize_bilinear(torch.from_numpy(x), 9, 4).numpy(),
+                                  np.asarray(jcraft.resize_bilinear(x, 9, 4)))
     y = np.random.RandomState(0).rand(5, 7, 2).astype(np.float32)
     np.testing.assert_array_equal(detection.map_to_rgb(y), jdetection.map_to_rgb(y))
     assert (detection.make_vgg_block, detection.upconv, detection.build_vgg_backbone) == (

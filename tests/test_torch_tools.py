@@ -335,11 +335,15 @@ def test_read_jpeg_refuses_what_it_cannot_decode():
         "lossless": _with_sof(baseline, marker=0xC3),
         "arithmetic-coded": _with_sof(baseline, marker=0xC9),
         "12-bit": _with_sof(baseline, precision=12),
-        "4-component": _pil_jpeg(_scene_crop(16, 24, "CMYK")),
     }
     for kind, blob in kinds.items():
         with pytest.raises(NotImplementedError, match=kind):
             tools.read(io.BytesIO(blob))
+    # A 4-component (CMYK) JPEG is not refused: it decodes as PIL decodes
+    # it (tests/test_torch_image_formats.py holds CMYK and YCCK files of
+    # every sampling).
+    cmyk = _pil_jpeg(_scene_crop(16, 24, "CMYK"))
+    np.testing.assert_array_equal(tools.read(io.BytesIO(cmyk)), jtools.read(io.BytesIO(cmyk)))
     with open(FIXTURE_JPEG, "rb") as f:
         fixture = f.read()
     for cut in (200, len(fixture) // 2, len(fixture) - 2):
