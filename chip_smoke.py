@@ -312,6 +312,17 @@ Phases, each printing one line; any failure exits non-zero:
    uncompressed TIFF by the numpy writers here (``write_ppm``,
    ``write_bmp24``, ``write_tiff_rgb``) read by path through the golden
    folded pipeline must reach ``pass_fraction`` with the PNG run's words.
+23. webp: every fixture of ``tests/fixtures/webp`` (lossy with the simple
+   filter, 8 partitions, 1 and 4 segments, sharpness 0 and 7, filter
+   strength 0 and 100; ``ALPH`` of both compressions and every filter; an
+   animation's first frame at an offset; lossless files; written by
+   ``scripts/make_webp_fixtures.py``) read with ``tools.read`` must decode
+   to the sha256 of PIL's decode; host decode ms and MB/s of RGB out of
+   the 12 golden scenes as lossy WebP (quality 80) and of scene 3 as
+   lossless WebP (median of 3); the golden folded pipeline reads the 12
+   lossy scenes by path: its words and boxes must equal those of
+   ``recognize`` on their decoded arrays, and it must reach
+   ``pass_fraction``.
 
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
@@ -319,10 +330,10 @@ path), each run of 9, each golden artifact's run in 10, each
 the ``detect`` of 14, the bfloat16 full-width pipelines of 15, each mesh
 pipeline of 16, the trained folded bf16 path of 17, each strip
 pipeline of 18, the synthetic-trained folded pipeline of 19, the
-distributed checkpoint's pipeline of 21 and the folded pipelines of 22
-count their kernel launches from zero; the kernel line's launches are
-those of phases 5-7, 13, 14, 16, 17, 18, 19, 21 and 22 (their sweep
-calls), and for the bf16 mode's two entries those of 15, 17 and 18;
+distributed checkpoint's pipeline of 21, the folded pipelines of 22 and
+the golden folded pipeline's read of the WebP scenes by path in 23 count
+their kernel launches from zero; the kernel line's launches are those of
+phases 5-7, 13, 14, 16, 17, 18, 19, 21, 22 and 23 (their sweep calls), and for the bf16 mode's two entries those of 15, 17 and 18;
 the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
@@ -3888,6 +3899,78 @@ def image_formats_phase(card, folded_pipeline, golden_folded, golden_scenes, pas
     return launches
 
 
+# Phase 23: WebP files through tools.read and the golden folded pipeline.
+WEBP_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "webp")
+WEBP_TIMED = 3
+
+
+def webp_phase(card, golden_folded, pass_fraction, wrappers):
+    """Phase 23: every fixture of ``tests/fixtures/webp`` decoded to the
+    sha256 of PIL's decode; host decode ms and MB/s of RGB out of the 12
+    golden scenes as lossy WebP and of scene 3 as lossless WebP (median of
+    3); the golden folded pipeline's ``recognize`` of the 12 lossy scenes
+    by path, with words and boxes equal to those of their decoded arrays
+    and ``pass_fraction`` reached. Returns the launches of the kernels in
+    the run by path, counted from zero."""
+    from keras_ocr_tpu_torch import tools, webp
+    from keras_ocr_tpu_torch.utils import golden
+
+    phase_start = time.perf_counter()
+    with open(os.path.join(WEBP_FIXTURES, "hashes.json"), encoding="utf8") as f:
+        hashes = json.load(f)
+    for name, expected in sorted(hashes.items()):
+        image = tools.read(os.path.join(WEBP_FIXTURES, name))
+        digest = hashlib.sha256(image.tobytes()).hexdigest()
+        if list(image.shape) != expected["shape"] or digest != expected["decoded_sha256"]:
+            raise AssertionError(f"{name}: decoded {image.shape} sha256 {digest}, PIL's "
+                                 f"{expected['shape']} {expected['decoded_sha256']}")
+    with open(os.path.join(ARTIFACT, "expected.json"), encoding="utf8") as f:
+        expected = json.load(f)["scenes"]
+    paths = [os.path.join(WEBP_FIXTURES, entry["image"].replace(".png", ".webp"))
+             for entry in expected]
+    blobs = []
+    for path in paths + [os.path.join(WEBP_FIXTURES, "scene_03_lossless.webp")]:
+        with open(path, "rb") as f:
+            blobs.append(f.read())
+    lossy_s, scenes = median_seconds(lambda: [webp.decode_webp(b) for b in blobs[:-1]],
+                                     runs=WEBP_TIMED)
+    lossless_s, lossless = median_seconds(lambda: webp.decode_webp(blobs[-1]), runs=WEBP_TIMED)
+    lossy_bytes = sum(image.nbytes for image in scenes)
+    print(f"webp ({card}): {len(hashes)} fixtures (lossy, lossless, ALPH, animation) decoded "
+          f"to the sha256 of PIL's decode; host decode (median of {WEBP_TIMED}, host CPU "
+          f"{host_cpu()}): the 12 golden scenes as lossy WebP at quality 80 "
+          f"({sum(len(b) for b in blobs[:-1])} bytes) {lossy_s * 1e3:.1f} ms in all, "
+          f"{lossy_s * 1e3 / len(scenes):.1f} ms a scene = {lossy_bytes / 1e6 / lossy_s:.2f} "
+          f"MB/s of RGB out; scene 3 as lossless WebP ({len(blobs[-1])} bytes) "
+          f"{lossless_s * 1e3:.1f} ms = {lossless.nbytes / 1e6 / lossless_s:.2f} MB/s of RGB "
+          f"out")
+
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    by_path = golden_folded.recognize(paths)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    by_array = golden_folded.recognize(scenes)
+    for index, (path_result, array_result) in enumerate(zip(by_path, by_array)):
+        if [w for w, _ in path_result] != [w for w, _ in array_result] or not all(
+                np.array_equal(a, b) for (_, a), (_, b) in zip(path_result, array_result)):
+            raise AssertionError(f"scene {index} read by path gave other words or boxes than "
+                                 f"its decoded array")
+    words = [[w for w, _ in result] for result in by_path]
+    hits = sum(golden._word_match_fraction(entry["words"], found) * len(entry["words"])
+               for entry, found in zip(expected, words))
+    fraction = hits / max(sum(len(entry["words"]) for entry in expected), 1)
+    if fraction < pass_fraction:
+        raise AssertionError(f"golden scenes as lossy WebP: fraction {fraction} "
+                             f"(pass >= {pass_fraction})")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the folded path was never launched: {launches}")
+    print(f"webp, pipeline ({card}): the golden folded pipeline read the 12 lossy WebP scenes "
+          f"by path with the words and boxes of their decoded arrays, fraction "
+          f"{fraction:.4f} (pass >= {pass_fraction}); launches {launches}; phase 23 in "
+          f"{time.perf_counter() - phase_start:.1f} s")
+    return launches
+
+
 # Phase 21: both trainers on a mesh across two processes of the one card.
 DIST_DIR = os.path.join(ROOT, "build", "distributed")
 DIST_WORLD = 2
@@ -4344,6 +4427,10 @@ def main() -> int:
                                            all_wrappers).items():
         launches[name] += count
     lap("22")
+
+    for name, count in webp_phase(card, golden_folded, pass_fraction, all_wrappers).items():
+        launches[name] += count
+    lap("23")
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",

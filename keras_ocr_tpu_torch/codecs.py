@@ -36,7 +36,8 @@ Anything else (BigTIFF, old-style JPEG, LZMA, ZSTD, WebP, floating-point
 or signed samples, bit depths above 16, YCbCr without JPEG, ...) raises
 ``NotImplementedError`` naming it; a truncated or corrupt file raises
 ``ValueError``. The CCITT and LZW decoders loop in Python over codes and
-fill runs with numpy.
+fill runs with numpy. WebP files are read by :mod:`.webp`; WebP inside a
+TIFF (compression 50001) stays refused.
 """
 
 from __future__ import annotations

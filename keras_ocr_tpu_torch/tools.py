@@ -15,8 +15,9 @@ allows, plain or Adam7-interlaced, to RGB uint8 as PIL's ``convert("RGB")``
 gives them. JPEG files (sequential or progressive Huffman, 8-bit, grey,
 three components, CMYK or YCCK) are decoded by :func:`decode_jpeg` with
 the arithmetic of PIL's libjpeg-turbo, GIF files by :func:`decode_gif`,
-and TIFF, BMP and PNM files by :mod:`.codecs` (:func:`decode_tiff`,
-:func:`decode_bmp`, :func:`decode_pnm`). The
+TIFF, BMP and PNM files by :mod:`.codecs` (:func:`decode_tiff`,
+:func:`decode_bmp`, :func:`decode_pnm`) and WebP files by
+:func:`.webp.decode_webp`. The
 download helpers (``sha256sum``, ``md5sum``, ``get_default_cache_dir``,
 ``download_and_verify``, ``safe_extract_zip``, ``download_and_extract``)
 serve the weight registry (:mod:`.weights`).
@@ -40,6 +41,7 @@ import numpy as np
 
 from .codecs import (PNM_PREFIXES, TIFF_SIGNATURES, cmyk_to_rgb, decode_bmp,  # noqa: F401
                      decode_pnm, decode_tiff)
+from .webp import decode_webp
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_SIGNATURE = b"\xff\xd8\xff"
@@ -1442,8 +1444,8 @@ def _encode_jpeg(image: np.ndarray) -> bytes:
 
 
 def _decode(blob: bytes, name: str) -> np.ndarray:
-    """A PNG, JPEG, GIF, TIFF, BMP or PNM file's bytes as (H, W, 3) uint8
-    RGB, by its magic bytes."""
+    """A PNG, JPEG, GIF, TIFF, BMP, PNM or WebP file's bytes as (H, W, 3)
+    uint8 RGB, by its magic bytes."""
     if blob[:8] == _PNG_SIGNATURE:
         return decode_png(blob, name)
     if blob[:3] == _JPEG_SIGNATURE:
@@ -1456,7 +1458,10 @@ def _decode(blob: bytes, name: str) -> np.ndarray:
         return decode_bmp(blob, name)
     if blob[:2] in PNM_PREFIXES:
         return decode_pnm(blob, name)
-    raise ValueError(f"{name} is neither a PNG, JPEG, GIF, TIFF, BMP nor PNM (P1-P6) file")
+    if blob[:4] == b"RIFF" and blob[8:12] == b"WEBP":
+        return decode_webp(blob, name)
+    raise ValueError(f"{name} is neither a PNG, JPEG, GIF, TIFF, BMP, PNM (P1-P6) nor WebP "
+                     f"file")
 
 
 def read(filepath_or_buffer: typing.Union[str, typing.BinaryIO, np.ndarray]) -> np.ndarray:
@@ -1465,9 +1470,11 @@ def read(filepath_or_buffer: typing.Union[str, typing.BinaryIO, np.ndarray]) -> 
     decoded to RGB uint8 as PIL's ``Image.open(...).convert("RGB")`` gives
     them: PNG, JPEG (baseline, extended or progressive Huffman; grey, RGB,
     CMYK or YCCK), GIF (the first frame), TIFF (the first image; CCITT
-    Group 3 and 4, LZW, Deflate, PackBits, JPEG or none), BMP and PNM
-    (P1-P6). Other formats, and the kinds of these that are not read
-    (:mod:`.codecs`), raise ``ValueError`` or ``NotImplementedError``."""
+    Group 3 and 4, LZW, Deflate, PackBits, JPEG or none), BMP, PNM
+    (P1-P6) and WebP (lossless, lossy, with alpha or metadata; the first
+    frame of an animation; :mod:`.webp`). Other formats, and the kinds of
+    these that are not read (:mod:`.codecs`), raise ``ValueError`` or
+    ``NotImplementedError``."""
     if isinstance(filepath_or_buffer, np.ndarray):
         return filepath_or_buffer
     if hasattr(filepath_or_buffer, "read"):

@@ -522,7 +522,8 @@ def test_get_fonts_matches_jax(tmp_path, monkeypatch, built_font, default_font_p
 def test_new_modules_import_without_pil_fonttools_matplotlib_or_jax(tmp_path):
     """The reader, the rasteriser, the generation module, the drawing
     functions and the image codecs (``tools.read`` of a TIFF, BMP, PNM and
-    YCCK JPEG fixture, to the sha256 of PIL's decode) import and run with
+    YCCK JPEG fixture, and of a lossy, a lossless and an ``ALPH`` WebP
+    fixture, to the sha256 of PIL's decode) import and run with
     PIL, fontTools, matplotlib, h5py, jax, flax and the JAX package
     unimportable, as on the card's machine; ``drawAnnotations`` raises
     ``ImportError`` there."""
@@ -552,6 +553,13 @@ def test_new_modules_import_without_pil_fonttools_matplotlib_or_jax(tmp_path):
         "for name in ('g4.tif', 'rle4.bmp', 'plain.pgm', 'ycck.jpg'):\n"
         "    out = tools.read(os.path.join(images, name))\n"
         "    assert hashlib.sha256(out.tobytes()).hexdigest() == hashes[name]['decoded_sha256']\n"
+        "webp_dir = os.path.join('tests', 'fixtures', 'webp')\n"
+        "webp_hashes = json.load(open(os.path.join(webp_dir, 'hashes.json')))\n"
+        "for name in ('filter_100.webp', 'lossless_predictors.webp',\n"
+        "             'alpha_lossless_gradient.webp'):\n"
+        "    out = tools.read(os.path.join(webp_dir, name))\n"
+        "    digest = hashlib.sha256(out.tobytes()).hexdigest()\n"
+        "    assert digest == webp_hashes[name]['decoded_sha256'], name\n"
         "assert not any(m.split('.')[0] in ('PIL', 'matplotlib', 'fontTools', 'h5py', 'jax',"
         " 'flax', 'keras_ocr_tpu') for m in sys.modules if sys.modules[m] is not None)\n"
         "print('fonts ok')\n"

@@ -20,9 +20,9 @@ path of ``tools.decode_jpeg``) must equal it bit for bit:
 
 What is still refused raises ``NotImplementedError`` naming it, a
 truncated file ``ValueError``; the slim golden pipeline reads the same
-words and boxes from one scene as PNG, TIFF-LZW, BMP and PPM
-(``tests/test_torch_fonts.py``'s import guard reads a fixture of each
-format with PIL and JAX unimportable).
+words and boxes from one scene as PNG, TIFF-LZW, BMP, PPM and lossless
+WebP (``tests/test_torch_fonts.py``'s import guard reads a fixture of
+each format with PIL and JAX unimportable).
 """
 
 import hashlib
@@ -586,13 +586,15 @@ _TAIL = {"pbm": 2, "pgm": 4, "ppm": 16, "bmp": 300}
 
 
 def test_unknown_format_is_a_value_error():
-    with pytest.raises(ValueError, match="neither a PNG, JPEG, GIF, TIFF, BMP nor PNM"):
+    with pytest.raises(ValueError, match=r"neither a PNG, JPEG, GIF, TIFF, BMP, PNM \(P1-P6\) "
+                                         r"nor WebP"):
         tools.read(io.BytesIO(b"P7\nWIDTH 1\n"))
 
 
 def test_golden_scene_reads_alike_in_every_format(tmp_path):
     """One golden scene through the slim golden pipeline (CPU) from PNG,
-    TIFF-LZW, BMP and PPM: the same words and boxes each time."""
+    TIFF-LZW, BMP, PPM and lossless WebP: the same words and boxes each
+    time."""
     from keras_ocr_tpu_torch.utils import golden
 
     artifact = os.path.join(HERE, "fixtures", "golden_offline")
@@ -600,7 +602,8 @@ def test_golden_scene_reads_alike_in_every_format(tmp_path):
     png = os.path.join(artifact, "scene_03.png")
     image = Image.open(png).convert("RGB")
     paths = [png]
-    for suffix, kwargs in ((".tif", {"compression": "tiff_lzw"}), (".bmp", {}), (".ppm", {})):
+    for suffix, kwargs in ((".tif", {"compression": "tiff_lzw"}), (".bmp", {}), (".ppm", {}),
+                           (".webp", {"lossless": True})):
         path = str(tmp_path / ("scene" + suffix))
         image.save(path, **kwargs)
         paths.append(path)
