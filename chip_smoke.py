@@ -323,6 +323,20 @@ Phases, each printing one line; any failure exits non-zero:
    lossy scenes by path: its words and boxes must equal those of
    ``recognize`` on their decoded arrays, and it must reach
    ``pass_fraction``.
+24. jpeg modes: every fixture of ``tests/fixtures/jpeg`` (arithmetic-coded
+   sequential and progressive JPEG with ``DAC`` and restarts, the 12
+   golden scenes arithmetic-coded from PIL's baseline JPEG of each,
+   lossless JPEG of every predictor, sampling factors 3 and 4; written by
+   ``scripts/make_jpeg_fixtures.py``) read with ``tools.read`` by path must
+   decode to the sha256 of PIL's decode; host decode ms and MB/s of RGB
+   out (median of 3) of the 12 golden scenes as SOF9, of scene 3 as
+   SOF10, of a 640x480 lossless JPEG (predictor 4, the golden scenes
+   tiled) and of scene 3 as run-length TGA and PCX (the lossless file,
+   the TGA and the PCX written here by the fixture scripts' numpy
+   writers, each decode held to its source pixels); the golden folded
+   pipeline reads the 12 SOF9 scenes by path: its words and boxes must
+   equal those of ``recognize`` on their decoded arrays, and it must
+   reach ``pass_fraction``.
 
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
@@ -331,9 +345,10 @@ the ``detect`` of 14, the bfloat16 full-width pipelines of 15, each mesh
 pipeline of 16, the trained folded bf16 path of 17, each strip
 pipeline of 18, the synthetic-trained folded pipeline of 19, the
 distributed checkpoint's pipeline of 21, the folded pipelines of 22 and
-the golden folded pipeline's read of the WebP scenes by path in 23 count
-their kernel launches from zero; the kernel line's launches are those of
-phases 5-7, 13, 14, 16, 17, 18, 19, 21, 22 and 23 (their sweep calls), and for the bf16 mode's two entries those of 15, 17 and 18;
+the golden folded pipeline's reads of the WebP scenes by path in 23 and
+of the arithmetic-coded JPEG scenes by path in 24 count their kernel
+launches from zero; the kernel line's launches are those of phases 5-7,
+13, 14, 16, 17, 18, 19, 21, 22, 23 and 24 (their sweep calls), and for the bf16 mode's two entries those of 15, 17 and 18;
 the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
@@ -3971,6 +3986,111 @@ def webp_phase(card, golden_folded, pass_fraction, wrappers):
     return launches
 
 
+# Phase 24: the JPEG kinds of keras_ocr_tpu_torch/jpeg_modes.py, TGA and PCX.
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "jpeg")
+JPEG_TIMED = 3
+
+
+def jpeg_modes_phase(card, golden_folded, golden_images, pass_fraction, wrappers):
+    """Phase 24: every fixture of ``tests/fixtures/jpeg`` decoded by path to
+    the sha256 of PIL's decode; host decode ms and MB/s of RGB out (median
+    of 3) of the 12 golden scenes as SOF9, of their Huffman twins (PIL's
+    baseline files, rebuilt from the SOF9 files' coefficients and held to
+    the same pixels), of scene 3 as SOF10, of a
+    640x480 lossless JPEG and of scene 3 as run-length TGA and PCX (the
+    last three written here, each held to its source pixels); the golden
+    folded pipeline's ``recognize`` of the 12 SOF9 scenes by path, with
+    words and boxes equal to those of their decoded arrays and
+    ``pass_fraction`` reached. Returns the launches of the kernels in the
+    run by path, counted from zero."""
+    from keras_ocr_tpu_torch import codecs, tools
+    from keras_ocr_tpu_torch.utils import golden
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import make_image_fixtures
+    import make_jpeg_fixtures
+
+    phase_start = time.perf_counter()
+    with open(os.path.join(JPEG_FIXTURES, "hashes.json"), encoding="utf8") as f:
+        hashes = json.load(f)
+    for name, expected in sorted(hashes.items()):
+        image = tools.read(os.path.join(JPEG_FIXTURES, name))
+        digest = hashlib.sha256(image.tobytes()).hexdigest()
+        if list(image.shape) != expected["shape"] or digest != expected["decoded_sha256"]:
+            raise AssertionError(f"{name}: decoded {image.shape} sha256 {digest}, PIL's "
+                                 f"{expected['shape']} {expected['decoded_sha256']}")
+    with open(os.path.join(ARTIFACT, "expected.json"), encoding="utf8") as f:
+        expected = json.load(f)["scenes"]
+    paths = [os.path.join(JPEG_FIXTURES, entry["image"].replace(".png", "_arith.jpg"))
+             for entry in expected]
+    blobs = []
+    for path in paths + [os.path.join(JPEG_FIXTURES, "scene_03_arith_progressive.jpg")]:
+        with open(path, "rb") as f:
+            blobs.append(f.read())
+    tiled = np.concatenate([np.concatenate(golden_images[0:2], 1),
+                            np.concatenate(golden_images[2:4], 1)], 0)[:480, :640]
+    lossless = make_jpeg_fixtures.lossless_jpeg([tiled[..., k] for k in range(3)], predictor=4)
+    scene = golden_images[3]
+    tga = make_image_fixtures.write_tga(scene, 10, 24)
+    pcx = make_image_fixtures.write_pcx(scene, 8, 3)
+
+    timed = {}
+
+    def timing(label, fn, size):
+        seconds, out = median_seconds(fn, runs=JPEG_TIMED)
+        out = out if isinstance(out, list) else [out]
+        timed[label] = (seconds, sum(image.nbytes for image in out), size)
+        return out
+
+    scenes = timing("12 golden scenes as SOF9", lambda: [tools.decode_jpeg(b)
+                                                         for b in blobs[:-1]],
+                    sum(len(b) for b in blobs[:-1]))
+    twins = [make_jpeg_fixtures.huffman_jpeg(make_jpeg_fixtures.frame_of_jpeg(b))
+             for b in blobs[:-1]]
+    baseline = timing("their Huffman twins (baseline, SOF0)",
+                      lambda: [tools.decode_jpeg(b) for b in twins], sum(map(len, twins)))
+    if not all(np.array_equal(a, b) for a, b in zip(scenes, baseline)):
+        raise AssertionError("a golden scene's Huffman twin decodes to other pixels")
+    timing("scene 3 as SOF10", lambda: tools.decode_jpeg(blobs[-1]), len(blobs[-1]))
+    for label, blob, decode, want in (
+            ("640x480 lossless (predictor 4)", lossless, tools.decode_jpeg, tiled),
+            ("scene 3 as run-length TGA", tga, codecs.decode_tga, scene),
+            ("scene 3 as run-length PCX", pcx, codecs.decode_pcx, scene)):
+        (out,) = timing(label, lambda b=blob, d=decode: d(b), len(blob))
+        if not np.array_equal(out, want):
+            raise AssertionError(f"{label}: the decode is not the source's pixels")
+    print(f"jpeg modes ({card}): {len(hashes)} fixtures (arithmetic-coded, lossless, sampling "
+          f"factors 3 and 4) decoded by path to the sha256 of PIL's decode; host decode "
+          f"(median of {JPEG_TIMED}, host CPU {host_cpu()}): " + "; ".join(
+              f"{label} ({size} bytes) {seconds * 1e3:.1f} ms = {nbytes / 1e6 / seconds:.2f} "
+              f"MB/s of RGB out" for label, (seconds, nbytes, size) in timed.items()))
+
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    by_path = golden_folded.recognize(paths)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    by_array = golden_folded.recognize(scenes)
+    for index, (path_result, array_result) in enumerate(zip(by_path, by_array)):
+        if [w for w, _ in path_result] != [w for w, _ in array_result] or not all(
+                np.array_equal(a, b) for (_, a), (_, b) in zip(path_result, array_result)):
+            raise AssertionError(f"scene {index} read by path gave other words or boxes than "
+                                 f"its decoded array")
+    words = [[w for w, _ in result] for result in by_path]
+    hits = sum(golden._word_match_fraction(entry["words"], found) * len(entry["words"])
+               for entry, found in zip(expected, words))
+    fraction = hits / max(sum(len(entry["words"]) for entry in expected), 1)
+    if fraction < pass_fraction:
+        raise AssertionError(f"golden scenes as SOF9 JPEG: fraction {fraction} "
+                             f"(pass >= {pass_fraction})")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the folded path was never launched: {launches}")
+    print(f"jpeg modes, pipeline ({card}): the golden folded pipeline read the 12 SOF9 scenes "
+          f"by path with the words and boxes of their decoded arrays, fraction "
+          f"{fraction:.4f} (pass >= {pass_fraction}); launches {launches}; phase 24 in "
+          f"{time.perf_counter() - phase_start:.1f} s")
+    return launches
+
+
 # Phase 21: both trainers on a mesh across two processes of the one card.
 DIST_DIR = os.path.join(ROOT, "build", "distributed")
 DIST_WORLD = 2
@@ -4431,6 +4551,11 @@ def main() -> int:
     for name, count in webp_phase(card, golden_folded, pass_fraction, all_wrappers).items():
         launches[name] += count
     lap("23")
+
+    for name, count in jpeg_modes_phase(card, golden_folded, golden_images, pass_fraction,
+                                        all_wrappers).items():
+        launches[name] += count
+    lap("24")
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",

@@ -1,4 +1,5 @@
-"""TIFF, BMP and PNM decoding for :func:`keras_ocr_tpu_torch.tools.read`.
+"""TIFF, BMP, PNM, TGA, PCX, ICO and CUR decoding for
+:func:`keras_ocr_tpu_torch.tools.read`.
 
 JAX's ``tools.read`` is PIL's ``Image.open(f).convert("RGB")``
 (``keras_ocr_tpu/tools.py``), so it opens every format PIL opens. These
@@ -31,10 +32,21 @@ library (``zlib``) only:
 * :func:`decode_pnm`: P1-P6, plain and raw, comments in the header, maxval
   1-65535 scaled as PIL scales it (to 0-255, or to 0-65535 for grey above
   255, which ``convert("RGB")`` then clips), the first image of a file.
+* :func:`decode_tga`: image types 1-3 and their run-length forms 9-11 at
+  PIL's depths, colour maps of 16- or 24-bit entries from any first
+  index, both orientation bits, literal packets across rows (PIL's
+  ``TgaRleDecode``); TGA has no magic bytes, so :func:`is_tga` makes
+  PIL's header checks and ``tools.read`` tries it last, as PIL does.
+* :func:`decode_pcx`: 1-bit, 1-bit over 2 or 4 planes, 8-bit grey or with
+  the trailing palette, 8-bit RGB over 3 planes, run-length rows in PIL's
+  stride (``PcxDecode``, its band shuffle included).
+* :func:`decode_ico`: an icon's largest entry (PIL's order) or a
+  cursor's, as PNG or as a DIB through the BMP decoder at half height.
 
 Anything else (BigTIFF, old-style JPEG, LZMA, ZSTD, WebP, floating-point
-or signed samples, bit depths above 16, YCbCr without JPEG, ...) raises
-``NotImplementedError`` naming it; a truncated or corrupt file raises
+or signed samples, bit depths above 16, YCbCr without JPEG, a TGA or PCX
+run packet past a row's end, ...) raises ``NotImplementedError`` naming
+it; a truncated or corrupt file raises
 ``ValueError``. The CCITT and LZW decoders loop in Python over codes and
 fill runs with numpy. WebP files are read by :mod:`.webp`; WebP inside a
 TIFF (compression 50001) stays refused.
@@ -42,11 +54,14 @@ TIFF (compression 50001) stays refused.
 
 from __future__ import annotations
 
+import math
 import struct
 import typing
 import zlib
 
 import numpy as np
+
+from .jpeg_modes import windows
 
 # Classic TIFF, then BigTIFF (refused).
 TIFF_SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
@@ -720,10 +735,8 @@ def _fax_decode(data: bytes, width: int, rows: int, compression: int, t4options:
     if compression == 3 and t4options & 2:
         raise NotImplementedError(f"{name}: Group 3 TIFF with uncompressed mode "
                                   "(T4Options bit 1) is not supported")
-    from .tools import _windows
-
     white, black, modes = _fax_tables()
-    win = _windows(data)
+    win = windows(data)
     end = 8 * len(data)
     two_d = compression == 4 or (compression == 3 and t4options & 1)
     reference = [width] * 4
@@ -876,11 +889,21 @@ def decode_bmp(blob: bytes, name: str = "image") -> np.ndarray:
     ValueError on a truncated or corrupt file."""
     if blob[:2] != b"BM" or len(blob) < 18:
         raise ValueError(f"{name} is not a BMP file")
-    offset, header_size = struct.unpack_from("<II", blob, 10)
-    header = blob[18 : 14 + header_size]
+    (offset,) = struct.unpack_from("<I", blob, 10)
+    layout = _dib_layout(blob, 14, offset, name)
+    return _dib_rgb(blob, layout, layout["height"], name)
+
+
+def _dib_layout(blob: bytes, at: int, offset: int, name: str) -> dict:
+    """The bitmap header at ``at`` as ``BmpImagePlugin._bitmap`` reads it:
+    size, depth, PIL's mode and raw mode, palette, row order and where the
+    pixel data starts (``offset``, a BMP file header's, or 0 for the data
+    after the header and palette, as in an icon)."""
+    (header_size,) = struct.unpack_from("<I", blob, at) if len(blob) >= at + 4 else (0,)
+    header = blob[at + 4 : at + header_size]
     if header_size < 12 or len(header) != header_size - 4:
         raise ValueError(f"{name}: truncated BMP header")
-    pos = 14 + header_size
+    pos = at + header_size
     direction = -1
     masks = None
     if header_size == 12:
@@ -941,16 +964,25 @@ def decode_bmp(blob: bytes, name: str = "image") -> np.ndarray:
         else:
             palette = np.zeros((256, 3), np.uint8)
             palette[: len(entries)] = entries[:, ::-1]
-    start = offset or pos
-    if compression in (1, 2):
+    return {"width": width, "height": height, "bits": bits, "compression": compression,
+            "mode": mode, "rawmode": rawmode, "palette": palette, "direction": direction,
+            "start": offset or pos, "stride": ((width * bits + 31) >> 3) & ~3}
+
+
+def _dib_rgb(blob: bytes, layout: dict, height: int, name: str) -> np.ndarray:
+    """The first ``height`` rows of a bitmap's pixel data (an icon's image
+    holds half the rows its header states) as RGB."""
+    width, rawmode, mode = layout["width"], layout["rawmode"], layout["mode"]
+    start = layout["start"]
+    if layout["compression"] in (1, 2):
         if mode == "1":
             raise NotImplementedError(f"{name}: run-length BMP with a black and white palette "
                                       "is not supported (PIL does not read it)")
-        values = _bmp_rle(blob, start, width, height, compression == 2, name)
+        values = _bmp_rle(blob, start, width, height, layout["compression"] == 2, name)
     else:
         bits_out = _RAWMODE_BITS.get(rawmode, 32)
         need = -(-width * bits_out // 8)
-        stride = ((width * bits + 31) >> 3) & ~3
+        stride = layout["stride"]
         if need > stride:
             raise NotImplementedError(f"{name}: BMP rows of {stride} bytes for raw mode "
                                       f"{rawmode} (PIL does not read it)")
@@ -959,14 +991,14 @@ def decode_bmp(blob: bytes, name: str = "image") -> np.ndarray:
             raise ValueError(f"{name}: truncated BMP in the image data")
         rows = np.frombuffer(data, np.uint8).reshape(height, stride)[:, :need]
         values = _bmp_unpack(rows, rawmode, width)
-    if direction == -1:
+    if layout["direction"] == -1:
         values = values[::-1]
     if mode == "1":
         return _grey(values * 255)
     if mode == "L":
         return _grey(values)
     if mode == "P":
-        return palette[values]
+        return layout["palette"][values]
     return np.ascontiguousarray(values)
 
 
@@ -1181,3 +1213,310 @@ def decode_pnm(blob: bytes, name: str = "image") -> np.ndarray:
     if bands == 1:
         return _grey(np.minimum(values[..., 0], 255))
     return values.astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# TGA
+# ---------------------------------------------------------------------------
+
+# PIL's ``TgaImagePlugin.MODES``: raw mode by (image type & 7, depth).
+_TGA_RAWMODES = {(1, 8): "P", (3, 1): "1", (3, 8): "L", (3, 16): "LA", (2, 16): "BGRA;15Z",
+                 (2, 24): "BGR", (2, 32): "BGRA"}
+_TGA_BITS = {"P": 8, "1": 1, "L": 8, "LA": 16, "BGRA;15Z": 16, "BGR": 24, "BGRA": 32}
+
+
+def is_tga(blob: bytes) -> bool:
+    """Whether PIL's ``TgaImageFile._open`` takes the header: TGA has no
+    magic bytes, so PIL tries it after the formats that have them."""
+    if len(blob) < 18:
+        return False
+    cmap, kind, width, height, depth = blob[1], blob[2], *struct.unpack_from("<HH", blob, 12), \
+        blob[16]
+    return (cmap in (0, 1) and width > 0 and height > 0 and depth in (1, 8, 16, 24, 32)
+            and kind in (1, 2, 3, 9, 10, 11) and (not cmap or blob[7] in (16, 24, 32)))
+
+
+def _rgb555(words: np.ndarray) -> np.ndarray:
+    """Little-endian ``xRRRRRGGGGGBBBBB`` words as RGB, each 5-bit field
+    scaled by 255 // 31 as PIL's ``BGRA;15Z`` unpacker does."""
+    words = words.astype(np.int64)
+    return (np.stack([(words >> 10) & 31, (words >> 5) & 31, words & 31], -1) * 255 // 31
+            ).astype(np.uint8)
+
+
+def decode_tga(blob: bytes, name: str = "image") -> np.ndarray:
+    """A TGA file as (H, W, 3) uint8, as PIL's ``convert("RGB")`` of its
+    ``TgaImagePlugin`` gives it: image types 1, 2, 3 (raw) and 9, 10, 11
+    (run-length); colour-mapped 8-bit with 16- or 24-bit map entries from
+    any first index (entries before it and past the map are black),
+    1-bit, 8-bit and 16-bit (grey and alpha) grey, 16-bit (5 bits a
+    channel), 24- and 32-bit colour; rows bottom first unless the
+    descriptor's top bit is set, and mirrored with its right-to-left bit;
+    run-length literal packets that go on past a row's end. Raises
+    NotImplementedError naming what PIL does not read either (a run packet
+    past a row's end, a 1-bit run-length image, 32-bit map entries, a map
+    beside true colour, a depth the image type has no raw mode for),
+    ValueError on a truncated file."""
+    if not is_tga(blob):
+        raise ValueError(f"{name} is not a TGA file")
+    id_len, cmap, kind = blob[0], blob[1], blob[2]
+    map_start, map_len, map_depth = struct.unpack_from("<HHB", blob, 3)
+    width, height = struct.unpack_from("<HH", blob, 12)
+    depth, flags = blob[16], blob[17]
+    rawmode = _TGA_RAWMODES.get((kind & 7, depth))
+    if rawmode is None:
+        raise NotImplementedError(f"{name}: {depth}-bit TGA of image type {kind} (PIL has no "
+                                  "raw mode for it)")
+    if kind & 7 == 1 and not cmap:
+        raise NotImplementedError(f"{name}: colour-mapped TGA without a colour map (PIL does "
+                                  "not read it)")
+    if cmap and (kind & 7 == 2 or depth == 1):
+        raise NotImplementedError(f"{name}: {depth}-bit TGA of image type {kind} with a colour "
+                                  "map (PIL does not read it)")
+    pos = 18 + id_len
+    palette = None
+    if cmap:
+        if map_depth == 32:
+            raise NotImplementedError(f"{name}: TGA colour map of 32-bit entries (PIL does not "
+                                      "read it)")
+        size = map_depth // 8
+        raw = blob[pos : pos + size * map_len]
+        pos += size * map_len
+        if map_start + len(raw) // size > 256:
+            raise NotImplementedError(f"{name}: TGA colour map past entry 256")
+        palette = np.zeros((256, 3), np.uint8)
+        count = len(raw) // size
+        if map_depth == 16:
+            entries = _rgb555(np.frombuffer(raw[: 2 * count], "<u2"))
+        else:
+            entries = np.frombuffer(raw[: 3 * count], np.uint8).reshape(-1, 3)[:, ::-1]
+        palette[map_start : map_start + count] = entries
+    bits = _TGA_BITS[rawmode]
+    stride = (width * bits + 7) // 8
+    if kind & 8:
+        if depth == 1:
+            raise NotImplementedError(f"{name}: 1-bit run-length TGA (PIL does not read it)")
+        rows = _tga_rle(blob, pos, stride, height, depth // 8, name)
+    else:
+        rows = blob[pos : pos + stride * height]
+        if len(rows) != stride * height:
+            raise ValueError(f"{name}: truncated TGA in the image data")
+    rows = np.frombuffer(rows, np.uint8).reshape(height, stride)
+    if not flags & 0x20:
+        rows = rows[::-1]
+    if rawmode == "1":
+        rgb = _grey(_unpack_bits(rows, 1, width) * 255)
+    elif rawmode in ("L", "LA"):
+        grey = rows[:, :: 2 if rawmode == "LA" else 1]
+        # A colour map makes PIL's image a palette image of the grey values.
+        rgb = _grey(grey) if palette is None else palette[grey]
+    elif rawmode == "P":
+        rgb = palette[rows]
+    elif rawmode == "BGRA;15Z":
+        rgb = _rgb555(rows.view("<u2"))
+    else:
+        rgb = rows.reshape(height, width, -1)[..., 2::-1]
+    if flags & 0x10:
+        rgb = rgb[:, ::-1]
+    return np.ascontiguousarray(rgb)
+
+
+def _tga_rle(blob, pos, stride, height, size, name) -> bytes:
+    """Run-length data as PIL's ``TgaRleDecode`` reads it: a packet's high
+    bit makes it a run of one ``size``-byte pixel, else a literal of
+    pixels; a literal may go on into the next rows, a run past a row's
+    end is a decoder error."""
+    total = stride * height
+    out = bytearray()
+    length = len(blob)
+    while len(out) < total:
+        if pos >= length:
+            raise ValueError(f"{name}: truncated TGA: run-length data for {len(out)} of "
+                             f"{total} bytes")
+        head = blob[pos]
+        count = size * ((head & 0x7F) + 1)
+        if head & 0x80:
+            if pos + 1 + size > length:
+                raise ValueError(f"{name}: truncated TGA in a run-length packet")
+            if len(out) % stride + count > stride:
+                raise NotImplementedError(f"{name}: TGA run-length packet past a row's end "
+                                          "(PIL's decoder does not read it)")
+            out += blob[pos + 1 : pos + 1 + size] * (count // size)
+            pos += 1 + size
+        else:
+            if pos + 1 + count > length:
+                raise ValueError(f"{name}: truncated TGA in a run-length packet")
+            out += blob[pos + 1 : pos + 1 + count]
+            pos += 1 + count
+    return bytes(out[:total])
+
+
+# ---------------------------------------------------------------------------
+# PCX
+# ---------------------------------------------------------------------------
+
+
+def is_pcx(blob: bytes) -> bool:
+    """PIL's ``PcxImagePlugin._accept``."""
+    return len(blob) >= 2 and blob[0] == 10 and blob[1] in (0, 2, 3, 5)
+
+
+def decode_pcx(blob: bytes, name: str = "image") -> np.ndarray:
+    """A PCX file as (H, W, 3) uint8, as PIL's ``PcxImagePlugin`` and its
+    ``convert("RGB")`` give it: 1-bit; 1-bit over 2 or 4 planes with the
+    header's 16-colour palette; version 5 8-bit, grey or with the
+    trailing 256-colour palette (``0x0C``, a grey ramp reads as grey); 8-bit
+    RGB over 3 planes. Rows are run-length coded (``0xC0 | n`` runs) in
+    PIL's stride: the header's bytes per line only says whether the
+    computed one is padded to an even count. Raises NotImplementedError
+    naming what PIL does not read either (other depths and plane counts,
+    a run past a row's end), ValueError on a truncated file."""
+    if not is_pcx(blob) or len(blob) < 68:
+        raise ValueError(f"{name} is not a PCX file")
+    xmin, ymin, xmax, ymax = struct.unpack_from("<HHHH", blob, 4)
+    if xmax + 1 <= xmin or ymax + 1 <= ymin:
+        raise ValueError(f"{name}: bad PCX image size")
+    version, bits, planes = blob[1], blob[3], blob[65]
+    (provided,) = struct.unpack_from("<H", blob, 66)
+    width, height = xmax + 1 - xmin, ymax + 1 - ymin
+    palette = None
+    if bits == 1 and planes == 1:
+        rawmode = "1"
+    elif bits == 1 and planes in (2, 4):
+        rawmode = f"P;{planes}L"
+        palette = np.zeros((256, 3), np.uint8)
+        palette[:16] = np.frombuffer(blob[16:64], np.uint8).reshape(16, 3)
+    elif version == 5 and bits == 8 and planes == 1:
+        rawmode = "L"
+        tail = blob[-769:]
+        if len(tail) == 769 and tail[0] == 12:
+            entries = np.frombuffer(tail[1:], np.uint8).reshape(256, 3)
+            if not np.array_equal(entries, np.repeat(np.arange(256, dtype=np.uint8)[:, None],
+                                                     3, 1)):
+                rawmode, palette = "P", entries
+    elif version == 5 and bits == 8 and planes == 3:
+        rawmode = "RGB;L"
+    else:
+        raise NotImplementedError(f"{name}: {bits}-bit PCX over {planes} planes (version "
+                                  f"{version}) is not supported (PIL does not read it)")
+    stride = (width * bits + 7) // 8
+    if provided != stride:
+        stride += stride % 2
+    rows = _pcx_rows(blob, 128, planes * stride, height, name)
+    if rawmode == "1":
+        return _grey(_unpack_bits(rows, 1, width) * 255)
+    if rawmode == "L":
+        return _grey(rows[:, :width])
+    if rawmode == "P":
+        return palette[rows[:, :width]]
+    if rawmode == "RGB;L":
+        # PIL moves padded planes together, ``width`` bytes apart, only
+        # where the row's size is not a multiple of the width.
+        size, starts = 3 * stride, [0, width, 2 * width]
+        if size % width and size > width:
+            band = size // (size // width)
+            starts = [0, band, 2 * band]
+        return np.ascontiguousarray(np.stack([rows[:, at : at + width] for at in starts], -1))
+    index = np.zeros((height, width), np.int64)  # P;2L / P;4L: bit planes a stride apart
+    for k in range(planes):
+        index |= _unpack_bits(rows[:, k * stride : (k + 1) * stride], 1, width).astype(
+            np.int64) << k
+    return palette[index]
+
+
+def _pcx_rows(blob, pos, size, height, name) -> np.ndarray:
+    """PIL's ``PcxDecode``: rows of ``size`` bytes (every plane's line)
+    from runs (``0xC0 | n`` then the byte) and literal bytes."""
+    out = np.zeros((height, size), np.uint8)
+    data = blob
+    length = len(data)
+    for y in range(height):
+        row = bytearray()
+        while len(row) < size:
+            if pos >= length:
+                raise ValueError(f"{name}: truncated PCX: {y} of {height} rows")
+            byte = data[pos]
+            if byte & 0xC0 == 0xC0:
+                if pos + 1 >= length:
+                    raise ValueError(f"{name}: truncated PCX in a run")
+                count = byte & 0x3F
+                if len(row) + count > size:
+                    raise NotImplementedError(f"{name}: PCX run past a row's end (PIL's decoder "
+                                              "does not read it)")
+                row += data[pos + 1 : pos + 2] * count
+                pos += 2
+            else:
+                row.append(byte)
+                pos += 1
+        out[y] = np.frombuffer(bytes(row), np.uint8)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ICO and CUR
+# ---------------------------------------------------------------------------
+
+ICO_SIGNATURE, CUR_SIGNATURE = b"\0\0\1\0", b"\0\0\2\0"
+
+
+def is_ico(blob: bytes) -> bool:
+    """Whether PIL's ICO or CUR plugin takes the file: the magic bytes and
+    a whole directory of at least one entry (else PIL goes on to the next
+    plugin: a TGA of image type 1 or 2 with no ID and no colour map starts
+    with the same bytes)."""
+    if blob[:4] not in (ICO_SIGNATURE, CUR_SIGNATURE) or len(blob) < 6:
+        return False
+    (count,) = struct.unpack_from("<H", blob, 4)
+    return count > 0 and len(blob) >= 6 + 16 * count
+
+
+def decode_ico(blob: bytes, name: str = "image") -> np.ndarray:
+    """An ICO or CUR file's image as (H, W, 3) uint8, as PIL's
+    ``IcoImagePlugin`` / ``CurImagePlugin`` and ``convert("RGB")`` give it.
+    An icon shows its largest entry (PIL sorts the entries by colour depth,
+    then by area, largest first, and shows the first of the largest area:
+    of equal ones, the lowest colour depth); a cursor its first entry, or
+    a later one wider and taller than the one so far. A PNG entry is
+    decoded as PNG; a DIB entry by the BMP decoder at half its stated
+    height (the AND mask's half). An icon's DIB must hold its AND mask (or
+    32-bit alpha) where PIL reads it, though the mask only sets alpha,
+    which ``convert("RGB")`` drops. Raises as :func:`decode_bmp` and
+    :func:`.tools.decode_png` do."""
+    from .tools import _PNG_SIGNATURE, decode_png
+
+    if not is_ico(blob):
+        raise ValueError(f"{name} is not an ICO or CUR file")
+    cursor = blob[:4] == CUR_SIGNATURE
+    (count,) = struct.unpack_from("<H", blob, 4)
+    entries = [blob[6 + 16 * i : 22 + 16 * i] for i in range(count)]
+    if cursor:
+        chosen = entries[0]
+        for entry in entries[1:]:
+            if entry[0] > chosen[0] and entry[1] > chosen[1]:
+                chosen = entry
+        (at,) = struct.unpack_from("<I", chosen, 12)
+        layout = _dib_layout(blob, at or 6 + 16 * count, 0, name)
+        return _dib_rgb(blob, layout, layout["height"] // 2, name)
+    icons = []
+    for entry in entries:
+        width, height, colours = entry[0] or 256, entry[1] or 256, entry[2]
+        bpp, size, offset = struct.unpack_from("<HII", entry, 6)
+        depth = bpp or (colours != 0 and math.ceil(math.log(colours, 2))) or 256
+        icons.append((width * height, depth, bpp, size, offset))
+    icons.sort(key=lambda icon: icon[1])
+    icons.sort(key=lambda icon: icon[0], reverse=True)
+    _, _, bpp, size, offset = icons[0]
+    if blob[offset : offset + 8] == _PNG_SIGNATURE:
+        return decode_png(blob[offset:], name)
+    layout = _dib_layout(blob, offset, 0, name)
+    width, height = layout["width"], int(layout["height"] / 2)
+    rgb = _dib_rgb(blob, layout, height, name)
+    if bpp == 32:
+        need, where = width * height * 4, layout["start"]
+    else:
+        need = -(-width // 32) * 4 * height
+        where = offset + size - need
+    if where < 0 or where + need > len(blob):
+        raise ValueError(f"{name}: truncated ICO: no room for the entry's "
+                         f"{'alpha' if bpp == 32 else 'AND mask'}")
+    return rgb

@@ -12,12 +12,14 @@ with numpy and the standard library only (``drawAnnotations`` imports
 matplotlib when called). PNG files are decoded by a small
 reader: colour types 0, 2, 3, 4 and 6 at every bit depth the format
 allows, plain or Adam7-interlaced, to RGB uint8 as PIL's ``convert("RGB")``
-gives them. JPEG files (sequential or progressive Huffman, 8-bit, grey,
-three components, CMYK or YCCK) are decoded by :func:`decode_jpeg` with
-the arithmetic of PIL's libjpeg-turbo, GIF files by :func:`decode_gif`,
-TIFF, BMP and PNM files by :mod:`.codecs` (:func:`decode_tiff`,
-:func:`decode_bmp`, :func:`decode_pnm`) and WebP files by
-:func:`.webp.decode_webp`. The
+gives them. JPEG files (8-bit, grey, three components, CMYK or YCCK;
+Huffman-coded sequential or progressive, and through :mod:`.jpeg_modes`
+arithmetic-coded sequential or progressive and lossless) are decoded by
+:func:`decode_jpeg` with the arithmetic of PIL's libjpeg-turbo, GIF files
+by :func:`decode_gif`, TIFF, BMP, PNM, TGA, PCX, ICO and CUR files by
+:mod:`.codecs` (:func:`decode_tiff`, :func:`decode_bmp`,
+:func:`decode_pnm`, :func:`decode_tga`, :func:`decode_pcx`,
+:func:`decode_ico`) and WebP files by :func:`.webp.decode_webp`. The
 download helpers (``sha256sum``, ``md5sum``, ``get_default_cache_dir``,
 ``download_and_verify``, ``safe_extract_zip``, ``download_and_extract``)
 serve the weight registry (:mod:`.weights`).
@@ -40,7 +42,9 @@ import zlib
 import numpy as np
 
 from .codecs import (PNM_PREFIXES, TIFF_SIGNATURES, cmyk_to_rgb, decode_bmp,  # noqa: F401
-                     decode_pnm, decode_tiff)
+                     decode_ico, decode_pcx, decode_pnm, decode_tga, decode_tiff, is_ico, is_pcx,
+                     is_tga)
+from . import jpeg_modes
 from .webp import decode_webp
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -358,11 +362,16 @@ def decode_png(blob: bytes, name: str = "image") -> np.ndarray:
     if color == 3 and palette is None:
         raise ValueError(f"{name}: palette PNG without a PLTE chunk")
     channels = _CHANNELS[color]
-    raw = zlib.decompress(b"".join(idat))
+    try:  # as PIL's streaming inflate, a stream cut after the last row is read
+        raw = zlib.decompressobj().decompress(b"".join(idat))
+    except zlib.error as error:
+        raise ValueError(f"{name}: corrupt PNG image data ({error})") from None
     bpp = max(1, channels * depth // 8)
     if interlace == 0:
-        samples = _samples(_unfilter(raw, height, _stride(width, channels, depth), bpp),
-                           width, channels, depth)
+        stride = _stride(width, channels, depth)
+        if len(raw) < height * (stride + 1):
+            raise ValueError(f"{name}: truncated PNG image data")
+        samples = _samples(_unfilter(raw, height, stride, bpp), width, channels, depth)
     else:
         samples = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
         pos = 0
@@ -402,27 +411,23 @@ def decode_png(blob: bytes, name: str = "image") -> np.ndarray:
 # Only the entropy decode is a Python loop; the rest runs over all blocks.
 
 
-def _zigzag():
-    """The natural (row-major) index of each zigzag position, then 16
-    entries of 63: a corrupt run past the block's end lands on the last
-    coefficient, as in libjpeg's ``jpeg_natural_order``."""
-    order = []
-    for diagonal in range(15):
-        rows = range(max(0, diagonal - 7), min(diagonal, 7) + 1)
-        for row in rows if diagonal % 2 else reversed(rows):
-            order.append(row * 8 + diagonal - row)
-    return order + [63] * 16
-
-
-_NATURAL = _zigzag()
-# The frame types this decoder refuses, by SOF marker.
+_NATURAL = jpeg_modes.NATURAL
+# The frame types this decoder refuses, by SOF marker: PIL's libjpeg-turbo
+# refuses them too (it has no hierarchical and no arithmetic-coded
+# lossless decoder).
 _UNSUPPORTED_SOF = {
-    0xC3: "lossless", 0xC5: "hierarchical (differential sequential)",
+    0xC5: "hierarchical (differential sequential)",
     0xC6: "hierarchical (differential progressive)", 0xC7: "hierarchical (differential lossless)",
-    0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
     0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical",
     0xCE: "arithmetic-coded hierarchical", 0xCF: "arithmetic-coded hierarchical",
 }
+# The frame types decoded, by SOF marker: (coding, progressive, lossless).
+_SOF_KINDS = {0xC0: ("huffman", False, False), 0xC1: ("huffman", False, False),
+              0xC2: ("huffman", True, False), 0xC3: ("huffman", False, True),
+              0xC9: ("arithmetic", False, False), 0xCA: ("arithmetic", True, False)}
+# libjpeg's limits: sampling factors 1-4, at most 10 blocks (a lossless
+# frame: samples) in an interleaved MCU.
+_MAX_SAMPLING, _MAX_BLOCKS_IN_MCU = 4, 10
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -495,24 +500,12 @@ def _huffman_lut(counts, symbols, name) -> list:
     return lut.tolist()
 
 
-def _windows(data: bytes) -> list:
-    """For each byte offset, the 40 bits starting there (big-endian), with
-    0xFF fill past the end: a 16-bit code and its extra bits are read from
-    one window whatever the bit offset in the first byte."""
-    raw = np.frombuffer(data + b"\xff" * 8, np.uint8).astype(np.int64)
-    n = len(data) + 1
-    win = raw[:n] << 32
-    for i in range(1, 5):
-        win |= raw[i : n + i] << (32 - 8 * i)
-    return win.tolist()
-
-
 def _decode_interval(data, blocks, name):
     """Entropy-decode the blocks of one restart interval from its unstuffed
     bytes. ``blocks`` holds (coefficients, base, DC table, AC table,
     predictor slot, predictors) per block in stream order; coefficients
     land in natural order at ``base``."""
-    win = _windows(data)
+    win = jpeg_modes.windows(data)
     natural = _NATURAL
     pos = 0
     for coefs, base, dc, ac, slot, preds in blocks:
@@ -571,42 +564,47 @@ def _scan_data_end(blob: bytes, start: int) -> int:
         pos += 2
 
 
-def _upsample(plane, rh, rv, width, height):
+def _upsample(plane, rh, rv, width, height, fancy=True):
     """A component plane of (ceil(height / rv), ceil(width / rh)) real
-    samples to (height, width), as libjpeg-turbo's ``jdsample.c`` with fancy
-    upsampling: h2v1 and h2v2 triangle filters (h2v2 with its alternating
-    +8/+7 bias) on planes wider than 2 samples, box replication otherwise,
-    and the h1v2 filter; neighbours past an edge repeat the edge."""
+    samples to (height, width), by the method libjpeg-turbo's
+    ``jdsample.c:jinit_upsampler`` picks for the integral ratio (rh, rv):
+    none at (1, 1); with fancy upsampling the h2v1 and h2v2 triangle
+    filters (h2v2 with its alternating +8/+7 bias) on planes wider than 2
+    samples, box replication on narrower ones, and the h1v2 filter; box
+    replication (``int_upsample``) at every other ratio, and at every
+    ratio without ``fancy`` (a lossless frame). Neighbours past an edge
+    repeat the edge."""
+    if (rh, rv) == (1, 1):
+        return plane[:height, :width]
     x = plane.astype(np.int32)
-    if rv == 2:
+    wide = x.shape[1] > 2
+    if fancy and (rh, rv) == (1, 2):
         above = np.concatenate([x[:1], x[:-1]])
         below = np.concatenate([x[1:], x[-1:]])
-        if rh == 1:
-            out = np.empty((2 * x.shape[0], x.shape[1]), np.int32)
-            out[0::2] = (3 * x + above + 1) >> 2
-            out[1::2] = (3 * x + below + 2) >> 2
-            return out[:height, :width].astype(np.uint8)
-        if x.shape[1] > 2:
-            sums = np.empty((2 * x.shape[0], x.shape[1]), np.int32)
-            sums[0::2] = 3 * x + above
-            sums[1::2] = 3 * x + below
-            left = np.concatenate([sums[:, :1], sums[:, :-1]], 1)
-            right = np.concatenate([sums[:, 1:], sums[:, -1:]], 1)
-            out = np.empty((sums.shape[0], 2 * sums.shape[1]), np.int32)
-            out[:, 0::2] = (3 * sums + left + 8) >> 4
-            out[:, 1::2] = (3 * sums + right + 7) >> 4
-            return out[:height, :width].astype(np.uint8)
-        return np.repeat(np.repeat(plane, 2, 0), 2, 1)[:height, :width]
-    if rh == 2:
-        if x.shape[1] > 2:
-            left = np.concatenate([x[:, :1], x[:, :-1]], 1)
-            right = np.concatenate([x[:, 1:], x[:, -1:]], 1)
-            out = np.empty((x.shape[0], 2 * x.shape[1]), np.int32)
-            out[:, 0::2] = (3 * x + left + 1) >> 2
-            out[:, 1::2] = (3 * x + right + 2) >> 2
-            return out[:height, :width].astype(np.uint8)
-        return np.repeat(plane, 2, 1)[:height, :width]
-    return plane[:height, :width]
+        out = np.empty((2 * x.shape[0], x.shape[1]), np.int32)
+        out[0::2] = (3 * x + above + 1) >> 2
+        out[1::2] = (3 * x + below + 2) >> 2
+        return out[:height, :width].astype(np.uint8)
+    if fancy and wide and (rh, rv) == (2, 2):
+        above = np.concatenate([x[:1], x[:-1]])
+        below = np.concatenate([x[1:], x[-1:]])
+        sums = np.empty((2 * x.shape[0], x.shape[1]), np.int32)
+        sums[0::2] = 3 * x + above
+        sums[1::2] = 3 * x + below
+        left = np.concatenate([sums[:, :1], sums[:, :-1]], 1)
+        right = np.concatenate([sums[:, 1:], sums[:, -1:]], 1)
+        out = np.empty((sums.shape[0], 2 * sums.shape[1]), np.int32)
+        out[:, 0::2] = (3 * sums + left + 8) >> 4
+        out[:, 1::2] = (3 * sums + right + 7) >> 4
+        return out[:height, :width].astype(np.uint8)
+    if fancy and wide and (rh, rv) == (2, 1):
+        left = np.concatenate([x[:, :1], x[:, :-1]], 1)
+        right = np.concatenate([x[:, 1:], x[:, -1:]], 1)
+        out = np.empty((x.shape[0], 2 * x.shape[1]), np.int32)
+        out[:, 0::2] = (3 * x + left + 1) >> 2
+        out[:, 1::2] = (3 * x + right + 2) >> 2
+        return out[:height, :width].astype(np.uint8)
+    return np.repeat(np.repeat(plane, rv, 0), rh, 1)[:height, :width]
 
 
 def _ycc_to_rgb(y, cb, cr):
@@ -623,11 +621,20 @@ def _ycc_to_rgb(y, cb, cr):
 
 
 def decode_jpeg(blob: bytes, name: str = "image") -> np.ndarray:
-    """Decode a Huffman-coded JPEG (SOF0 baseline, SOF1 extended sequential
-    or SOF2 progressive, 8-bit) of 1, 3 or 4 components, sampling factors
-    1-2 on each axis, into (H, W, 3) uint8 as PIL's
-    ``Image.open(...).convert("RGB")`` gives it: libjpeg-turbo's islow
-    IDCT, fancy upsampling and YCbCr tables; grey repeated over three
+    """Decode an 8-bit JPEG of 1, 3 or 4 components into (H, W, 3) uint8
+    as PIL's ``Image.open(...).convert("RGB")`` gives it: Huffman-coded
+    (SOF0 baseline, SOF1 extended sequential, SOF2 progressive),
+    arithmetic-coded (SOF9 sequential, SOF10 progressive, with ``DAC``
+    conditioning; :mod:`.jpeg_modes`) or lossless (SOF3, predictors 1-7,
+    point transform; :mod:`.jpeg_modes`), at sampling factors 1-4 whose
+    ratios to the largest are integers, at most 10 blocks (samples) in an
+    MCU. DCT
+    frames take libjpeg-turbo's islow IDCT, its upsampling (the fancy h2v1,
+    h2v2 and h1v2 filters at a ratio of 2, box replication at the others)
+    and YCbCr tables; a lossless frame's samples are box-replicated and
+    never colour-converted (libjpeg-turbo refuses a lossless frame whose
+    JFIF or Adobe marker asks for a conversion, and so does this). Grey is
+    repeated over three
     channels; no colour conversion for an Adobe transform 0 or component
     ids R, G, B (a JFIF marker means YCbCr). Four components are CMYK
     (Adobe transform 0, or no Adobe marker) or YCCK (any other transform:
@@ -643,9 +650,16 @@ def decode_jpeg(blob: bytes, name: str = "image") -> np.ndarray:
     does once the whole file is read (no block smoothing: every coefficient
     is complete).
 
-    Raises NotImplementedError naming the kind of a lossless,
-    hierarchical, arithmetic-coded or 12-bit JPEG, and ValueError on a
-    truncated or corrupt stream.
+    Raises NotImplementedError naming the kind of what PIL's
+    libjpeg-turbo does not read either: a hierarchical (SOF5-7, SOF13-15)
+    or arithmetic-coded lossless (SOF11) frame, a precision other than 8
+    bits, a DNL-defined height, 2 components, a sampling factor above 4, a
+    fractional upsampling ratio, more than 10 blocks (lossless: samples)
+    in an MCU, a lossless
+    frame to colour-convert or with restart intervals that are not whole
+    MCU rows; and ValueError on a truncated or corrupt stream (a corrupt
+    arithmetic-coded stream too, which libjpeg-turbo decodes with a
+    warning).
     """
     return _assemble(*_jpeg_frame(blob, name), name)
 
@@ -656,7 +670,7 @@ def _jpeg_frame(blob: bytes, name: str):
     Adobe marker's transform or None)."""
     if blob[:2] != b"\xff\xd8":
         raise ValueError(f"{name} is not a JPEG file")
-    quant, tables = {}, {}
+    quant, tables, conditioning = {}, {}, {}
     frame = None
     restart = 0
     jfif = False
@@ -690,8 +704,8 @@ def _jpeg_frame(blob: bytes, name: str):
                 f"{name}: {_UNSUPPORTED_SOF[marker]} JPEG (SOF{marker - 0xC0}) is not supported"
             )
         if marker == 0xCC:
-            raise NotImplementedError(f"{name}: arithmetic-coded JPEG (DAC) is not supported")
-        if marker == 0xE0 and segment[:5] == b"JFIF\x00":
+            jpeg_modes.parse_dac(segment, conditioning, name)
+        elif marker == 0xE0 and segment[:5] == b"JFIF\x00":
             jfif = True
         elif marker == 0xEE and segment[:5] == b"Adobe" and len(segment) >= 12:
             adobe_transform = segment[11]
@@ -724,13 +738,16 @@ def _jpeg_frame(blob: bytes, name: str):
             if len(segment) < 2:
                 raise ValueError(f"{name}: corrupt JPEG: bad DRI segment")
             (restart,) = struct.unpack(">H", segment[:2])
-        elif marker in (0xC0, 0xC1, 0xC2):
-            frame = _read_frame(segment, name, progressive=marker == 0xC2)
+        elif marker in _SOF_KINDS:
+            frame = _read_frame(segment, name, *_SOF_KINDS[marker])
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError(f"{name}: corrupt JPEG: a scan before the frame header")
+            if frame["lossless"] and not scans:
+                _check_lossless_colour(frame, jfif, adobe_transform, name)
             end = _scan_data_end(blob, pos)
-            _decode_scan(frame, segment, blob[pos:end], quant, tables, restart, name)
+            _decode_scan(frame, segment, blob[pos:end], quant, tables, restart, name,
+                         conditioning)
             scans += 1
             pos = end
     if frame is None or not scans:
@@ -738,9 +755,10 @@ def _jpeg_frame(blob: bytes, name: str):
     return frame, jfif, adobe_transform
 
 
-def _read_frame(segment, name, progressive=False):
-    """The SOF0/SOF1/SOF2 header: image size and, per component, its id,
-    sampling factors and block grid (padded to whole MCUs)."""
+def _read_frame(segment, name, coding="huffman", progressive=False, lossless=False):
+    """A SOF header: image size and, per component, its id, sampling
+    factors and block grid (padded to whole MCUs), with the frame's
+    entropy coding and kind."""
     if len(segment) < 6:
         raise ValueError(f"{name}: corrupt JPEG: bad SOF segment")
     precision, height, width, count = struct.unpack(">BHHB", segment[:6])
@@ -754,35 +772,64 @@ def _read_frame(segment, name, progressive=False):
     for i in range(count):
         ident, sampling, table = segment[6 + 3 * i : 9 + 3 * i]
         components.append({"id": ident, "h": sampling >> 4, "v": sampling & 15, "quant": table})
+    factors = [(c["h"], c["v"]) for c in components]
+    if not all(1 <= f <= _MAX_SAMPLING for pair in factors for f in pair):
+        raise NotImplementedError(f"{name}: JPEG sampling factors {factors} (libjpeg reads "
+                                  f"1-{_MAX_SAMPLING})")
     hmax = max(c["h"] for c in components)
     vmax = max(c["v"] for c in components)
-    for c in components:
-        if not (1 <= c["h"] <= 2 and 1 <= c["v"] <= 2) or hmax % c["h"] or vmax % c["v"]:
-            raise NotImplementedError(
-                f"{name}: JPEG sampling factors {[(c['h'], c['v']) for c in components]}"
-            )
-    mcus_x = _ceil_div(width, 8 * hmax)
-    mcus_y = _ceil_div(height, 8 * vmax)
+    if any(hmax % h or vmax % v for h, v in factors):
+        raise NotImplementedError(f"{name}: JPEG sampling factors {factors}: a fractional "
+                                  "upsampling ratio (libjpeg does not read it)")
+    unit = 1 if lossless else 8
+    mcus_x = _ceil_div(width, unit * hmax)
+    mcus_y = _ceil_div(height, unit * vmax)
     for c in components:
         c["blocks"] = (mcus_y * c["v"], mcus_x * c["h"])
-        c["coefs"] = [0] * (mcus_y * c["v"] * mcus_x * c["h"] * 64)
-        c["q"] = None
+        c["coefs"] = None if lossless else [0] * (mcus_y * c["v"] * mcus_x * c["h"] * 64)
+        c["q"] = c["samples"] = None
     return {"width": width, "height": height, "hmax": hmax, "vmax": vmax,
-            "mcus": (mcus_y, mcus_x), "components": components, "progressive": progressive}
+            "mcus": (mcus_y, mcus_x), "components": components, "progressive": progressive,
+            "coding": coding, "lossless": lossless}
 
 
-def _decode_scan(frame, header, data, quant, tables, restart, name):
+def _check_lossless_colour(frame, jfif, adobe_transform, name):
+    """libjpeg-turbo converts no colours in a lossless frame: three
+    components under a JFIF marker (YCbCr), or three or four under an
+    Adobe transform other than 0 (YCbCr, YCCK), are refused."""
+    count = len(frame["components"])
+    if count > 1 and ((jfif and count == 3) or adobe_transform not in (None, 0)):
+        source = "a JFIF marker" if jfif and count == 3 else f"Adobe transform {adobe_transform}"
+        raise NotImplementedError(f"{name}: lossless JPEG with {source}, which asks for a colour "
+                                  "conversion (libjpeg-turbo does not convert a lossless frame)")
+
+
+def _decode_scan(frame, header, data, quant, tables, restart, name, conditioning=None):
     """Decode one scan: its components interleaved in MCUs, or one
     component in its own block grid. A sequential scan carries whole
-    blocks; a progressive one (SOF2) carries the DC coefficient or a band
-    ``Ss``-``Se`` of AC coefficients, first at bit ``Al`` (``Ah`` 0) or as
-    one refinement bit of it (``Ah`` = ``Al`` + 1), as ``jdphuff.c``
-    decodes them."""
+    blocks; a progressive one (SOF2, SOF10) carries the DC coefficient or a
+    band ``Ss``-``Se`` of AC coefficients, first at bit ``Al`` (``Ah`` 0)
+    or as one refinement bit of it (``Ah`` = ``Al`` + 1), as ``jdphuff.c``
+    and ``jdarith.c`` decode them; a lossless scan (SOF3) carries samples'
+    prediction differences (:func:`.jpeg_modes.lossless_scan`)."""
     count = header[0] if header else 0
     if not 1 <= count <= len(frame["components"]) or len(header) < 1 + 2 * count + 3:
         raise ValueError(f"{name}: corrupt JPEG: bad SOS segment")
     start, end, approx = header[1 + 2 * count : 4 + 2 * count]
     high, low = approx >> 4, approx & 15
+    by_id = {c["id"]: c for c in frame["components"]}
+    # libjpeg's per_scan_setup holds a lossless scan's samples to the same
+    # limit as a DCT scan's blocks.
+    named = [by_id.get(header[1 + 2 * slot]) for slot in range(count)]
+    if count > 1 and sum(c["h"] * c["v"] for c in named if c) > _MAX_BLOCKS_IN_MCU:
+        raise NotImplementedError(f"{name}: JPEG scan of more than {_MAX_BLOCKS_IN_MCU} "
+                                  "blocks (lossless: samples) in an MCU (libjpeg does not "
+                                  "read it)")
+    if frame["lossless"]:
+        _lossless_scan(frame, header, count, data, tables, restart, name, by_id)
+        return
+    arithmetic = frame["coding"] == "arithmetic"
+    conditioning = conditioning or {}
     progressive = frame["progressive"]
     if progressive and (
         (start == 0 and end != 0) or (start > 0 and (count != 1 or not start <= end <= 63))
@@ -794,13 +841,16 @@ def _decode_scan(frame, header, data, quant, tables, restart, name):
     # scan, AC for a sequential scan and any AC scan; none for DC refinement.
     need_dc = not progressive or (start == 0 and high == 0)
     need_ac = not progressive or start > 0
-    by_id = {c["id"]: c for c in frame["components"]}
     members = []
     preds = [0] * count
     for slot in range(count):
         ident, selectors = header[1 + 2 * slot : 3 + 2 * slot]
         component = by_id.get(ident)
-        dc, ac = tables.get((0, selectors >> 4)), tables.get((1, selectors & 15))
+        if arithmetic:  # statistics tables, conditioned by DAC
+            dc = (selectors >> 4, *conditioning.get((0, selectors >> 4), (0, 1)))
+            ac = (selectors & 15, conditioning.get((1, selectors & 15), 5))
+        else:
+            dc, ac = tables.get((0, selectors >> 4)), tables.get((1, selectors & 15))
         if component is None or (need_dc and dc is None) or (need_ac and ac is None):
             raise ValueError(f"{name}: corrupt JPEG: a scan names a missing component or table")
         if component["q"] is None:
@@ -829,7 +879,15 @@ def _decode_scan(frame, header, data, quant, tables, restart, name):
                             block = (my * component["v"] + v) * grid_w + mx * component["h"] + h
                             mcu.append((component["coefs"], block * 64, dc, ac, slot, preds))
                 order.append(mcu)
-    if not progressive:
+    if arithmetic and not progressive:
+        decode = jpeg_modes.arith_sequential
+    elif arithmetic and start == 0:
+        decode = functools.partial(jpeg_modes.arith_dc_refine if high else
+                                   jpeg_modes.arith_dc_first, low=low)
+    elif arithmetic:
+        decode = functools.partial(jpeg_modes.arith_ac_refine if high else
+                                   jpeg_modes.arith_ac_first, start=start, end=end, low=low)
+    elif not progressive:
         decode = _decode_interval
     elif start == 0:
         decode = functools.partial(_decode_dc_interval, refine=high > 0, low=low)
@@ -843,10 +901,30 @@ def _decode_scan(frame, header, data, quant, tables, restart, name):
         raise ValueError(f"{name}: truncated JPEG: {len(pieces)} of {intervals} restart intervals")
     for i in range(intervals):
         # A restart interval starts afresh: DC predictions, the EOB run and
-        # the bit position.
+        # the bit position (arithmetic coding: the statistics too).
         preds[:] = [0] * count
         blocks = [b for mcu in order[i * per_interval : (i + 1) * per_interval] for b in mcu]
         decode(pieces[i].replace(b"\xff\x00", b"\xff"), blocks, name)
+
+
+def _lossless_scan(frame, header, count, data, tables, restart, name, by_id):
+    """A lossless scan's components and DC Huffman tables, predictor
+    (``Ss``, 1-7) and point transform (``Al``), decoded by
+    :func:`.jpeg_modes.lossless_scan`."""
+    predictor, end, approx = header[1 + 2 * count : 4 + 2 * count]
+    if not 1 <= predictor <= 7 or end or approx >> 4 or (approx & 15) >= 8:
+        raise ValueError(f"{name}: corrupt JPEG: bad lossless scan parameters Ss={predictor} "
+                         f"Se={end} Ah={approx >> 4} Al={approx & 15}")
+    members = []
+    for slot in range(count):
+        ident, selectors = header[1 + 2 * slot : 3 + 2 * slot]
+        component, table = by_id.get(ident), tables.get((0, selectors >> 4))
+        if component is None or table is None:
+            raise ValueError(f"{name}: corrupt JPEG: a scan names a missing component or table")
+        members.append((component, table))
+    pieces = re.split(rb"\xff[\xd0-\xd7]", data) if restart else [data]
+    jpeg_modes.lossless_scan(frame, members, predictor, approx & 15,
+                             [p.replace(b"\xff\x00", b"\xff") for p in pieces], restart, name)
 
 
 def _receive(win, pos, size):
@@ -878,7 +956,7 @@ def _decode_dc_interval(data, blocks, name, refine, low):
     """A progressive DC scan's restart interval: the first scan adds each
     block's difference to its component's prediction and stores it shifted
     up by ``low``; a refinement scan ORs one bit at ``low`` into it."""
-    win = _windows(data)
+    win = jpeg_modes.windows(data)
     pos = 0
     if refine:
         bit = 1 << low
@@ -903,7 +981,7 @@ def _decode_ac_first(data, blocks, name, start, end, low):
     """A first progressive AC scan's restart interval over the band
     ``start``-``end`` of one component: coefficients shifted up by
     ``low``, and EOB runs that end the band in several blocks at once."""
-    win = _windows(data)
+    win = jpeg_modes.windows(data)
     natural = _NATURAL
     pos = eob_run = 0
     for coefs, base, _, ac, _, _ in blocks:
@@ -937,7 +1015,7 @@ def _decode_ac_refine(data, blocks, name, start, end, low):
     coefficient of the band that is already nonzero takes one correction
     bit (1: its magnitude grows by ``1 << low``), and new coefficients of
     magnitude ``1 << low`` appear after their runs of still-zero ones."""
-    win = _windows(data)
+    win = jpeg_modes.windows(data)
     natural = _NATURAL
     plus, minus = 1 << low, -1 << low
     pos = eob_run = 0
@@ -996,13 +1074,18 @@ def _jpeg_planes(frame, name) -> list:
     width, height = frame["width"], frame["height"]
     planes = []
     for c in frame["components"]:
+        rh, rv = frame["hmax"] // c["h"], frame["vmax"] // c["v"]
+        if frame["lossless"]:
+            if c["samples"] is None:
+                raise ValueError(f"{name}: corrupt JPEG: component {c['id']} is in no scan")
+            planes.append(_upsample(c["samples"], rh, rv, width, height, fancy=False))
+            continue
         if c["q"] is None:
             raise ValueError(f"{name}: corrupt JPEG: component {c['id']} is in no scan")
         rows, cols = c["blocks"]
         coefs = np.array(c["coefs"], np.int64).reshape(rows * cols, 8, 8) * c["q"]
         samples = _idct_blocks(coefs).reshape(rows, cols, 8, 8).transpose(0, 2, 1, 3)
         samples = samples.reshape(rows * 8, cols * 8)
-        rh, rv = frame["hmax"] // c["h"], frame["vmax"] // c["v"]
         real = samples[: _ceil_div(height, rv), : _ceil_div(width, rh)]
         planes.append(_upsample(real, rh, rv, width, height))
     return planes
@@ -1014,6 +1097,10 @@ def _assemble(frame, jfif, adobe_transform, name):
     planes = _jpeg_planes(frame, name)
     if len(planes) == 1:
         return np.ascontiguousarray(np.repeat(planes[0][..., None], 3, axis=-1))
+    if frame["lossless"]:  # RGB or CMYK as stored (_check_lossless_colour)
+        if len(planes) == 4:
+            return cmyk_to_rgb(255 - np.stack(planes, -1))
+        return np.ascontiguousarray(np.stack(planes, -1))
     if len(planes) == 4:
         if adobe_transform not in (None, 0):
             planes[:3] = np.moveaxis(255 - _ycc_to_rgb(*planes[:3]), -1, 0)
@@ -1444,8 +1531,10 @@ def _encode_jpeg(image: np.ndarray) -> bytes:
 
 
 def _decode(blob: bytes, name: str) -> np.ndarray:
-    """A PNG, JPEG, GIF, TIFF, BMP, PNM or WebP file's bytes as (H, W, 3)
-    uint8 RGB, by its magic bytes."""
+    """A PNG, JPEG, GIF, TIFF, BMP, PNM, WebP, ICO, CUR, PCX or TGA file's
+    bytes as (H, W, 3) uint8 RGB, by its magic bytes; TGA has none, so it
+    comes last, by the header checks PIL makes (PIL, too, tries it after
+    every format with magic bytes that the port reads)."""
     if blob[:8] == _PNG_SIGNATURE:
         return decode_png(blob, name)
     if blob[:3] == _JPEG_SIGNATURE:
@@ -1460,20 +1549,28 @@ def _decode(blob: bytes, name: str) -> np.ndarray:
         return decode_pnm(blob, name)
     if blob[:4] == b"RIFF" and blob[8:12] == b"WEBP":
         return decode_webp(blob, name)
-    raise ValueError(f"{name} is neither a PNG, JPEG, GIF, TIFF, BMP, PNM (P1-P6) nor WebP "
-                     f"file")
+    if is_ico(blob):
+        return decode_ico(blob, name)
+    if is_pcx(blob):
+        return decode_pcx(blob, name)
+    if is_tga(blob):
+        return decode_tga(blob, name)
+    raise ValueError(f"{name} is neither a PNG, JPEG, GIF, TIFF, BMP, PNM (P1-P6), WebP, ICO, "
+                     f"CUR, PCX nor TGA file")
 
 
 def read(filepath_or_buffer: typing.Union[str, typing.BinaryIO, np.ndarray]) -> np.ndarray:
     """An ndarray as is; a path, an ``http(s)://`` URL (fetched with
     :mod:`urllib.request`), or an object with ``.read``, whose bytes are
     decoded to RGB uint8 as PIL's ``Image.open(...).convert("RGB")`` gives
-    them: PNG, JPEG (baseline, extended or progressive Huffman; grey, RGB,
-    CMYK or YCCK), GIF (the first frame), TIFF (the first image; CCITT
-    Group 3 and 4, LZW, Deflate, PackBits, JPEG or none), BMP, PNM
-    (P1-P6) and WebP (lossless, lossy, with alpha or metadata; the first
-    frame of an animation; :mod:`.webp`). Other formats, and the kinds of
-    these that are not read (:mod:`.codecs`), raise ``ValueError`` or
+    them: PNG, JPEG (baseline, extended or progressive Huffman,
+    arithmetic-coded sequential or progressive, lossless; sampling factors
+    1-4; grey, RGB, CMYK or YCCK; :func:`decode_jpeg`), GIF (the first
+    frame), TIFF (the first image; CCITT Group 3 and 4, LZW, Deflate,
+    PackBits, JPEG or none), BMP, PNM (P1-P6), WebP (lossless, lossy, with
+    alpha or metadata; the first frame of an animation; :mod:`.webp`),
+    TGA, PCX, ICO and CUR (:mod:`.codecs`). Other formats, and the kinds of
+    these that PIL does not read either, raise ``ValueError`` or
     ``NotImplementedError``."""
     if isinstance(filepath_or_buffer, np.ndarray):
         return filepath_or_buffer

@@ -399,6 +399,186 @@ def write_pnm(values, kind, maxval=255, comment=None) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# TGA, PCX, ICO and CUR
+# ---------------------------------------------------------------------------
+
+
+def _rle_packets(pixels, size, run_flag, max_run, literal=True) -> bytes:
+    """Run-length packets of a row of ``size``-byte pixels (bytes): a run
+    of 2 or more equal pixels as ``run_flag | (n - 1)`` and one pixel, the
+    rest as literal packets ``(n - 1)`` and their pixels (TGA)."""
+    out = bytearray()
+    units = [bytes(pixels[i:i + size]) for i in range(0, len(pixels), size)]
+    x = 0
+    while x < len(units):
+        run = 1
+        while x + run < len(units) and run < max_run and units[x + run] == units[x]:
+            run += 1
+        if run >= 2 or not literal:
+            out += bytes([run_flag | (run - 1)]) + units[x]
+            x += run
+            continue
+        end = x + 1
+        while end < len(units) and end - x < max_run and (
+                end + 1 >= len(units) or units[end] != units[end + 1]):
+            end += 1
+        out += bytes([end - x - 1]) + b"".join(units[x:end])
+        x = end
+    return bytes(out)
+
+
+def tga_pixels(values, image_type, depth) -> np.ndarray:
+    """(H, W, bytes) of TGA pixel data, rows top first, left to right:
+    indices or grey (8), grey + alpha (16, types 3 and 11), 16-bit words
+    as given (types 2 and 10), BGR (24) or BGRA (32) of RGB(A) values;
+    (H, ceil(W / 8), 1) packed bits at depth 1."""
+    values = np.asarray(values)
+    if depth == 1:
+        return np.packbits(values.astype(np.uint8), axis=1)[..., None]
+    if depth == 8:
+        return values.astype(np.uint8)[..., None]
+    if depth == 16 and image_type & 7 == 3:
+        return values.astype(np.uint8)
+    if depth == 16:
+        return values.astype("<u2").view(np.uint8).reshape(values.shape + (2,))
+    order = [2, 1, 0] + ([3] if depth == 32 else [])
+    return values[..., order].astype(np.uint8)
+
+
+def write_tga(values, image_type, depth, *, colormap=None, map_depth=24, map_start=0,
+              top=False, right=False, span_rows=False, id_section=b"", alpha_bits=0,
+              data=None) -> bytes:
+    """A TGA file of ``values`` (see :func:`tga_pixels`) of image type 1,
+    2, 3 (raw) or 9, 10, 11 (run-length) at ``depth`` bits: rows bottom
+    first unless ``top``, right to left if ``right``; a colour map of
+    (n, 3) or (n, 4) RGB(A) ``colormap`` entries of ``map_depth`` 16, 24
+    or 32 bits from index ``map_start``; run-length packets within rows,
+    or across them with ``span_rows``; ``data``: the image data as
+    stored."""
+    pixels = tga_pixels(values, image_type, depth)
+    height, width = np.asarray(values).shape[:2]
+    if data is None:
+        rows = pixels if top else pixels[::-1]
+        if right:
+            rows = rows[:, ::-1]
+        size = rows.shape[2]
+        if image_type & 8:
+            if span_rows:
+                data = _rle_packets(rows.tobytes(), size, 0x80, 128)
+            else:
+                data = b"".join(_rle_packets(row.tobytes(), size, 0x80, 128) for row in rows)
+        else:
+            data = rows.tobytes()
+    table = b""
+    if colormap is not None:
+        entries = np.asarray(colormap, np.int64)
+        if map_depth == 16:
+            word = (entries[:, 0] >> 3) << 10 | (entries[:, 1] >> 3) << 5 | entries[:, 2] >> 3
+            table = word.astype("<u2").tobytes()
+        else:
+            channels = [2, 1, 0] + ([3] if map_depth == 32 else [])
+            if entries.shape[1] == 3 and map_depth == 32:
+                entries = np.concatenate([entries, np.full((len(entries), 1), 255)], 1)
+            table = entries[:, channels].astype(np.uint8).tobytes()
+    descriptor = alpha_bits | (0x10 if right else 0) | (0x20 if top else 0)
+    header = struct.pack("<BBBHHBHHHHBB", len(id_section), colormap is not None, image_type,
+                         map_start, 0 if colormap is None else len(colormap),
+                         map_depth if colormap is not None else 0, 0, 0, width, height, depth,
+                         descriptor)
+    return header + id_section + table + data
+
+
+def write_pcx(values, bits, planes, *, palette=None, version=5, stride=None, span_rows=False,
+              origin=(0, 0), header_stride=None) -> bytes:
+    """A PCX file: ``values`` (H, W) indices (1-bit over 1, 2 or 4 planes,
+    8-bit over 1) or (H, W, 3) RGB (8-bit over 3 planes), each plane's
+    row padded to ``stride`` bytes (default: even), run-length coded per
+    row (``0xC0 | n`` runs of up to 63), or across rows with
+    ``span_rows``; ``palette``: 16 header entries, or 256 after the data
+    (``0x0C``); ``header_stride``: the bytes per line the header states."""
+    values = np.asarray(values)
+    height, width = values.shape[:2]
+    need = (width * bits + 7) // 8
+    stride = stride or need + need % 2
+    lines = np.zeros((height, planes, stride), np.uint8)
+    if bits == 1:
+        for p in range(planes):
+            lines[:, p, :need] = np.packbits(((values >> p) & 1).astype(np.uint8), axis=1)
+    elif bits < 8:
+        lines[:, 0, :need] = _pack_rows(values.astype(np.int64), bits, "<")
+    elif planes == 3:
+        lines[:, :, :width] = values.transpose(0, 2, 1)
+    else:
+        lines[:, 0, :width] = values
+    head = np.zeros(16, np.uint8) if palette is None or len(palette) != 16 else None
+    header = struct.pack("<BBBBHHHHHH", 10, version, 1, bits, origin[0], origin[1],
+                         origin[0] + width - 1, origin[1] + height - 1, 72, 72)
+    header += (np.asarray(palette, np.uint8).tobytes() if head is None else bytes(48))
+    header += bytes([0, planes]) + struct.pack("<HH", header_stride or stride, 1)
+    header = header.ljust(128, b"\x00")
+    rows = lines.reshape(height, -1)
+    if span_rows:
+        data = _pcx_rle(rows.tobytes())
+    else:
+        data = b"".join(_pcx_rle(row.tobytes()) for row in rows)
+    tail = b""
+    if palette is not None and len(palette) == 256:
+        tail = b"\x0c" + np.asarray(palette, np.uint8).tobytes()
+    return header + data + tail
+
+
+def _pcx_rle(data: bytes) -> bytes:
+    out = bytearray()
+    x = 0
+    while x < len(data):
+        run = 1
+        while x + run < len(data) and run < 63 and data[x + run] == data[x]:
+            run += 1
+        if run > 1 or data[x] >= 0xC0:
+            out += bytes([0xC0 | run, data[x]])
+        else:
+            out.append(data[x])
+        x += run
+    return bytes(out)
+
+
+def dib_entry(values, bits, *, palette=None, alpha=None, and_mask=None) -> bytes:
+    """An icon's DIB: a BITMAPINFOHEADER of twice the height, the XOR image
+    (as :func:`write_bmp` stores it; 32-bit BGRA with ``alpha``) and the
+    1-bit AND mask (``and_mask``, default clear), rows bottom first."""
+    values = np.asarray(values)
+    height, width = values.shape[:2]
+    data = None
+    if bits == 32:
+        alpha = np.full((height, width), 255) if alpha is None else alpha
+        bgra = np.concatenate([values[..., ::-1], np.asarray(alpha)[..., None]], -1)
+        data = bgra[::-1].astype(np.uint8).tobytes()
+    bmp = write_bmp(values, bits, palette=palette, data=data)
+    info = bytearray(bmp[14:])
+    struct.pack_into("<i", info, 8, 2 * height)
+    mask = np.zeros((height, width), bool) if and_mask is None else np.asarray(and_mask, bool)
+    stride = ((width + 31) // 32) * 4
+    rows = np.zeros((height, stride), np.uint8)
+    packed = np.packbits(mask[::-1].astype(np.uint8), axis=1)
+    rows[:, :packed.shape[1]] = packed
+    return bytes(info) + rows.tobytes()
+
+
+def write_ico(entries, kind=1) -> bytes:
+    """An ICO (``kind`` 1) or CUR (2) file of ``entries``, each (width
+    byte, height byte, colour count, planes or hot spot x, bits or hot spot
+    y, image bytes: a DIB or a PNG)."""
+    head = struct.pack("<HHH", 0, kind, len(entries))
+    offset = len(head) + 16 * len(entries)
+    directory, body = b"", b""
+    for width, height, colors, planes, bits, blob in entries:
+        directory += struct.pack("<BBBBHHII", width, height, colors, 0, planes, bits, len(blob),
+                                 offset + len(body))
+        body += blob
+    return head + directory + body
+
+
+# ---------------------------------------------------------------------------
 # The fixtures
 # ---------------------------------------------------------------------------
 
@@ -533,8 +713,62 @@ def fixture_files() -> dict:
         "raw_1023.ppm": write_pnm(rgb.astype(np.int64) * 4 + 3, 6, maxval=1023),
         "raw_65535.ppm": write_pnm(rgb.astype(np.int64) * 257, 6, maxval=65535),
         "raw_1023.pgm": write_pnm(grey.astype(np.int64) // 2, 5, maxval=1023),
+        # TGA, PCX, ICO and CUR: PIL's writers, then the writers here.
+        "rle_rgb.tga": _pil_bytes(image, "TGA", compression="tga_rle"),
+        "top_rgba.tga": _pil_bytes(image.convert("RGBA"), "TGA", orientation=1,
+                                   id_section=b"fixture"),
+        "grey.tga": _pil_bytes(image.convert("L"), "TGA"),
+        "palette_rle.tga": _pil_bytes(image.convert("P"), "TGA", rle=True),
+        "colormap16_rle.tga": write_tga(index16, 9, 8, colormap=palette16, map_depth=16,
+                                        map_start=3),
+        "rgb15_rle_right.tga": write_tga((rgb[..., 0].astype(np.int64) >> 3) << 10
+                                         | (rgb[..., 1] >> 3) << 5 | rgb[..., 2] >> 3, 10, 16,
+                                         right=True, top=True),
+        "la_rle_spanning.tga": write_tga(np.stack([grey, rgb[..., 2]], -1), 11, 16,
+                                         span_rows=True, data=_spanning_literals(grey, rgb)),
+        "bilevel.tga": write_tga(bilevel, 3, 1, right=True),
+        "bilevel.pcx": _pil_bytes(Image.fromarray(~bilevel), "PCX"),
+        "grey.pcx": _pil_bytes(image.convert("L"), "PCX"),
+        "palette.pcx": _pil_bytes(image.convert("P"), "PCX"),
+        "rgb.pcx": _pil_bytes(image, "PCX"),
+        "planes4.pcx": write_pcx(index16, 1, 4, palette=palette16),
+        "planes2_odd.pcx": write_pcx(index16[:, :61] // 4, 1, 2, palette=palette16,
+                                     origin=(3, 5)),
+        "rgb_odd_stride.pcx": write_pcx(rgb[:, :63], 8, 3, stride=63, header_stride=63),
+        "sizes_png.ico": _pil_bytes(Image.fromarray(scene(32, 32)), "ICO",
+                                    sizes=[(16, 16), (32, 32)]),
+        "sizes_bmp.ico": _pil_bytes(Image.fromarray(scene(32, 32)), "ICO",
+                                    sizes=[(16, 16), (32, 32)], bitmap_format="bmp"),
+        # PIL shows the 4-bit entry (of equal sizes, the lowest depth): last.
+        "dib_depths.ico": write_ico([
+            (48, 48, 0, 1, 32, dib_entry(rgb[:48, :48], 32, alpha=grey[:48, :48])),
+            (48, 48, 0, 1, 8, dib_entry(grey[:48, :48] // 4, 8, palette=rng.randint(
+                0, 256, (64, 3)), and_mask=bilevel[:48, :48])),
+            (48, 48, 16, 1, 4, dib_entry(index16[:48, :48], 4, palette=palette16))]),
+        "cursor.cur": write_ico([(16, 16, 0, 2, 3, dib_entry(index16[:16, :16], 4,
+                                                             palette=palette16)),
+                                 (32, 32, 0, 9, 9, dib_entry(rgb[:32, :32], 24))], kind=2),
     }
     return files
+
+
+def _spanning_literals(grey, rgb) -> bytes:
+    """Run-length TGA data of (grey, alpha) pixels whose literal packets
+    run across rows (rows bottom first): 100-pixel literals, then a run
+    to the end of each row they leave short."""
+    pixels = np.stack([grey, rgb[..., 2]], -1)[::-1].reshape(-1, 2)
+    width = grey.shape[1]
+    out = bytearray()
+    at = 0
+    while at < len(pixels):
+        take = min(100, len(pixels) - at)
+        out += bytes([take - 1]) + pixels[at:at + take].tobytes()
+        at += take
+        rest = -at % width
+        if rest and at < len(pixels):
+            out += bytes([0x80 | (rest - 1)]) + pixels[at].tobytes()
+            at += rest
+    return bytes(out)
 
 
 def _g4_strip(bilevel) -> bytes:

@@ -522,8 +522,10 @@ def test_get_fonts_matches_jax(tmp_path, monkeypatch, built_font, default_font_p
 def test_new_modules_import_without_pil_fonttools_matplotlib_or_jax(tmp_path):
     """The reader, the rasteriser, the generation module, the drawing
     functions and the image codecs (``tools.read`` of a TIFF, BMP, PNM and
-    YCCK JPEG fixture, and of a lossy, a lossless and an ``ALPH`` WebP
-    fixture, to the sha256 of PIL's decode) import and run with
+    YCCK JPEG fixture, of a lossy, a lossless and an ``ALPH`` WebP
+    fixture, of an arithmetic-coded, a lossless and a 4:1:1 JPEG fixture
+    and of a TGA, a PCX and an ICO fixture, to the sha256 of PIL's decode)
+    import and run with
     PIL, fontTools, matplotlib, h5py, jax, flax and the JAX package
     unimportable, as on the card's machine; ``drawAnnotations`` raises
     ``ImportError`` there."""
@@ -550,7 +552,8 @@ def test_new_modules_import_without_pil_fonttools_matplotlib_or_jax(tmp_path):
         "from keras_ocr_tpu_torch import codecs\n"
         "images = os.path.join('tests', 'fixtures', 'images')\n"
         "hashes = json.load(open(os.path.join(images, 'hashes.json')))\n"
-        "for name in ('g4.tif', 'rle4.bmp', 'plain.pgm', 'ycck.jpg'):\n"
+        "for name in ('g4.tif', 'rle4.bmp', 'plain.pgm', 'ycck.jpg', 'rgb15_rle_right.tga',\n"
+        "             'planes4.pcx', 'dib_depths.ico'):\n"
         "    out = tools.read(os.path.join(images, name))\n"
         "    assert hashlib.sha256(out.tobytes()).hexdigest() == hashes[name]['decoded_sha256']\n"
         "webp_dir = os.path.join('tests', 'fixtures', 'webp')\n"
@@ -560,6 +563,14 @@ def test_new_modules_import_without_pil_fonttools_matplotlib_or_jax(tmp_path):
         "    out = tools.read(os.path.join(webp_dir, name))\n"
         "    digest = hashlib.sha256(out.tobytes()).hexdigest()\n"
         "    assert digest == webp_hashes[name]['decoded_sha256'], name\n"
+        "jpeg_dir = os.path.join('tests', 'fixtures', 'jpeg')\n"
+        "jpeg_hashes = json.load(open(os.path.join(jpeg_dir, 'hashes.json')))\n"
+        "for name in ('grey_arith_dac_restart.jpg', 'lossless_rgb_p4_restart.jpg',\n"
+        "             'ycc411.jpg'):\n"
+        "    out = tools.read(os.path.join(jpeg_dir, name))\n"
+        "    digest = hashlib.sha256(out.tobytes()).hexdigest()\n"
+        "    assert digest == jpeg_hashes[name]['decoded_sha256'], name\n"
+        "assert 'keras_ocr_tpu_torch.jpeg_modes' in sys.modules\n"
         "assert not any(m.split('.')[0] in ('PIL', 'matplotlib', 'fontTools', 'h5py', 'jax',"
         " 'flax', 'keras_ocr_tpu') for m in sys.modules if sys.modules[m] is not None)\n"
         "print('fonts ok')\n"

@@ -41,8 +41,10 @@ from keras_ocr_tpu import tools as jtools
 from keras_ocr_tpu_torch import codecs, tools
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
-from make_image_fixtures import (adobe_transform, fixture_files, rle4_rows,  # noqa: E402
-                                 rle8_rows, scene, write_bmp, write_pnm, write_tiff)
+from make_image_fixtures import (adobe_transform, dib_entry, fixture_files,  # noqa: E402
+                                 rle4_rows, rle8_rows, scene, write_bmp, write_ico, write_pcx,
+                                 write_pnm, write_tga, write_tiff)
+from make_jpeg_fixtures import JFIF, lossless_jpeg  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -406,7 +408,140 @@ def _jpeg_cases():
     return cases
 
 
-CASES = {**_ccitt_cases(), **_tiff_cases(), **_bmp_cases(), **_pnm_cases(), **_jpeg_cases()}
+def _tga_cases():
+    cases = {}
+    rgba = np.concatenate([RGB, GREY[..., None]], -1)
+    words = (RGB[..., 0].astype(np.int64) >> 3) << 10 | (RGB[..., 1] >> 3) << 5 | RGB[..., 2] >> 3
+    index = GREY // 32
+    kinds = {
+        "rgb15": (2, 16, words | (GREY > 99) << 15, {}), "rgb24": (2, 24, RGB, {}),
+        "rgba32": (2, 32, rgba, {}), "grey8": (3, 8, GREY, {}),
+        "grey_alpha16": (3, 16, np.stack([GREY, RGB[..., 0]], -1), {}),
+        "map24": (1, 8, index, {"colormap": PALETTE[:8]}),
+        "map16_from_5": (1, 8, index, {"colormap": PALETTE[:8], "map_depth": 16,
+                                       "map_start": 5}),
+        "map24_short": (1, 8, GREY // 8, {"colormap": PALETTE[:20]}),
+        "grey8_with_map": (3, 8, GREY // 8, {"colormap": PALETTE[:20]}),
+        "grey_alpha_with_map": (3, 16, np.stack([GREY // 8, GREY], -1),
+                                {"colormap": PALETTE[:30], "map_depth": 16}),
+    }
+    for kind, (image_type, depth, values, kwargs) in kinds.items():
+        for rle in (0, 8):
+            for top in (False, True):
+                for right in (False, True):
+                    name = f"tga_{kind}_{'rle' if rle else 'raw'}_{'top' if top else 'bottom'}"
+                    cases[name + ("_right" if right else "")] = (
+                        lambda t=image_type + rle, d=depth, v=values, k=kwargs, o=top, r=right:
+                        write_tga(v, t, d, top=o, right=r, **k))
+    for right in (False, True):
+        cases[f"tga_bilevel_raw_{right}"] = lambda r=right: write_tga(GREY > 99, 3, 1, right=r)
+    noise = RNG.randint(0, 256, (9, 13, 3)).astype(np.uint8)
+    cases["tga_literals_across_rows"] = lambda: write_tga(noise, 10, 24, span_rows=True)
+    cases["tga_id_section"] = lambda: write_tga(RGB, 10, 24, id_section=b"id" * 60)
+    cases["tga_every_16_bit_word"] = lambda: write_tga(
+        np.arange(65536).reshape(256, 256), 2, 16)
+    image = Image.fromarray(RGB)
+    for mode in ("1", "L", "LA", "P", "RGB", "RGBA"):
+        for rle in (False, True):
+            cases[f"tga_pil_{mode}_{rle}"] = lambda m=mode, r=rle: _pil(
+                image.convert(m), "TGA", rle=r, orientation=1 if r else -1)
+    # What PIL does not read: a run past a row's end, a 1-bit run-length
+    # image, depths the image type has no raw mode for, a colour map of
+    # 32-bit entries or beside true colour or 1-bit grey, a colour-mapped
+    # type without its map.
+    cases["tga_run_across_rows"] = lambda: write_tga(np.zeros((6, 9), np.uint8), 11, 8,
+                                                      span_rows=True)
+    cases["tga_bilevel_rle"] = lambda: write_tga(GREY > 99, 11, 1)
+    cases["tga_rgb_depth8"] = lambda: write_tga(GREY, 2, 8)
+    cases["tga_map_depth16"] = lambda: write_tga(GREY, 1, 16, colormap=PALETTE[:8])
+    cases["tga_grey_depth24"] = lambda: write_tga(RGB, 3, 24)
+    cases["tga_map32"] = lambda: write_tga(index, 1, 8, colormap=np.concatenate(
+        [PALETTE[:8], PALETTE[:8, :1]], 1), map_depth=32)
+    cases["tga_rgb_with_map"] = lambda: write_tga(RGB, 2, 24, colormap=PALETTE[:8])
+    cases["tga_bilevel_with_map"] = lambda: write_tga(GREY > 99, 3, 1, colormap=PALETTE[:2])
+    cases["tga_no_map"] = lambda: write_tga(index, 1, 8)
+    return cases
+
+
+def _pcx_cases():
+    cases = {}
+    palette16 = PALETTE[:16]
+    for width in (37, 40, 45, 3, 1):
+        rgb, grey = RGB[:, :width], GREY[:, :width]
+        kinds = {"bilevel": (1, 1, (grey > 99).astype(np.int64), None),
+                 "planes2": (1, 2, grey // 64, palette16),
+                 "planes4": (1, 4, grey // 16, palette16),
+                 "grey": (8, 1, grey, None), "palette": (8, 1, grey, PALETTE),
+                 "rgb": (8, 3, rgb, None)}
+        for kind, (bits, planes, values, palette) in kinds.items():
+            need = (width * bits + 7) // 8
+            for label, stride in (("even", need + need % 2), ("exact", need),
+                                  ("wide", need + 2)):
+                cases[f"pcx_{kind}_w{width}_{label}"] = (
+                    lambda b=bits, p=planes, v=values, pal=palette, st=stride: write_pcx(
+                        v, b, p, palette=pal, stride=st))
+    cases["pcx_grey_ramp_palette"] = lambda: write_pcx(GREY, 8, 1, palette=np.repeat(
+        np.arange(256)[:, None], 3, 1))
+    cases["pcx_origin"] = lambda: write_pcx(GREY, 8, 1, origin=(7, 300))
+    image = Image.fromarray(RGB)
+    for mode in ("1", "L", "P", "RGB"):
+        cases[f"pcx_pil_{mode}"] = lambda m=mode: _pil(image.convert(m), "PCX")
+    # What PIL does not read: 2- and 4-bit pixels, 1 bit over 3 planes,
+    # 8 bits over 2, 8-bit before version 5, a run past a row's end.
+    cases["pcx_2_bit"] = lambda: write_pcx(GREY // 64, 2, 1)
+    cases["pcx_4_bit"] = lambda: write_pcx(GREY // 16, 4, 1)
+    cases["pcx_planes3_1_bit"] = lambda: write_pcx(GREY // 32, 1, 3)
+    cases["pcx_planes2_8_bit"] = lambda: write_pcx(GREY, 8, 2)
+    cases["pcx_version3_8_bit"] = lambda: write_pcx(GREY, 8, 1, version=3)
+    cases["pcx_run_across_rows"] = lambda: write_pcx(np.zeros((5, 9), np.int64), 8, 1,
+                                                     span_rows=True)
+    return cases
+
+
+def _ico_cases():
+    cases = {}
+    big, small = scene(32, 32, seed=6), scene(16, 16, seed=7)
+    grey = big[..., 1]
+    entries = {
+        "dib1": (16, 16, 2, 1, 1, dib_entry(small[..., 0] > 99, 1, palette=PALETTE[:2])),
+        "dib4": (16, 16, 16, 1, 4, dib_entry(small[..., 0] // 16, 4, palette=PALETTE[:16])),
+        "dib8": (32, 32, 0, 1, 8, dib_entry(grey // 4, 8, palette=PALETTE[:64],
+                                             and_mask=grey > 120)),
+        "dib8_grey": (32, 32, 0, 1, 8, dib_entry(grey, 8, palette=np.repeat(
+            np.arange(256)[:, None], 3, 1))),
+        "dib24": (32, 32, 0, 1, 24, dib_entry(big, 24)),
+        "dib32": (32, 32, 0, 1, 32, dib_entry(big, 32, alpha=grey)),
+        "dib24_colours_7": (32, 32, 7, 1, 0, dib_entry(big, 24)),
+    }
+    for name, entry in entries.items():
+        cases[f"ico_{name}"] = lambda e=entry: write_ico([e])
+    # PIL shows the largest entry; of equal sizes, the lowest colour depth.
+    cases["ico_largest_wins"] = lambda: write_ico([entries["dib4"], entries["dib24"],
+                                                   entries["dib1"]])
+    cases["ico_tie_by_depth"] = lambda: write_ico([entries["dib32"], entries["dib24"],
+                                                   entries["dib8"]])
+    cases["ico_tie_by_colour_count"] = lambda: write_ico([entries["dib24"],
+                                                          entries["dib24_colours_7"]])
+    cases["ico_256_by_0"] = lambda: write_ico([entries["dib24"], (0, 0, 0, 1, 4, entries[
+        "dib4"][5])])
+    png = _pil(Image.fromarray(big).convert("P"), "PNG")
+    cases["ico_png_beside_dib"] = lambda: write_ico([entries["dib4"], (32, 32, 0, 1, 8, png)])
+    image = Image.fromarray(big)
+    for mode in ("1", "L", "P", "RGB", "RGBA"):
+        for fmt in ("png", "bmp"):
+            cases[f"ico_pil_{mode}_{fmt}"] = lambda m=mode, f=fmt: _pil(
+                image.convert(m), "ICO", sizes=[(16, 16), (24, 24), (32, 32)], bitmap_format=f)
+    # A cursor shows its first entry, or a later one wider and taller.
+    cases["cur_first"] = lambda: write_ico([entries["dib24"], entries["dib4"]], kind=2)
+    cases["cur_later_larger"] = lambda: write_ico([entries["dib4"], entries["dib8"]], kind=2)
+    cases["cur_later_wider_only"] = lambda: write_ico(
+        [entries["dib4"], (32, 16, 0, 1, 1, entries["dib24"][5])], kind=2)
+    cases["cur_32_bit_at_22"] = lambda: write_ico([entries["dib32"]], kind=2)
+    return cases
+
+
+CASES = {**_ccitt_cases(), **_tiff_cases(), **_bmp_cases(), **_pnm_cases(), **_jpeg_cases(),
+         **_tga_cases(), **_pcx_cases(), **_ico_cases()}
 
 
 # Layouts PIL refuses (no mode for 16-bit WhiteIsZero with FillOrder 2,
@@ -417,7 +552,14 @@ PIL_REFUSES = {
     "tiff_grey8_photo0_be_1_fill2", "tiff_grey8_photo0_le_1_fill2",
     "tiff_palette1_1_fill2", "tiff_palette2_1_fill2", "tiff_palette4_1_fill2",
     "tiff_rgba_extra0_planar_deflate", "tiff_rgba_extra0_planar_raw",
-}
+    "tga_run_across_rows", "tga_bilevel_rle", "tga_rgb_depth8", "tga_map_depth16",
+    "tga_grey_depth24", "tga_map32", "tga_rgb_with_map", "tga_bilevel_with_map", "tga_no_map",
+    "tga_pil_1_True",
+    "pcx_2_bit", "pcx_4_bit", "pcx_planes3_1_bit", "pcx_planes2_8_bit", "pcx_version3_8_bit",
+    "pcx_run_across_rows",
+} | {name for name in CASES if name.startswith("pcx_") and name.endswith("_wide")
+     # (the runs of the 1-pixel RGB file happen to fit PIL's stride)
+     and name != "pcx_rgb_w1_wide"}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -559,7 +701,8 @@ def _refused():
         "pnm_p0cmyk": (b"P0CMYK\n1 1\n255\n" + bytes(4), "P0CMYK"),
         "jpeg_12_bit": (cmyk.replace(b"\xff\xc0\x00\x14\x08", b"\xff\xc0\x00\x14\x0c", 1),
                         "12-bit"),
-        "jpeg_lossless": (cmyk.replace(b"\xff\xc0", b"\xff\xc3", 1), "lossless"),
+        "jpeg_lossless": (lossless_jpeg([RGB[..., k] for k in range(3)], markers=JFIF),
+                          "lossless JPEG with a JFIF marker"),
     }
 
 
@@ -581,13 +724,32 @@ def test_truncated_fixture_raises_value_error(name, cut):
 
 
 # Bytes cut from the end of a file for the "tail" case: a plain PNM's
-# last sample and its newline, a BMP's last row.
-_TAIL = {"pbm": 2, "pgm": 4, "ppm": 16, "bmp": 300}
+# last sample and its newline, a BMP's last row; past PIL's 26-byte TGA
+# footer, a PCX's 769-byte palette, a PNG's IEND and checksums, and the
+# AND mask that a cursor holds but PIL does not read.
+_TAIL = {"pbm": 2, "pgm": 4, "ppm": 16, "bmp": 300, "tga": 40, "pcx": 800, "ico": 40,
+         "cur": 136}
+
+
+def test_short_icon_entries_raise_value_error():
+    """An icon entry without room for the alpha (a 32-bit entry) or AND mask
+    PIL reads, and a cursor or icon whose data is cut: ``ValueError``, where
+    PIL raises too."""
+    big = scene(32, 32, seed=6)
+    dib24 = dib_entry(big, 24)
+    blobs = [write_ico([(32, 32, 0, 1, 32, dib24)]),
+             write_ico([(32, 32, 0, 1, 24, dib24)])[:-40],
+             write_ico([(32, 32, 0, 1, 24, dib24)], kind=2)[:-400]]
+    for blob in blobs:
+        with pytest.raises(Exception):
+            jtools.read(io.BytesIO(blob))
+        with pytest.raises(ValueError):
+            tools.read(io.BytesIO(blob))
 
 
 def test_unknown_format_is_a_value_error():
-    with pytest.raises(ValueError, match=r"neither a PNG, JPEG, GIF, TIFF, BMP, PNM \(P1-P6\) "
-                                         r"nor WebP"):
+    with pytest.raises(ValueError, match=r"neither a PNG, JPEG, GIF, TIFF, BMP, PNM \(P1-P6\), "
+                                         r"WebP, ICO, CUR, PCX nor TGA"):
         tools.read(io.BytesIO(b"P7\nWIDTH 1\n"))
 
 

@@ -331,9 +331,12 @@ def _with_sof(blob, marker=None, precision=None):
 
 def test_read_jpeg_refuses_what_it_cannot_decode():
     baseline = _pil_jpeg(_scene_crop(16, 24))
+    # Lossless (SOF3) and arithmetic-coded (SOF9, SOF10) files decode as
+    # PIL decodes them (tests/test_torch_jpeg_modes.py); these kinds PIL's
+    # libjpeg-turbo refuses too.
     kinds = {
-        "lossless": _with_sof(baseline, marker=0xC3),
-        "arithmetic-coded": _with_sof(baseline, marker=0xC9),
+        "arithmetic-coded lossless": _with_sof(baseline, marker=0xCB),
+        "hierarchical": _with_sof(baseline, marker=0xC5),
         "12-bit": _with_sof(baseline, precision=12),
     }
     for kind, blob in kinds.items():
