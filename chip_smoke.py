@@ -338,6 +338,22 @@ Phases, each printing one line; any failure exits non-zero:
    equal those of ``recognize`` on their decoded arrays, and it must
    reach ``pass_fraction``.
 
+25. jpeg2000: every fixture of ``tests/fixtures/jp2`` (JP2 files and raw
+   codestreams: 5/3 and 9/7, every progression order and POC, tiles,
+   precincts, layers, the six code-block styles, SOP / EPH, PPM / PPT, ROI,
+   subsampled, 12-bit and signed samples, palettes, sYCC and CMYK; written
+   by ``scripts/make_jp2_fixtures.py``) read with ``tools.read`` by path
+   must decode to the sha256 of PIL's decode; host decode ms and MB/s of
+   RGB out (median of 3) of scene 3 as lossy 9/7 and as lossless 5/3 JP2,
+   and of the 12 lossy golden scenes decoded once each; the golden folded
+   pipeline reads the 12 lossy JP2 scenes by path: its words and boxes
+   must equal those of ``recognize`` on their decoded arrays, and it must
+   reach ``pass_fraction``; a 640x480 photo as lossy 9/7 JP2 (a fixture,
+   checked against PIL when the script wrote it) decoded, then read by the
+   full-width folded pipeline by path and as its decoded array in turns
+   (median of 3 each, words and boxes equal), the difference being the
+   decode's share of the ``recognize`` by path.
+
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
 ``.pth``-loaded detector's run in 12, the EfficientNet pipeline of 13,
@@ -345,10 +361,11 @@ the ``detect`` of 14, the bfloat16 full-width pipelines of 15, each mesh
 pipeline of 16, the trained folded bf16 path of 17, each strip
 pipeline of 18, the synthetic-trained folded pipeline of 19, the
 distributed checkpoint's pipeline of 21, the folded pipelines of 22 and
-the golden folded pipeline's reads of the WebP scenes by path in 23 and
-of the arithmetic-coded JPEG scenes by path in 24 count their kernel
-launches from zero; the kernel line's launches are those of phases 5-7,
-13, 14, 16, 17, 18, 19, 21, 22, 23 and 24 (their sweep calls), and for the bf16 mode's two entries those of 15, 17 and 18;
+the golden folded pipeline's reads of the WebP scenes by path in 23,
+of the arithmetic-coded JPEG scenes by path in 24 and of the JP2 scenes
+and photo by path in 25 count their kernel launches from zero; the kernel
+line's launches are those of phases 5-7, 13, 14, 16, 17, 18, 19, 21, 22,
+23, 24 and 25 (their sweep calls), and for the bf16 mode's two entries those of 15, 17 and 18;
 the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
@@ -4091,6 +4108,110 @@ def jpeg_modes_phase(card, golden_folded, golden_images, pass_fraction, wrappers
     return launches
 
 
+# Phase 25: JPEG 2000 files through tools.read and the folded pipelines.
+JP2_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "jp2")
+JP2_TIMED = 3
+
+
+def jpeg2000_phase(card, folded_pipeline, golden_folded, pass_fraction, wrappers):
+    """Phase 25: every fixture of ``tests/fixtures/jp2`` decoded by path to
+    the sha256 of PIL's decode; host decode ms and MB/s of RGB out (median
+    of 3) of scene 3 as lossy 9/7 and lossless 5/3 JP2, and the 12 lossy
+    scenes decoded once each; the golden folded pipeline's ``recognize`` of
+    the 12 lossy scenes by path, words and boxes equal to those of their
+    decoded arrays and ``pass_fraction`` reached; the 640x480 lossy photo
+    read by the full-width folded pipeline by path and as its decoded array
+    in turns (median of 3 each, words and boxes equal), the difference the
+    decode's share of the call by path. Returns the launches of the
+    kernels in the phase's pipeline runs, counted from zero."""
+    from keras_ocr_tpu_torch import jpeg2000, tools
+    from keras_ocr_tpu_torch.utils import golden
+
+    phase_start = time.perf_counter()
+    with open(os.path.join(JP2_FIXTURES, "hashes.json"), encoding="utf8") as f:
+        hashes = json.load(f)
+    for name, expected in sorted(hashes.items()):
+        image = tools.read(os.path.join(JP2_FIXTURES, name))
+        digest = hashlib.sha256(image.tobytes()).hexdigest()
+        if list(image.shape) != expected["shape"] or digest != expected["decoded_sha256"]:
+            raise AssertionError(f"{name}: decoded {image.shape} sha256 {digest}, PIL's "
+                                 f"{expected['shape']} {expected['decoded_sha256']}")
+    with open(os.path.join(ARTIFACT, "expected.json"), encoding="utf8") as f:
+        expected = json.load(f)["scenes"]
+    paths = [os.path.join(JP2_FIXTURES, entry["image"].replace(".png", ".jp2"))
+             for entry in expected]
+    blobs = {}
+    for name in ("scene_03.jp2", "scene_03_lossless.jp2", "photo_640x480.jp2"):
+        with open(os.path.join(JP2_FIXTURES, name), "rb") as f:
+            blobs[name] = f.read()
+    timed = {}
+    for label, name in (("scene 3 as lossy 9/7 JP2", "scene_03.jp2"),
+                        ("scene 3 as lossless 5/3 JP2", "scene_03_lossless.jp2"),
+                        ("the 640x480 photo as lossy 9/7 JP2", "photo_640x480.jp2")):
+        seconds, out = median_seconds(lambda b=blobs[name]: jpeg2000.decode_jpeg2000(b),
+                                      runs=JP2_TIMED)
+        timed[label] = (seconds, out.nbytes, len(blobs[name]))
+    start = time.perf_counter()
+    scenes = [tools.read(path) for path in paths]
+    scenes_s = time.perf_counter() - start
+    scene_bytes = sum(os.path.getsize(path) for path in paths)
+    print(f"jpeg2000 ({card}): {len(hashes)} fixtures (JP2 and raw codestreams) decoded by "
+          f"path to the sha256 of PIL's decode; host decode (median of {JP2_TIMED}, host CPU "
+          f"{host_cpu()}): " + "; ".join(
+              f"{label} ({size} bytes) {seconds * 1e3:.1f} ms = {nbytes / 1e6 / seconds:.2f} "
+              f"MB/s of RGB out" for label, (seconds, nbytes, size) in timed.items())
+          + f"; the 12 lossy golden scenes ({scene_bytes} bytes) once each "
+          f"{scenes_s * 1e3:.1f} ms in all = "
+          f"{sum(s.nbytes for s in scenes) / 1e6 / scenes_s:.2f} MB/s of RGB out")
+
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    by_path = golden_folded.recognize(paths)
+    photo_path = os.path.join(JP2_FIXTURES, "photo_640x480.jp2")
+    photo = tools.read(photo_path)
+    folded_pipeline.recognize([photo])
+    calls = {photo_path: [], "array": []}
+    results = {}
+    for _ in range(JP2_TIMED):
+        for key, source in ((photo_path, photo_path), ("array", photo)):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            results[key] = folded_pipeline.recognize([source])
+            torch.cuda.synchronize()
+            calls[key].append(time.perf_counter() - start)
+    path_s, array_s = (statistics.median(calls[key]) for key in (photo_path, "array"))
+    photo_by_path, photo_by_array = results[photo_path], results["array"]
+    launches = {name: w.launches for name, w in wrappers.items()}
+    by_array = golden_folded.recognize(scenes)
+    for index, (path_result, array_result) in enumerate(zip(by_path, by_array)):
+        if [w for w, _ in path_result] != [w for w, _ in array_result] or not all(
+                np.array_equal(a, b) for (_, a), (_, b) in zip(path_result, array_result)):
+            raise AssertionError(f"scene {index} read by path gave other words or boxes than "
+                                 f"its decoded array")
+    if [w for w, _ in photo_by_path[0]] != [w for w, _ in photo_by_array[0]] or not all(
+            np.array_equal(a, b) for (_, a), (_, b) in zip(photo_by_path[0], photo_by_array[0])):
+        raise AssertionError("the JP2 photo read by path gave other words or boxes than its "
+                             "decoded array")
+    words = [[w for w, _ in result] for result in by_path]
+    hits = sum(golden._word_match_fraction(entry["words"], found) * len(entry["words"])
+               for entry, found in zip(expected, words))
+    fraction = hits / max(sum(len(entry["words"]) for entry in expected), 1)
+    if fraction < pass_fraction:
+        raise AssertionError(f"golden scenes as lossy JP2: fraction {fraction} "
+                             f"(pass >= {pass_fraction})")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the folded path was never launched: {launches}")
+    print(f"jpeg2000, pipelines ({card}): the golden folded pipeline read the 12 lossy JP2 "
+          f"scenes by path with the words and boxes of their decoded arrays, fraction "
+          f"{fraction:.4f} (pass >= {pass_fraction}); the full-width folded pipeline's "
+          f"recognize of the 640x480 JP2 photo by path equals that of its decoded array "
+          f"({len(photo_by_path[0])} words; random weights): by path {path_s * 1e3:.1f} ms, "
+          f"as its array {array_s * 1e3:.1f} ms (medians of {JP2_TIMED}, in turns), so the "
+          f"read and decode take {(path_s - array_s) / path_s:.1%} of the call by path; "
+          f"launches {launches}; phase 25 in {time.perf_counter() - phase_start:.1f} s")
+    return launches
+
+
 # Phase 21: both trainers on a mesh across two processes of the one card.
 DIST_DIR = os.path.join(ROOT, "build", "distributed")
 DIST_WORLD = 2
@@ -4556,6 +4677,11 @@ def main() -> int:
                                         all_wrappers).items():
         launches[name] += count
     lap("24")
+
+    for name, count in jpeg2000_phase(card, folded_pipeline, golden_folded, pass_fraction,
+                                      all_wrappers).items():
+        launches[name] += count
+    lap("25")
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",

@@ -45,6 +45,7 @@ from .codecs import (PNM_PREFIXES, TIFF_SIGNATURES, cmyk_to_rgb, decode_bmp,  # 
                      decode_ico, decode_pcx, decode_pnm, decode_tga, decode_tiff, is_ico, is_pcx,
                      is_tga)
 from . import jpeg_modes
+from .jpeg2000 import decode_jpeg2000, is_jpeg2000
 from .webp import decode_webp
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -1531,10 +1532,10 @@ def _encode_jpeg(image: np.ndarray) -> bytes:
 
 
 def _decode(blob: bytes, name: str) -> np.ndarray:
-    """A PNG, JPEG, GIF, TIFF, BMP, PNM, WebP, ICO, CUR, PCX or TGA file's
-    bytes as (H, W, 3) uint8 RGB, by its magic bytes; TGA has none, so it
-    comes last, by the header checks PIL makes (PIL, too, tries it after
-    every format with magic bytes that the port reads)."""
+    """A PNG, JPEG, GIF, TIFF, BMP, PNM, WebP, JPEG 2000, ICO, CUR, PCX or
+    TGA file's bytes as (H, W, 3) uint8 RGB, by its magic bytes; TGA has
+    none, so it comes last, by the header checks PIL makes (PIL, too, tries
+    it after every format with magic bytes that the port reads)."""
     if blob[:8] == _PNG_SIGNATURE:
         return decode_png(blob, name)
     if blob[:3] == _JPEG_SIGNATURE:
@@ -1549,14 +1550,16 @@ def _decode(blob: bytes, name: str) -> np.ndarray:
         return decode_pnm(blob, name)
     if blob[:4] == b"RIFF" and blob[8:12] == b"WEBP":
         return decode_webp(blob, name)
+    if is_jpeg2000(blob):
+        return decode_jpeg2000(blob, name)
     if is_ico(blob):
         return decode_ico(blob, name)
     if is_pcx(blob):
         return decode_pcx(blob, name)
     if is_tga(blob):
         return decode_tga(blob, name)
-    raise ValueError(f"{name} is neither a PNG, JPEG, GIF, TIFF, BMP, PNM (P1-P6), WebP, ICO, "
-                     f"CUR, PCX nor TGA file")
+    raise ValueError(f"{name} is neither a PNG, JPEG, GIF, TIFF, BMP, PNM (P1-P6), WebP, "
+                     f"JPEG 2000, ICO, CUR, PCX nor TGA file")
 
 
 def read(filepath_or_buffer: typing.Union[str, typing.BinaryIO, np.ndarray]) -> np.ndarray:
@@ -1569,6 +1572,7 @@ def read(filepath_or_buffer: typing.Union[str, typing.BinaryIO, np.ndarray]) -> 
     frame), TIFF (the first image; CCITT Group 3 and 4, LZW, Deflate,
     PackBits, JPEG or none), BMP, PNM (P1-P6), WebP (lossless, lossy, with
     alpha or metadata; the first frame of an animation; :mod:`.webp`),
+    JPEG 2000 (JP2 / JPX files and raw codestreams; :mod:`.jpeg2000`),
     TGA, PCX, ICO and CUR (:mod:`.codecs`). Other formats, and the kinds of
     these that PIL does not read either, raise ``ValueError`` or
     ``NotImplementedError``."""

@@ -749,7 +749,7 @@ def test_short_icon_entries_raise_value_error():
 
 def test_unknown_format_is_a_value_error():
     with pytest.raises(ValueError, match=r"neither a PNG, JPEG, GIF, TIFF, BMP, PNM \(P1-P6\), "
-                                         r"WebP, ICO, CUR, PCX nor TGA"):
+                                         r"WebP, JPEG 2000, ICO, CUR, PCX nor TGA"):
         tools.read(io.BytesIO(b"P7\nWIDTH 1\n"))
 
 
