@@ -352,7 +352,23 @@ Phases, each printing one line; any failure exits non-zero:
    checked against PIL when the script wrote it) decoded, then read by the
    full-width folded pipeline by path and as its decoded array in turns
    (median of 3 each, words and boxes equal), the difference being the
-   decode's share of the ``recognize`` by path.
+   decode's share of the ``recognize`` by path;
+26. rasters: every committed fixture of ``tests/fixtures/rasters`` (PSD in
+   every colour mode PIL reads, raw and PackBits; QOI; SGI verbatim and
+   RLE at 8 and 16 bits; Sun rasters of each depth and type; DIB; DCX;
+   ICNS run-length, PNG and JPEG 2000 entries; IM; MSP; XBM; XPM; written
+   by ``scripts/make_raster_fixtures.py``) read with ``tools.read`` by path
+   must decode to the sha256 of PIL's decode; the script's numpy writers
+   write the large files here from the port's reads of their sources (the
+   12 golden scenes as PackBits RGB PSD and as QOI, scene 3 as raw PSD and
+   RLE SGI, the 640x480 photo as PackBits PSD), each file's sha256 and its
+   decode's held to ``hashes.json``; host decode ms and MB/s of RGB out
+   (median of 3) of scene 3 in its four forms and of the photo; the golden
+   folded pipeline reads the 12 PSD and the 12 QOI scenes by path: words
+   and boxes equal to those of their decoded arrays, ``pass_fraction``
+   reached; the photo's PSD read by the full-width folded pipeline by path
+   and as its decoded array in turns (median of 3 each, words and boxes
+   equal).
 
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
@@ -362,10 +378,11 @@ pipeline of 16, the trained folded bf16 path of 17, each strip
 pipeline of 18, the synthetic-trained folded pipeline of 19, the
 distributed checkpoint's pipeline of 21, the folded pipelines of 22 and
 the golden folded pipeline's reads of the WebP scenes by path in 23,
-of the arithmetic-coded JPEG scenes by path in 24 and of the JP2 scenes
-and photo by path in 25 count their kernel launches from zero; the kernel
+of the arithmetic-coded JPEG scenes by path in 24, of the JP2 scenes
+and photo by path in 25 and of the PSD and QOI scenes and the PSD photo
+by path in 26 count their kernel launches from zero; the kernel
 line's launches are those of phases 5-7, 13, 14, 16, 17, 18, 19, 21, 22,
-23, 24 and 25 (their sweep calls), and for the bf16 mode's two entries those of 15, 17 and 18;
+23, 24, 25 and 26 (their sweep calls), and for the bf16 mode's two entries those of 15, 17 and 18;
 the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
@@ -4212,6 +4229,133 @@ def jpeg2000_phase(card, folded_pipeline, golden_folded, pass_fraction, wrappers
     return launches
 
 
+RASTER_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "rasters")
+RASTER_DIR = os.path.join(ROOT, "build", "rasters")
+RASTER_TIMED = 3
+
+
+def rasters_phase(card, folded_pipeline, golden_folded, pass_fraction, wrappers):
+    """Phase 26: every committed fixture of ``tests/fixtures/rasters``
+    decoded by path to the sha256 of PIL's decode; the large files written
+    here by ``scripts/make_raster_fixtures.py``'s numpy writers from the
+    port's reads of their sources (each file's sha256 and its decode's
+    checked against ``hashes.json``); host decode ms and MB/s of RGB out
+    (median of 3) of scene 3 as raw PSD, PackBits PSD, QOI and RLE SGI and
+    of a 640x480 PackBits PSD; the golden folded pipeline's ``recognize``
+    of the 12 scenes as PackBits PSD and as QOI by path, words and boxes
+    equal to those of their decoded arrays and ``pass_fraction`` reached;
+    the 640x480 PSD read by the full-width folded pipeline by path and as
+    its decoded array in turns (median of 3 each, words and boxes equal).
+    Returns the launches of the kernels in the phase's pipeline runs,
+    counted from zero."""
+    from keras_ocr_tpu_torch import rasters, tools
+    from keras_ocr_tpu_torch.utils import golden
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import make_raster_fixtures
+
+    phase_start = time.perf_counter()
+    with open(os.path.join(RASTER_FIXTURES, "hashes.json"), encoding="utf8") as f:
+        hashes = json.load(f)
+    shutil.rmtree(RASTER_DIR, ignore_errors=True)
+    start = time.perf_counter()
+    paths = make_raster_fixtures.write_large(RASTER_DIR, read=tools.read)
+    write_s = time.perf_counter() - start
+    committed = 0
+    for name, expected in sorted(hashes.items()):
+        path = paths.get(name, os.path.join(RASTER_FIXTURES, name))
+        if expected.get("written_at_run_time"):
+            with open(path, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+            if digest != expected["file_sha256"]:
+                raise AssertionError(f"{name}: the writers made other bytes here (sha256 "
+                                     f"{digest}, the script's {expected['file_sha256']})")
+        else:
+            committed += 1
+        image = tools.read(path)
+        digest = hashlib.sha256(image.tobytes()).hexdigest()
+        if list(image.shape) != expected["shape"] or digest != expected["decoded_sha256"]:
+            raise AssertionError(f"{name}: decoded {image.shape} sha256 {digest}, PIL's "
+                                 f"{expected['shape']} {expected['decoded_sha256']}")
+    timed = {}
+    for label, name, decode in (
+            ("scene 3 as raw PSD", "scene_03_raw.psd", rasters.decode_psd),
+            ("scene 3 as PackBits PSD", "scene_03.psd", rasters.decode_psd),
+            ("scene 3 as QOI", "scene_03.qoi", rasters.decode_qoi),
+            ("scene 3 as RLE SGI", "scene_03_rle.sgi", rasters.decode_sgi),
+            ("the 640x480 photo as PackBits PSD", "photo_640x480.psd", rasters.decode_psd)):
+        with open(paths[name], "rb") as f:
+            blob = f.read()
+        seconds, out = median_seconds(lambda b=blob, d=decode: d(b), runs=RASTER_TIMED)
+        timed[label] = (seconds, out.nbytes, len(blob))
+    print(f"rasters ({card}): {committed} committed fixtures (PSD, QOI, SGI, Sun, DIB, DCX, "
+          f"ICNS, IM, MSP, XBM, XPM) and {len(paths)} files written here in "
+          f"{write_s * 1e3:.0f} ms (the golden scenes as PackBits PSD and QOI, scene 3 raw "
+          f"and as RLE SGI, the 640x480 photo) decoded by path to the sha256 of PIL's decode; "
+          f"host decode (median of {RASTER_TIMED}, host CPU {host_cpu()}): " + "; ".join(
+              f"{label} ({size} bytes) {seconds * 1e3:.2f} ms = "
+              f"{nbytes / 1e6 / seconds:.2f} MB/s of RGB out"
+              for label, (seconds, nbytes, size) in timed.items()))
+
+    with open(os.path.join(ARTIFACT, "expected.json"), encoding="utf8") as f:
+        expected = json.load(f)["scenes"]
+    kinds = {"PackBits PSD": ".psd", "QOI": ".qoi"}
+    scene_paths = {kind: [paths[entry["image"].replace(".png", suffix)] for entry in expected]
+                   for kind, suffix in kinds.items()}
+    photo_path = paths["photo_640x480.psd"]
+    photo = tools.read(photo_path)
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    by_path = {kind: golden_folded.recognize(ps) for kind, ps in scene_paths.items()}
+    folded_pipeline.recognize([photo])
+    calls = {"path": [], "array": []}
+    results = {}
+    for _ in range(RASTER_TIMED):
+        for key, source in (("path", photo_path), ("array", photo)):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            results[key] = folded_pipeline.recognize([source])
+            torch.cuda.synchronize()
+            calls[key].append(time.perf_counter() - start)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    path_s, array_s = (statistics.median(calls[key]) for key in ("path", "array"))
+
+    def same(a, b):
+        return [w for w, _ in a] == [w for w, _ in b] and all(
+            np.array_equal(x, y) for (_, x), (_, y) in zip(a, b))
+
+    fractions = {}
+    for kind, ps in scene_paths.items():
+        by_array = golden_folded.recognize([tools.read(p) for p in ps])
+        for index, (path_result, array_result) in enumerate(zip(by_path[kind], by_array)):
+            if not same(path_result, array_result):
+                raise AssertionError(f"scene {index} as {kind} read by path gave other words "
+                                     "or boxes than its decoded array")
+        words = [[w for w, _ in result] for result in by_path[kind]]
+        hits = sum(golden._word_match_fraction(entry["words"], found) * len(entry["words"])
+                   for entry, found in zip(expected, words))
+        fractions[kind] = hits / max(sum(len(entry["words"]) for entry in expected), 1)
+        if fractions[kind] < pass_fraction:
+            raise AssertionError(f"golden scenes as {kind}: fraction {fractions[kind]} (pass "
+                                 f">= {pass_fraction})")
+    if not same(results["path"][0], results["array"][0]):
+        raise AssertionError("the 640x480 PSD read by path gave other words or boxes than its "
+                             "decoded array")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the folded path was never launched: {launches}")
+    shutil.rmtree(RASTER_DIR, ignore_errors=True)
+    print(f"rasters, pipelines ({card}): the golden folded pipeline read the 12 scenes by path "
+          f"with the words and boxes of their decoded arrays, fraction "
+          + ", ".join(f"{fractions[kind]:.4f} as {kind}" for kind in kinds)
+          + f" (pass >= {pass_fraction}); the full-width folded pipeline's recognize of the "
+          f"640x480 PackBits PSD by path equals that of its decoded array "
+          f"({len(results['path'][0])} words; random weights): by path {path_s * 1e3:.1f} ms, "
+          f"as its array {array_s * 1e3:.1f} ms (medians of {RASTER_TIMED}, in turns), so the "
+          f"read and decode take {(path_s - array_s) / path_s:.1%} of the call by path; "
+          f"launches {launches}; phase 26 in {time.perf_counter() - phase_start:.1f} s")
+    return launches
+
+
 # Phase 21: both trainers on a mesh across two processes of the one card.
 DIST_DIR = os.path.join(ROOT, "build", "distributed")
 DIST_WORLD = 2
@@ -4682,6 +4826,11 @@ def main() -> int:
                                       all_wrappers).items():
         launches[name] += count
     lap("25")
+
+    for name, count in rasters_phase(card, folded_pipeline, golden_folded, pass_fraction,
+                                     all_wrappers).items():
+        launches[name] += count
+    lap("26")
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",

@@ -1,4 +1,4 @@
-"""TIFF, BMP, PNM, TGA, PCX, ICO and CUR decoding for
+"""TIFF, BMP, DIB, PNM, TGA, PCX, DCX, ICO and CUR decoding for
 :func:`keras_ocr_tpu_torch.tools.read`.
 
 JAX's ``tools.read`` is PIL's ``Image.open(f).convert("RGB")``
@@ -29,6 +29,8 @@ library (``zlib``) only:
   ``L`` or ``1`` images. PIL's RLE decoder is followed where it departs
   from the format (a delta escape skips two bytes before its offsets,
   and an odd RLE4 literal run reads one pixel less than it counts).
+  :func:`decode_dib` reads the same bitmap without its file header, as
+  PIL's ``DibImageFile`` does.
 * :func:`decode_pnm`: P1-P6, plain and raw, comments in the header, maxval
   1-65535 scaled as PIL scales it (to 0-255, or to 0-65535 for grey above
   255, which ``convert("RGB")`` then clips), the first image of a file.
@@ -894,6 +896,27 @@ def decode_bmp(blob: bytes, name: str = "image") -> np.ndarray:
     return _dib_rgb(blob, layout, layout["height"], name)
 
 
+# ``BmpImagePlugin._dib_accept``: the header sizes PIL takes for a DIB.
+DIB_HEADER_SIZES = (12, 40, 52, 56, 64, 108, 124)
+
+
+def is_dib(blob: bytes) -> bool:
+    """PIL's ``_dib_accept``: the first little-endian word is a bitmap
+    header's size."""
+    return len(blob) >= 4 and struct.unpack_from("<I", blob)[0] in DIB_HEADER_SIZES
+
+
+def decode_dib(blob: bytes, name: str = "image") -> np.ndarray:
+    """A DIB (a BMP without its 14-byte file header: the bitmap header,
+    masks and palette, then the pixels) as (H, W, 3) uint8, as PIL's
+    ``DibImageFile`` and ``convert("RGB")`` give it. Raises as
+    :func:`decode_bmp` does."""
+    if not is_dib(blob):
+        raise ValueError(f"{name} is not a DIB file")
+    layout = _dib_layout(blob, 0, 0, name)
+    return _dib_rgb(blob, layout, layout["height"], name)
+
+
 def _dib_layout(blob: bytes, at: int, offset: int, name: str) -> dict:
     """The bitmap header at ``at`` as ``BmpImagePlugin._bitmap`` reads it:
     size, depth, PIL's mode and raw mode, palette, row order and where the
@@ -1422,6 +1445,32 @@ def decode_pcx(blob: bytes, name: str = "image") -> np.ndarray:
         index |= _unpack_bits(rows[:, k * stride : (k + 1) * stride], 1, width).astype(
             np.int64) << k
     return palette[index]
+
+
+DCX_MAGIC = 987654321
+
+
+def is_dcx(blob: bytes) -> bool:
+    """PIL's ``DcxImagePlugin._accept``."""
+    return len(blob) >= 4 and struct.unpack_from("<I", blob)[0] == DCX_MAGIC
+
+
+def decode_dcx(blob: bytes, name: str = "image") -> np.ndarray:
+    """A DCX file's first page as (H, W, 3) uint8, as PIL's
+    ``DcxImagePlugin`` gives it: the page directory (up to 1024 offsets,
+    ended by 0), then :func:`decode_pcx` from the first page's offset to
+    the end of the file (PIL looks for an 8-bit page's palette at the end
+    of the file). Raises ValueError on a file without pages or a
+    directory cut short, else as :func:`decode_pcx` does."""
+    if not is_dcx(blob):
+        raise ValueError(f"{name} is not a DCX file")
+    count = min(1024, (len(blob) - 4) // 4)
+    offsets = struct.unpack_from(f"<{count}I", blob, 4)
+    if 0 not in offsets and count < 1024:
+        raise ValueError(f"{name}: truncated DCX page directory")
+    if not offsets or offsets[0] == 0:
+        raise ValueError(f"{name}: DCX file without pages")
+    return decode_pcx(blob[offsets[0]:], name)
 
 
 def _pcx_rows(blob, pos, size, height, name) -> np.ndarray:

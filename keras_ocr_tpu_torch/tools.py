@@ -19,7 +19,10 @@ arithmetic-coded sequential or progressive and lossless) are decoded by
 by :func:`decode_gif`, TIFF, BMP, PNM, TGA, PCX, ICO and CUR files by
 :mod:`.codecs` (:func:`decode_tiff`, :func:`decode_bmp`,
 :func:`decode_pnm`, :func:`decode_tga`, :func:`decode_pcx`,
-:func:`decode_ico`) and WebP files by :func:`.webp.decode_webp`. The
+:func:`decode_ico`; DIB and DCX too), WebP files by
+:func:`.webp.decode_webp`, JPEG 2000 files by :mod:`.jpeg2000`, and PSD,
+QOI, SGI, Sun raster, ICNS, IM, MSP, XBM and XPM files by
+:mod:`.rasters`. The
 download helpers (``sha256sum``, ``md5sum``, ``get_default_cache_dir``,
 ``download_and_verify``, ``safe_extract_zip``, ``download_and_extract``)
 serve the weight registry (:mod:`.weights`).
@@ -41,10 +44,10 @@ import zlib
 
 import numpy as np
 
-from .codecs import (PNM_PREFIXES, TIFF_SIGNATURES, cmyk_to_rgb, decode_bmp,  # noqa: F401
-                     decode_ico, decode_pcx, decode_pnm, decode_tga, decode_tiff, is_ico, is_pcx,
-                     is_tga)
-from . import jpeg_modes
+from .codecs import (CUR_SIGNATURE, PNM_PREFIXES, TIFF_SIGNATURES, cmyk_to_rgb,  # noqa: F401
+                     decode_bmp, decode_dcx, decode_dib, decode_ico, decode_pcx, decode_pnm,
+                     decode_tga, decode_tiff, is_dcx, is_dib, is_ico, is_pcx, is_tga)
+from . import jpeg_modes, rasters
 from .jpeg2000 import decode_jpeg2000, is_jpeg2000
 from .webp import decode_webp
 
@@ -1531,35 +1534,48 @@ def _encode_jpeg(image: np.ndarray) -> bytes:
     return b"".join(out)
 
 
+# Every format ``read`` takes, in the order of PIL's ``Image.ID`` once
+# ``Image.init()`` has run: where two formats would take the same bytes,
+# the first wins, as it does in ``Image.open``. IM has no magic bytes (PIL
+# tries its opener on every file that reaches it) and TGA has none either.
+_FORMATS = (
+    ("BMP", lambda b: b[:2] == b"BM", decode_bmp),
+    ("DIB", is_dib, decode_dib),
+    ("CUR", lambda b: b[:4] == CUR_SIGNATURE and is_ico(b), decode_ico),
+    ("PCX", is_pcx, decode_pcx),
+    ("DCX", is_dcx, decode_dcx),
+    ("GIF", lambda b: b[:6] in (b"GIF87a", b"GIF89a"), decode_gif),
+    ("PNG", lambda b: b[:8] == _PNG_SIGNATURE, decode_png),
+    ("JPEG 2000", is_jpeg2000, decode_jpeg2000),
+    ("ICNS", rasters.is_icns, rasters.decode_icns),
+    ("ICO", is_ico, decode_ico),
+    ("IM", rasters.is_im, rasters.decode_im),
+    ("JPEG", lambda b: b[:3] == _JPEG_SIGNATURE, decode_jpeg),
+    ("TIFF", lambda b: b[:4] in TIFF_SIGNATURES, decode_tiff),
+    ("MSP", rasters.is_msp, rasters.decode_msp),
+    ("PNM (P1-P6)", lambda b: b[:2] in PNM_PREFIXES, decode_pnm),
+    ("PSD", rasters.is_psd, rasters.decode_psd),
+    ("QOI", rasters.is_qoi, rasters.decode_qoi),
+    ("SGI", rasters.is_sgi, rasters.decode_sgi),
+    ("Sun raster", rasters.is_sun, rasters.decode_sun),
+    ("TGA", is_tga, decode_tga),
+    ("WebP", lambda b: b[:4] == b"RIFF" and b[8:12] == b"WEBP", decode_webp),
+    ("XBM", rasters.is_xbm, rasters.decode_xbm),
+    ("XPM", rasters.is_xpm, rasters.decode_xpm),
+)
+
+
 def _decode(blob: bytes, name: str) -> np.ndarray:
-    """A PNG, JPEG, GIF, TIFF, BMP, PNM, WebP, JPEG 2000, ICO, CUR, PCX or
-    TGA file's bytes as (H, W, 3) uint8 RGB, by its magic bytes; TGA has
-    none, so it comes last, by the header checks PIL makes (PIL, too, tries
-    it after every format with magic bytes that the port reads)."""
-    if blob[:8] == _PNG_SIGNATURE:
-        return decode_png(blob, name)
-    if blob[:3] == _JPEG_SIGNATURE:
-        return decode_jpeg(blob, name)
-    if blob[:6] in (b"GIF87a", b"GIF89a"):
-        return decode_gif(blob, name)
-    if blob[:4] in TIFF_SIGNATURES:
-        return decode_tiff(blob, name)
-    if blob[:2] == b"BM":
-        return decode_bmp(blob, name)
-    if blob[:2] in PNM_PREFIXES:
-        return decode_pnm(blob, name)
-    if blob[:4] == b"RIFF" and blob[8:12] == b"WEBP":
-        return decode_webp(blob, name)
-    if is_jpeg2000(blob):
-        return decode_jpeg2000(blob, name)
-    if is_ico(blob):
-        return decode_ico(blob, name)
-    if is_pcx(blob):
-        return decode_pcx(blob, name)
-    if is_tga(blob):
-        return decode_tga(blob, name)
-    raise ValueError(f"{name} is neither a PNG, JPEG, GIF, TIFF, BMP, PNM (P1-P6), WebP, "
-                     f"JPEG 2000, ICO, CUR, PCX nor TGA file")
+    """A file's bytes as (H, W, 3) uint8 RGB, by the first format of
+    ``_FORMATS`` (PIL's order) that takes them: BMP, DIB, CUR, PCX, DCX,
+    GIF, PNG, JPEG 2000, ICNS, ICO, IM, JPEG, TIFF, MSP, PNM, PSD, QOI,
+    SGI, Sun raster, TGA, WebP, XBM or XPM. TGA and IM have no magic
+    bytes: they take a file by the header checks PIL makes."""
+    for _, accepts, decoder in _FORMATS:
+        if accepts(blob):
+            return decoder(blob, name)
+    raise ValueError(f"{name} is none of the formats tools.read decodes: "
+                     + ", ".join(kind for kind, _, _ in _FORMATS))
 
 
 def read(filepath_or_buffer: typing.Union[str, typing.BinaryIO, np.ndarray]) -> np.ndarray:
@@ -1570,11 +1586,14 @@ def read(filepath_or_buffer: typing.Union[str, typing.BinaryIO, np.ndarray]) -> 
     arithmetic-coded sequential or progressive, lossless; sampling factors
     1-4; grey, RGB, CMYK or YCCK; :func:`decode_jpeg`), GIF (the first
     frame), TIFF (the first image; CCITT Group 3 and 4, LZW, Deflate,
-    PackBits, JPEG or none), BMP, PNM (P1-P6), WebP (lossless, lossy, with
-    alpha or metadata; the first frame of an animation; :mod:`.webp`),
-    JPEG 2000 (JP2 / JPX files and raw codestreams; :mod:`.jpeg2000`),
-    TGA, PCX, ICO and CUR (:mod:`.codecs`). Other formats, and the kinds of
-    these that PIL does not read either, raise ``ValueError`` or
+    PackBits, JPEG or none), BMP and DIB, PNM (P1-P6), WebP (lossless,
+    lossy, with alpha or metadata; the first frame of an animation;
+    :mod:`.webp`), JPEG 2000 (JP2 / JPX files and raw codestreams;
+    :mod:`.jpeg2000`), TGA, PCX, DCX (the first page), ICO and CUR
+    (:mod:`.codecs`), PSD (the composite image), QOI, SGI, Sun raster,
+    ICNS, IM, MSP, XBM and XPM (:mod:`.rasters`). The format is found as
+    PIL finds it (``_FORMATS``). Other formats, and the kinds of these that
+    PIL does not read either, raise ``ValueError`` or
     ``NotImplementedError``."""
     if isinstance(filepath_or_buffer, np.ndarray):
         return filepath_or_buffer

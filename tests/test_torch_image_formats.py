@@ -45,6 +45,7 @@ from make_image_fixtures import (adobe_transform, dib_entry, fixture_files,  # n
                                  rle4_rows, rle8_rows, scene, write_bmp, write_ico, write_pcx,
                                  write_pnm, write_tga, write_tiff)
 from make_jpeg_fixtures import JFIF, lossless_jpeg  # noqa: E402
+from make_raster_fixtures import write_dcx  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -540,8 +541,50 @@ def _ico_cases():
     return cases
 
 
+def _dib_cases():
+    """BMPs without their file header, as PIL's ``DibImageFile`` reads
+    them (the data right after the header, masks and palette)."""
+    cases = {}
+    image = Image.fromarray(RGB)
+    for mode in ("1", "L", "P", "RGB", "RGBA"):
+        cases[f"dib_pil_{mode}"] = lambda m=mode: _pil(image.convert(m), "DIB")
+    index = {1: (GREY > 128).astype(np.int64), 4: GREY // 16, 8: GREY.astype(np.int64)}
+    for bits in (1, 4, 8):
+        for header in (12, 40, 124):
+            cases[f"dib_{bits}bit_h{header}"] = lambda b=bits, h=header: write_bmp(
+                index[b], b, header=h, palette=PALETTE[: 1 << b])[14:]
+    for bits in (16, 24, 32):
+        cases[f"dib_{bits}bit_topdown"] = lambda b=bits: write_bmp(RGB, b, top_down=True)[14:]
+    cases["dib_bitfields_565_h40"] = lambda: write_bmp(RGB, 16, compression=3,
+                                                       masks=(0xF800, 0x7E0, 0x1F))[14:]
+    cases["dib_rle8"] = lambda: write_bmp(GREY, 8, compression=1, palette=PALETTE,
+                                          data=rle8_rows(GREY))[14:]
+    smooth = (GREY // 40).astype(np.uint8)
+    cases["dib_rle4"] = lambda: write_bmp(smooth, 4, compression=2, palette=PALETTE[:16],
+                                          data=rle4_rows(smooth))[14:]
+    cases["dib_grey_palette"] = lambda: write_bmp(GREY, 8, palette=np.repeat(
+        np.arange(256)[:, None], 3, 1))[14:]
+    return cases
+
+
+def _dcx_cases():
+    """DCX files: PIL shows the first page; an 8-bit page's palette is the
+    last 769 bytes of the whole file."""
+    pages = {"bilevel": write_pcx((GREY > 99).astype(np.int64), 1, 1),
+             "planes4": write_pcx(GREY // 16, 1, 4, palette=PALETTE[:16]),
+             "grey": write_pcx(GREY, 8, 1), "palette": write_pcx(GREY, 8, 1, palette=PALETTE),
+             "rgb": write_pcx(RGB, 8, 3)}
+    cases = {f"dcx_{kind}": lambda p=page: write_dcx([p]) for kind, page in pages.items()}
+    cases["dcx_rgb_then_palette"] = lambda: write_dcx([pages["rgb"], pages["palette"]])
+    cases["dcx_palette_then_grey"] = lambda: write_dcx([pages["palette"], pages["grey"]])
+    cases["dcx_grey_then_palette"] = lambda: write_dcx([pages["grey"], pages["palette"]])
+    cases["dcx_pil_pcx_page"] = lambda: write_dcx([_pil(Image.fromarray(RGB).convert("P"),
+                                                         "PCX")])
+    return cases
+
+
 CASES = {**_ccitt_cases(), **_tiff_cases(), **_bmp_cases(), **_pnm_cases(), **_jpeg_cases(),
-         **_tga_cases(), **_pcx_cases(), **_ico_cases()}
+         **_tga_cases(), **_pcx_cases(), **_ico_cases(), **_dib_cases(), **_dcx_cases()}
 
 
 # Layouts PIL refuses (no mode for 16-bit WhiteIsZero with FillOrder 2,
@@ -747,9 +790,25 @@ def test_short_icon_entries_raise_value_error():
             tools.read(io.BytesIO(blob))
 
 
+@pytest.mark.parametrize("pages", ["none", "not_pcx", "directory_cut"])
+def test_dcx_without_a_pcx_page_is_a_value_error(pages):
+    """A DCX file with no page, whose first page is not a PCX file, or whose
+    directory runs off the file's end: PIL fails, the port raises
+    ``ValueError``."""
+    page = write_pcx(GREY, 8, 1)
+    blob = {"none": write_dcx([], offsets=[]), "not_pcx": write_dcx([b"\x0b" + page[1:]]),
+            "directory_cut": write_dcx([page])[:8]}[pages]
+    with pytest.raises(Exception):
+        _pil_rgb(blob)
+    with pytest.raises(ValueError):
+        tools.read(io.BytesIO(blob))
+
+
 def test_unknown_format_is_a_value_error():
-    with pytest.raises(ValueError, match=r"neither a PNG, JPEG, GIF, TIFF, BMP, PNM \(P1-P6\), "
-                                         r"WebP, JPEG 2000, ICO, CUR, PCX nor TGA"):
+    with pytest.raises(ValueError, match=r"none of the formats tools.read decodes: BMP, DIB, "
+                                         r"CUR, PCX, DCX, GIF, PNG, JPEG 2000, ICNS, ICO, IM, "
+                                         r"JPEG, TIFF, MSP, PNM \(P1-P6\), PSD, QOI, SGI, Sun "
+                                         r"raster, TGA, WebP, XBM, XPM"):
         tools.read(io.BytesIO(b"P7\nWIDTH 1\n"))
 
 
