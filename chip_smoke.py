@@ -369,6 +369,17 @@ Phases, each printing one line; any failure exits non-zero:
    reached; the photo's PSD read by the full-width folded pipeline by path
    and as its decoded array in turns (median of 3 each, words and boxes
    equal).
+27. avif: every fixture of ``tests/fixtures/avif`` (lossless AV1 from
+   PIL's writer at every subsampling, range, aom speed and container kind
+   the script writes, the 12 golden scenes at 4:2:0 in 2x2 tiles, scene 3
+   at 4:4:4) read with ``tools.read`` by path must decode to the sha256 of
+   PIL's decode, and the files the port refuses must raise
+   ``NotImplementedError`` naming the kind; host decode ms and MB/s of RGB
+   out (median of 3) of scene 3 at 4:2:0 and 4:4:4; the golden folded
+   pipeline reads the 12 AVIF scenes by path: words and boxes equal to
+   those of their decoded arrays, ``pass_fraction`` reached; scene 3's
+   AVIF read by the full-width folded pipeline by path and as its decoded
+   array in turns (median of 3 each, words and boxes equal).
 
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
@@ -379,10 +390,10 @@ pipeline of 18, the synthetic-trained folded pipeline of 19, the
 distributed checkpoint's pipeline of 21, the folded pipelines of 22 and
 the golden folded pipeline's reads of the WebP scenes by path in 23,
 of the arithmetic-coded JPEG scenes by path in 24, of the JP2 scenes
-and photo by path in 25 and of the PSD and QOI scenes and the PSD photo
-by path in 26 count their kernel launches from zero; the kernel
-line's launches are those of phases 5-7, 13, 14, 16, 17, 18, 19, 21, 22,
-23, 24, 25 and 26 (their sweep calls), and for the bf16 mode's two entries those of 15, 17 and 18;
+and photo by path in 25, of the PSD and QOI scenes and the PSD photo
+by path in 26 and of the AVIF scenes by path in 27 count their kernel
+launches from zero; the kernel line's launches are those of phases 5-7,
+13, 14, 16, 17, 18, 19, 21, 22, 23, 24, 25, 26 and 27 (their sweep calls), and for the bf16 mode's two entries those of 15, 17 and 18;
 the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
@@ -1821,6 +1832,30 @@ def median_seconds(fn, runs=3):
         result = fn()
         times.append(time.perf_counter() - start)
     return statistics.median(times), result
+
+
+def by_path_and_array(pipeline, path, image, runs=3):
+    """``pipeline.recognize`` of one file by path and as its decoded array,
+    in turns, each call between ``torch.cuda.synchronize``: (median s by
+    path, median s as the array, the last result by path, the last as the
+    array)."""
+    calls = {"path": [], "array": []}
+    results = {}
+    for _ in range(runs):
+        for key, source in (("path", path), ("array", image)):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            results[key] = pipeline.recognize([source])
+            torch.cuda.synchronize()
+            calls[key].append(time.perf_counter() - start)
+    return (statistics.median(calls["path"]), statistics.median(calls["array"]),
+            results["path"], results["array"])
+
+
+def same_words_and_boxes(a, b) -> bool:
+    """Two ``recognize`` results of one image: the same words and boxes."""
+    return [w for w, _ in a] == [w for w, _ in b] and all(
+        np.array_equal(x, y) for (_, x), (_, y) in zip(a, b))
 
 
 def same_tree(what, got, want, prefix=""):
@@ -4187,26 +4222,15 @@ def jpeg2000_phase(card, folded_pipeline, golden_folded, pass_fraction, wrappers
     photo_path = os.path.join(JP2_FIXTURES, "photo_640x480.jp2")
     photo = tools.read(photo_path)
     folded_pipeline.recognize([photo])
-    calls = {photo_path: [], "array": []}
-    results = {}
-    for _ in range(JP2_TIMED):
-        for key, source in ((photo_path, photo_path), ("array", photo)):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            results[key] = folded_pipeline.recognize([source])
-            torch.cuda.synchronize()
-            calls[key].append(time.perf_counter() - start)
-    path_s, array_s = (statistics.median(calls[key]) for key in (photo_path, "array"))
-    photo_by_path, photo_by_array = results[photo_path], results["array"]
+    path_s, array_s, photo_by_path, photo_by_array = by_path_and_array(
+        folded_pipeline, photo_path, photo, runs=JP2_TIMED)
     launches = {name: w.launches for name, w in wrappers.items()}
     by_array = golden_folded.recognize(scenes)
     for index, (path_result, array_result) in enumerate(zip(by_path, by_array)):
-        if [w for w, _ in path_result] != [w for w, _ in array_result] or not all(
-                np.array_equal(a, b) for (_, a), (_, b) in zip(path_result, array_result)):
+        if not same_words_and_boxes(path_result, array_result):
             raise AssertionError(f"scene {index} read by path gave other words or boxes than "
                                  f"its decoded array")
-    if [w for w, _ in photo_by_path[0]] != [w for w, _ in photo_by_array[0]] or not all(
-            np.array_equal(a, b) for (_, a), (_, b) in zip(photo_by_path[0], photo_by_array[0])):
+    if not same_words_and_boxes(photo_by_path[0], photo_by_array[0]):
         raise AssertionError("the JP2 photo read by path gave other words or boxes than its "
                              "decoded array")
     words = [[w for w, _ in result] for result in by_path]
@@ -4308,27 +4332,14 @@ def rasters_phase(card, folded_pipeline, golden_folded, pass_fraction, wrappers)
         wrapper.launches = 0
     by_path = {kind: golden_folded.recognize(ps) for kind, ps in scene_paths.items()}
     folded_pipeline.recognize([photo])
-    calls = {"path": [], "array": []}
-    results = {}
-    for _ in range(RASTER_TIMED):
-        for key, source in (("path", photo_path), ("array", photo)):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            results[key] = folded_pipeline.recognize([source])
-            torch.cuda.synchronize()
-            calls[key].append(time.perf_counter() - start)
+    path_s, array_s, photo_by_path, photo_by_array = by_path_and_array(
+        folded_pipeline, photo_path, photo, runs=RASTER_TIMED)
     launches = {name: w.launches for name, w in wrappers.items()}
-    path_s, array_s = (statistics.median(calls[key]) for key in ("path", "array"))
-
-    def same(a, b):
-        return [w for w, _ in a] == [w for w, _ in b] and all(
-            np.array_equal(x, y) for (_, x), (_, y) in zip(a, b))
-
     fractions = {}
     for kind, ps in scene_paths.items():
         by_array = golden_folded.recognize([tools.read(p) for p in ps])
         for index, (path_result, array_result) in enumerate(zip(by_path[kind], by_array)):
-            if not same(path_result, array_result):
+            if not same_words_and_boxes(path_result, array_result):
                 raise AssertionError(f"scene {index} as {kind} read by path gave other words "
                                      "or boxes than its decoded array")
         words = [[w for w, _ in result] for result in by_path[kind]]
@@ -4338,7 +4349,7 @@ def rasters_phase(card, folded_pipeline, golden_folded, pass_fraction, wrappers)
         if fractions[kind] < pass_fraction:
             raise AssertionError(f"golden scenes as {kind}: fraction {fractions[kind]} (pass "
                                  f">= {pass_fraction})")
-    if not same(results["path"][0], results["array"][0]):
+    if not same_words_and_boxes(photo_by_path[0], photo_by_array[0]):
         raise AssertionError("the 640x480 PSD read by path gave other words or boxes than its "
                              "decoded array")
     if min(launches.values()) <= 0:
@@ -4349,10 +4360,107 @@ def rasters_phase(card, folded_pipeline, golden_folded, pass_fraction, wrappers)
           + ", ".join(f"{fractions[kind]:.4f} as {kind}" for kind in kinds)
           + f" (pass >= {pass_fraction}); the full-width folded pipeline's recognize of the "
           f"640x480 PackBits PSD by path equals that of its decoded array "
-          f"({len(results['path'][0])} words; random weights): by path {path_s * 1e3:.1f} ms, "
+          f"({len(photo_by_path[0])} words; random weights): by path {path_s * 1e3:.1f} ms, "
           f"as its array {array_s * 1e3:.1f} ms (medians of {RASTER_TIMED}, in turns), so the "
           f"read and decode take {(path_s - array_s) / path_s:.1%} of the call by path; "
           f"launches {launches}; phase 26 in {time.perf_counter() - phase_start:.1f} s")
+    return launches
+
+
+AVIF_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "avif")
+AVIF_TIMED = 3
+
+
+def avif_phase(card, folded_pipeline, golden_folded, pass_fraction, wrappers):
+    """Phase 27: every fixture of ``tests/fixtures/avif`` decoded by path to
+    the sha256 of PIL's decode, and each file the port refuses raising
+    ``NotImplementedError`` with the kind ``hashes.json`` names; host
+    decode ms and MB/s of RGB out (median of 3) of scene 3 at 4:2:0 and
+    4:4:4; the golden folded pipeline's ``recognize`` of the 12 AVIF
+    scenes by path, words and boxes equal to those of their decoded arrays
+    and ``pass_fraction`` reached; scene 3's AVIF read by the full-width
+    folded pipeline by path and as its decoded array in turns (median of 3
+    each, words and boxes equal), the difference the decode's share of the
+    call by path. Returns the launches of the kernels in the phase's
+    pipeline runs, counted from zero."""
+    from keras_ocr_tpu_torch import avif, tools
+    from keras_ocr_tpu_torch.utils import golden
+
+    phase_start = time.perf_counter()
+    with open(os.path.join(AVIF_FIXTURES, "hashes.json"), encoding="utf8") as f:
+        hashes = json.load(f)
+    decoded, refused = {}, 0
+    for name, expected in sorted(hashes.items()):
+        path = os.path.join(AVIF_FIXTURES, name)
+        if expected.get("refused"):
+            try:
+                tools.read(path)
+            except NotImplementedError as exc:
+                if expected["refused"] not in str(exc):
+                    raise AssertionError(f"{name}: refused as {exc!r}, not as "
+                                         f"{expected['refused']}") from exc
+                refused += 1
+                continue
+            raise AssertionError(f"{name}: read, where the port refuses {expected['refused']}")
+        image = tools.read(path)
+        digest = hashlib.sha256(image.tobytes()).hexdigest()
+        if list(image.shape) != expected["shape"] or digest != expected["decoded_sha256"]:
+            raise AssertionError(f"{name}: decoded {image.shape} sha256 {digest}, PIL's "
+                                 f"{expected['shape']} {expected['decoded_sha256']}")
+        decoded[name] = image
+    timed = {}
+    for label, name in (("scene 3 at 4:2:0", "scene_03.avif"),
+                        ("scene 3 at 4:4:4", "scene_03_444.avif")):
+        with open(os.path.join(AVIF_FIXTURES, name), "rb") as f:
+            blob = f.read()
+        seconds, out = median_seconds(lambda b=blob: avif.decode_avif(b), runs=AVIF_TIMED)
+        timed[label] = (seconds, out.nbytes, len(blob))
+    print(f"avif ({card}): {len(decoded)} fixtures (lossless AV1: every subsampling and "
+          f"range, aom speeds 0-10, palette, CFL, filter intra, 128x128 superblocks, tiles, "
+          f"alpha, irot / imir, avis, five nclx matrices, iloc 0-2) decoded by path to the "
+          f"sha256 of PIL's decode, {refused} refused by kind; host decode (median of "
+          f"{AVIF_TIMED}, host CPU {host_cpu()}): " + "; ".join(
+              f"{label} ({size} bytes) {seconds * 1e3:.1f} ms = {nbytes / 1e6 / seconds:.3f} "
+              f"MB/s of RGB out" for label, (seconds, nbytes, size) in timed.items()))
+
+    with open(os.path.join(ARTIFACT, "expected.json"), encoding="utf8") as f:
+        expected = json.load(f)["scenes"]
+    names = [entry["image"].replace(".png", ".avif") for entry in expected]
+    paths = [os.path.join(AVIF_FIXTURES, name) for name in names]
+    scene_path = os.path.join(AVIF_FIXTURES, "scene_03.avif")
+    scene = decoded["scene_03.avif"]
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    by_path = golden_folded.recognize(paths)
+    folded_pipeline.recognize([scene])
+    path_s, array_s, scene_by_path, scene_by_array = by_path_and_array(
+        folded_pipeline, scene_path, scene, runs=AVIF_TIMED)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    by_array = golden_folded.recognize([decoded[name] for name in names])
+    for index, (path_result, array_result) in enumerate(zip(by_path, by_array)):
+        if not same_words_and_boxes(path_result, array_result):
+            raise AssertionError(f"AVIF scene {index} read by path gave other words or boxes "
+                                 f"than its decoded array")
+    if not same_words_and_boxes(scene_by_path[0], scene_by_array[0]):
+        raise AssertionError("AVIF scene 3 read by path through the full-width pipeline gave "
+                             "other words or boxes than its decoded array")
+    words = [[w for w, _ in result] for result in by_path]
+    hits = sum(golden._word_match_fraction(entry["words"], found) * len(entry["words"])
+               for entry, found in zip(expected, words))
+    fraction = hits / max(sum(len(entry["words"]) for entry in expected), 1)
+    if fraction < pass_fraction:
+        raise AssertionError(f"golden scenes as lossless AVIF: fraction {fraction} "
+                             f"(pass >= {pass_fraction})")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the folded path was never launched: {launches}")
+    print(f"avif, pipelines ({card}): the golden folded pipeline read the 12 lossless AVIF "
+          f"scenes by path with the words and boxes of their decoded arrays, fraction "
+          f"{fraction:.4f} (pass >= {pass_fraction}); the full-width folded pipeline's "
+          f"recognize of scene 3's AVIF by path equals that of its decoded array "
+          f"({len(scene_by_path[0])} words; random weights): by path {path_s * 1e3:.1f} ms, "
+          f"as its array {array_s * 1e3:.1f} ms (medians of {AVIF_TIMED}, in turns), so the "
+          f"read and decode take {(path_s - array_s) / path_s:.1%} of the call by path; "
+          f"launches {launches}; phase 27 in {time.perf_counter() - phase_start:.1f} s")
     return launches
 
 
@@ -4831,6 +4939,11 @@ def main() -> int:
                                      all_wrappers).items():
         launches[name] += count
     lap("26")
+
+    for name, count in avif_phase(card, folded_pipeline, golden_folded, pass_fraction,
+                                  all_wrappers).items():
+        launches[name] += count
+    lap("27")
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",

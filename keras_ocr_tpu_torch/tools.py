@@ -47,7 +47,7 @@ import numpy as np
 from .codecs import (CUR_SIGNATURE, PNM_PREFIXES, TIFF_SIGNATURES, cmyk_to_rgb,  # noqa: F401
                      decode_bmp, decode_dcx, decode_dib, decode_ico, decode_pcx, decode_pnm,
                      decode_tga, decode_tiff, is_dcx, is_dib, is_ico, is_pcx, is_tga)
-from . import jpeg_modes, rasters
+from . import avif, jpeg_modes, rasters
 from .jpeg2000 import decode_jpeg2000, is_jpeg2000
 from .webp import decode_webp
 
@@ -1539,6 +1539,7 @@ def _encode_jpeg(image: np.ndarray) -> bytes:
 # the first wins, as it does in ``Image.open``. IM has no magic bytes (PIL
 # tries its opener on every file that reaches it) and TGA has none either.
 _FORMATS = (
+    ("AVIF", avif.is_avif, avif.decode_avif),
     ("BMP", lambda b: b[:2] == b"BM", decode_bmp),
     ("DIB", is_dib, decode_dib),
     ("CUR", lambda b: b[:4] == CUR_SIGNATURE and is_ico(b), decode_ico),
@@ -1567,7 +1568,7 @@ _FORMATS = (
 
 def _decode(blob: bytes, name: str) -> np.ndarray:
     """A file's bytes as (H, W, 3) uint8 RGB, by the first format of
-    ``_FORMATS`` (PIL's order) that takes them: BMP, DIB, CUR, PCX, DCX,
+    ``_FORMATS`` (PIL's order) that takes them: AVIF, BMP, DIB, CUR, PCX, DCX,
     GIF, PNG, JPEG 2000, ICNS, ICO, IM, JPEG, TIFF, MSP, PNM, PSD, QOI,
     SGI, Sun raster, TGA, WebP, XBM or XPM. TGA and IM have no magic
     bytes: they take a file by the header checks PIL makes."""
@@ -1591,7 +1592,8 @@ def read(filepath_or_buffer: typing.Union[str, typing.BinaryIO, np.ndarray]) -> 
     :mod:`.webp`), JPEG 2000 (JP2 / JPX files and raw codestreams;
     :mod:`.jpeg2000`), TGA, PCX, DCX (the first page), ICO and CUR
     (:mod:`.codecs`), PSD (the composite image), QOI, SGI, Sun raster,
-    ICNS, IM, MSP, XBM and XPM (:mod:`.rasters`). The format is found as
+    ICNS, IM, MSP, XBM and XPM (:mod:`.rasters`), AVIF (lossless AV1, the
+    first frame of a sequence; :mod:`.avif`). The format is found as
     PIL finds it (``_FORMATS``). Other formats, and the kinds of these that
     PIL does not read either, raise ``ValueError`` or
     ``NotImplementedError``."""

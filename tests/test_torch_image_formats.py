@@ -805,8 +805,8 @@ def test_dcx_without_a_pcx_page_is_a_value_error(pages):
 
 
 def test_unknown_format_is_a_value_error():
-    with pytest.raises(ValueError, match=r"none of the formats tools.read decodes: BMP, DIB, "
-                                         r"CUR, PCX, DCX, GIF, PNG, JPEG 2000, ICNS, ICO, IM, "
+    with pytest.raises(ValueError, match=r"none of the formats tools.read decodes: AVIF, BMP, "
+                                         r"DIB, CUR, PCX, DCX, GIF, PNG, JPEG 2000, ICNS, ICO, IM, "
                                          r"JPEG, TIFF, MSP, PNM \(P1-P6\), PSD, QOI, SGI, Sun "
                                          r"raster, TGA, WebP, XBM, XPM"):
         tools.read(io.BytesIO(b"P7\nWIDTH 1\n"))
