@@ -369,7 +369,7 @@ Phases, each printing one line; any failure exits non-zero:
    reached; the photo's PSD read by the full-width folded pipeline by path
    and as its decoded array in turns (median of 3 each, words and boxes
    equal).
-27. avif: every fixture of ``tests/fixtures/avif`` (lossless AV1 from
+27. avif: every lossless fixture of ``tests/fixtures/avif`` (lossless AV1 from
    PIL's writer at every subsampling, range, aom speed and container kind
    the script writes, the 12 golden scenes at 4:2:0 in 2x2 tiles, scene 3
    at 4:4:4) read with ``tools.read`` by path must decode to the sha256 of
@@ -380,6 +380,21 @@ Phases, each printing one line; any failure exits non-zero:
    those of their decoded arrays, ``pass_fraction`` reached; scene 3's
    AVIF read by the full-width folded pipeline by path and as its decoded
    array in turns (median of 3 each, words and boxes equal).
+28. lossy avif: every lossy fixture of ``tests/fixtures/avif`` (PIL's
+   writer below ``quality=100``: qualities 97 to 5, every subsampling, aom
+   speeds 2-10, every intra transform size, deblocking, CDEF, palette,
+   tiles, 128x128 superblocks, alpha) read with ``tools.read`` by path
+   must decode to the sha256 of PIL's decode, and the lossy files the port
+   refuses (loop restoration in use, quantiser matrices) must raise
+   ``NotImplementedError`` naming the kind; host decode ms and MB/s of RGB
+   out (median of 3) of scene 3 at PIL's default quality at 4:2:0 and
+   4:4:4; the golden folded pipeline reads the 12 golden scenes as AVIF at
+   PIL's default quality by path: words and boxes equal to those of their
+   decoded arrays, ``pass_fraction`` reached; ``tests/fixtures/test_image.jpg``
+   as a 640x480 AVIF at PIL's default quality read by the full-width
+   folded pipeline by path and as its decoded array in turns (median of 3
+   each, words and boxes equal), and the share of the call by path that
+   reading takes.
 
 Phases 4-5 (the default path), 6-7 (the folded path), 8 (the refine
 path), each run of 9, each golden artifact's run in 10, each
@@ -391,9 +406,11 @@ distributed checkpoint's pipeline of 21, the folded pipelines of 22 and
 the golden folded pipeline's reads of the WebP scenes by path in 23,
 of the arithmetic-coded JPEG scenes by path in 24, of the JP2 scenes
 and photo by path in 25, of the PSD and QOI scenes and the PSD photo
-by path in 26 and of the AVIF scenes by path in 27 count their kernel
-launches from zero; the kernel line's launches are those of phases 5-7,
-13, 14, 16, 17, 18, 19, 21, 22, 23, 24, 25, 26 and 27 (their sweep calls), and for the bf16 mode's two entries those of 15, 17 and 18;
+by path in 26, of the AVIF scenes by path in 27 and of the lossy AVIF
+scenes and photo by path in 28 count their kernel launches from zero; the
+kernel line's launches are those of phases 5-7, 13, 14, 16, 17, 18, 19,
+21, 22, 23, 24, 25, 26, 27 and 28 (their sweep calls), and for the bf16
+mode's two entries those of 15, 17 and 18;
 the kernel ops are
 ``torch.ops.keras_ocr_tpu_torch.{cc_sweeps, cc_keyed_rows_cols, conv_layer}``,
 whose CUDA kernels count. The second-to-last line is the kernel table as
@@ -4371,26 +4388,48 @@ AVIF_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "avif")
 AVIF_TIMED = 3
 
 
-def avif_phase(card, folded_pipeline, golden_folded, pass_fraction, wrappers):
-    """Phase 27: every fixture of ``tests/fixtures/avif`` decoded by path to
-    the sha256 of PIL's decode, and each file the port refuses raising
-    ``NotImplementedError`` with the kind ``hashes.json`` names; host
-    decode ms and MB/s of RGB out (median of 3) of scene 3 at 4:2:0 and
-    4:4:4; the golden folded pipeline's ``recognize`` of the 12 AVIF
-    scenes by path, words and boxes equal to those of their decoded arrays
-    and ``pass_fraction`` reached; scene 3's AVIF read by the full-width
-    folded pipeline by path and as its decoded array in turns (median of 3
-    each, words and boxes equal), the difference the decode's share of the
-    call by path. Returns the launches of the kernels in the phase's
-    pipeline runs, counted from zero."""
+def avif_phase(card, folded_pipeline, golden_folded, pass_fraction, wrappers, lossy=False):
+    """Phase 27, or 28 with ``lossy``: every lossless (lossy) fixture of
+    ``tests/fixtures/avif`` decoded by path to the sha256 of PIL's decode,
+    and each of them the port refuses raising ``NotImplementedError`` with
+    the kind ``hashes.json`` names; host decode ms and MB/s of RGB out
+    (median of 3) of scene 3 at 4:2:0 and 4:4:4 (lossy: at PIL's default
+    quality, and the 640x480 photo); the golden folded pipeline's
+    ``recognize`` of the 12 golden scenes as AVIF (lossless: at 4:2:0 in
+    2x2 tiles; lossy: at PIL's default quality) by path, words and boxes
+    equal to those of their decoded arrays and ``pass_fraction`` reached;
+    one image's AVIF (scene 3; lossy: the 640x480 photo) read by the
+    full-width folded pipeline by path and as its decoded array in turns
+    (median of 3 each, words and boxes equal), the difference the read's
+    share of the call by path. Returns the launches of the kernels in the
+    phase's pipeline runs, counted from zero."""
     from keras_ocr_tpu_torch import avif, tools
     from keras_ocr_tpu_torch.utils import golden
 
+    if lossy:
+        phase, label, scene_suffix = 28, "lossy avif", "_q75.avif"
+        timed_files = (("scene 3 at 4:2:0", "scene_03_q75.avif"),
+                       ("scene 3 at 4:4:4", "lossy_scene_03_q75_444.avif"),
+                       ("photo 640x480 at 4:2:0", "photo_640x480_q75.avif"))
+        one, one_name = "the 640x480 photo", "photo_640x480_q75.avif"
+        kinds = ("PIL's writer at qualities 97 to 5, every subsampling, aom speeds 2-10, all 19 "
+                 "intra transform sizes, deblocking, CDEF, palette, tiles, 128x128 "
+                 "superblocks, alpha, the 12 golden scenes and the 640x480 photo at quality 75")
+    else:
+        phase, label, scene_suffix = 27, "avif", ".avif"
+        timed_files = (("scene 3 at 4:2:0", "scene_03.avif"),
+                       ("scene 3 at 4:4:4", "scene_03_444.avif"))
+        one, one_name = "scene 3", "scene_03.avif"
+        kinds = ("lossless AV1: every subsampling and range, aom speeds 0-10, palette, CFL, "
+                 "filter intra, 128x128 superblocks, tiles, alpha, irot / imir, avis, five "
+                 "nclx matrices, iloc 0-2")
     phase_start = time.perf_counter()
     with open(os.path.join(AVIF_FIXTURES, "hashes.json"), encoding="utf8") as f:
         hashes = json.load(f)
     decoded, refused = {}, 0
     for name, expected in sorted(hashes.items()):
+        if bool(expected.get("lossy")) != lossy:
+            continue
         path = os.path.join(AVIF_FIXTURES, name)
         if expected.get("refused"):
             try:
@@ -4408,59 +4447,58 @@ def avif_phase(card, folded_pipeline, golden_folded, pass_fraction, wrappers):
             raise AssertionError(f"{name}: decoded {image.shape} sha256 {digest}, PIL's "
                                  f"{expected['shape']} {expected['decoded_sha256']}")
         decoded[name] = image
+    decode_s = time.perf_counter() - phase_start
     timed = {}
-    for label, name in (("scene 3 at 4:2:0", "scene_03.avif"),
-                        ("scene 3 at 4:4:4", "scene_03_444.avif")):
+    for timed_label, name in timed_files:
         with open(os.path.join(AVIF_FIXTURES, name), "rb") as f:
             blob = f.read()
         seconds, out = median_seconds(lambda b=blob: avif.decode_avif(b), runs=AVIF_TIMED)
-        timed[label] = (seconds, out.nbytes, len(blob))
-    print(f"avif ({card}): {len(decoded)} fixtures (lossless AV1: every subsampling and "
-          f"range, aom speeds 0-10, palette, CFL, filter intra, 128x128 superblocks, tiles, "
-          f"alpha, irot / imir, avis, five nclx matrices, iloc 0-2) decoded by path to the "
-          f"sha256 of PIL's decode, {refused} refused by kind; host decode (median of "
-          f"{AVIF_TIMED}, host CPU {host_cpu()}): " + "; ".join(
-              f"{label} ({size} bytes) {seconds * 1e3:.1f} ms = {nbytes / 1e6 / seconds:.3f} "
-              f"MB/s of RGB out" for label, (seconds, nbytes, size) in timed.items()))
+        timed[timed_label] = (seconds, out.nbytes, len(blob))
+    print(f"{label} ({card}): {len(decoded)} fixtures ({kinds}) decoded by path to the sha256 of "
+          f"PIL's decode in {decode_s:.1f} s, {refused} refused by kind; host decode (median "
+          f"of {AVIF_TIMED}, host CPU {host_cpu()}): " + "; ".join(
+              f"{timed_label} ({size} bytes) {seconds * 1e3:.1f} ms = "
+              f"{nbytes / 1e6 / seconds:.3f} MB/s of RGB out"
+              for timed_label, (seconds, nbytes, size) in timed.items()))
 
     with open(os.path.join(ARTIFACT, "expected.json"), encoding="utf8") as f:
         expected = json.load(f)["scenes"]
-    names = [entry["image"].replace(".png", ".avif") for entry in expected]
+    names = [entry["image"].replace(".png", scene_suffix) for entry in expected]
     paths = [os.path.join(AVIF_FIXTURES, name) for name in names]
-    scene_path = os.path.join(AVIF_FIXTURES, "scene_03.avif")
-    scene = decoded["scene_03.avif"]
+    one_path = os.path.join(AVIF_FIXTURES, one_name)
+    image = decoded[one_name]
     for wrapper in wrappers.values():
         wrapper.launches = 0
     by_path = golden_folded.recognize(paths)
-    folded_pipeline.recognize([scene])
-    path_s, array_s, scene_by_path, scene_by_array = by_path_and_array(
-        folded_pipeline, scene_path, scene, runs=AVIF_TIMED)
+    folded_pipeline.recognize([image])
+    path_s, array_s, one_by_path, one_by_array = by_path_and_array(
+        folded_pipeline, one_path, image, runs=AVIF_TIMED)
     launches = {name: w.launches for name, w in wrappers.items()}
     by_array = golden_folded.recognize([decoded[name] for name in names])
     for index, (path_result, array_result) in enumerate(zip(by_path, by_array)):
         if not same_words_and_boxes(path_result, array_result):
-            raise AssertionError(f"AVIF scene {index} read by path gave other words or boxes "
+            raise AssertionError(f"{label}: scene {index} read by path gave other words or boxes "
                                  f"than its decoded array")
-    if not same_words_and_boxes(scene_by_path[0], scene_by_array[0]):
-        raise AssertionError("AVIF scene 3 read by path through the full-width pipeline gave "
-                             "other words or boxes than its decoded array")
+    if not same_words_and_boxes(one_by_path[0], one_by_array[0]):
+        raise AssertionError(f"{label}: {one} read by path through the full-width pipeline gave "
+                             f"other words or boxes than its decoded array")
     words = [[w for w, _ in result] for result in by_path]
     hits = sum(golden._word_match_fraction(entry["words"], found) * len(entry["words"])
                for entry, found in zip(expected, words))
     fraction = hits / max(sum(len(entry["words"]) for entry in expected), 1)
     if fraction < pass_fraction:
-        raise AssertionError(f"golden scenes as lossless AVIF: fraction {fraction} "
+        raise AssertionError(f"golden scenes as {label}: fraction {fraction} "
                              f"(pass >= {pass_fraction})")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the folded path was never launched: {launches}")
-    print(f"avif, pipelines ({card}): the golden folded pipeline read the 12 lossless AVIF "
-          f"scenes by path with the words and boxes of their decoded arrays, fraction "
-          f"{fraction:.4f} (pass >= {pass_fraction}); the full-width folded pipeline's "
-          f"recognize of scene 3's AVIF by path equals that of its decoded array "
-          f"({len(scene_by_path[0])} words; random weights): by path {path_s * 1e3:.1f} ms, "
-          f"as its array {array_s * 1e3:.1f} ms (medians of {AVIF_TIMED}, in turns), so the "
-          f"read and decode take {(path_s - array_s) / path_s:.1%} of the call by path; "
-          f"launches {launches}; phase 27 in {time.perf_counter() - phase_start:.1f} s")
+    print(f"{label}, pipelines ({card}): the golden folded pipeline read the 12 AVIF scenes "
+          f"({names[0]}, ...) by path with the words and boxes of their decoded arrays, "
+          f"fraction {fraction:.4f} (pass >= {pass_fraction}); the full-width folded "
+          f"pipeline's recognize of {one}'s AVIF by path equals that of its decoded array "
+          f"({len(one_by_path[0])} words; random weights): by path {path_s * 1e3:.1f} ms, as "
+          f"its array {array_s * 1e3:.1f} ms (medians of {AVIF_TIMED}, in turns), so the read "
+          f"and decode take {(path_s - array_s) / path_s:.1%} of the call by path; launches "
+          f"{launches}; phase {phase} in {time.perf_counter() - phase_start:.1f} s")
     return launches
 
 
@@ -4944,6 +4982,11 @@ def main() -> int:
                                   all_wrappers).items():
         launches[name] += count
     lap("27")
+
+    for name, count in avif_phase(card, folded_pipeline, golden_folded, pass_fraction,
+                                  all_wrappers, lossy=True).items():
+        launches[name] += count
+    lap("28")
 
     replaces = {
         "cc_sweeps": "keras_ocr_tpu/ops/cc_pallas.py:82",

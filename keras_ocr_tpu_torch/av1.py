@@ -1,22 +1,27 @@
-"""A decoder of lossless AV1 intra frames, for :mod:`.avif`.
+"""A decoder of AV1 intra frames, lossless and lossy, for :mod:`.avif`.
 
-It reads what Pillow's AVIF writer makes at ``quality=100``: libavif asks
-aom for lossless coding, so the frame has ``base_q_idx`` 0 and is coded
-lossless. Every transform block is then 4x4 with the Walsh-Hadamard
-transform, and deblocking, CDEF and loop restoration are off. The decoder
-covers the OBU stream (temporal delimiter, sequence header, frame header,
-tile groups), the symbol decoder with CDF adaptation, partitions from
-128x128 to 4x4, intra mode info (y / uv modes, angle deltas, CFL alphas,
-palette with its colour cache and colour-index map, filter intra, segment
-ids), the 4x4 coefficient syntax with its contexts, the inverse WHT, and
-every intra predictor of the specification: DC, V, H, the six directional
-ones with edge filter and upsampling, the three smooth ones, Paeth, CFL,
-filter intra and palette, for 4:4:4, 4:2:2, 4:2:0 and 4:0:0.
+It reads what Pillow's AVIF writer makes: at ``quality=100`` libavif asks
+aom for lossless coding (``base_q_idx`` 0, every transform block 4x4 with
+the Walsh-Hadamard transform, no loop filter); below that the frame is
+lossy. The decoder covers the OBU stream (temporal delimiter, sequence
+header, frame header, tile groups), the symbol decoder with CDF
+adaptation, partitions from 128x128 to 4x4, intra mode info (y / uv
+modes, angle deltas, CFL alphas, palette with its colour cache and
+colour-index map, filter intra, segment ids, CDEF indices), the transform
+size (``tx_depth``) and intra transform type, the coefficients of every
+transform size from 4x4 to 64x64 at the four q contexts, and every intra
+predictor of the specification at every transform size: DC, V, H, the six
+directional ones with edge filter and upsampling, the three smooth ones,
+Paeth, CFL, filter intra and palette, for 4:4:4, 4:2:2, 4:2:0 and 4:0:0.
+Dequantisation and the inverse DCT, ADST and identity transforms are
+:mod:`.av1_transforms`; deblocking and CDEF, after the last tile, are
+:mod:`.av1_filters`.
 
-What it refuses raises ``NotImplementedError`` naming it: lossy frames
-(``base_q_idx > 0`` or a segment that is not lossless), ``allow_intrabc``,
-bit depths above 8, film grain to apply, superres, and frames other than
-intra frames. A stream that breaks the syntax raises ``ValueError``.
+What it refuses raises ``NotImplementedError`` naming it: loop
+restoration used by a plane, quantiser matrices, ``delta_q_present``
+(delta q and delta lf), ``allow_intrabc``, bit depths above 8, film grain
+to apply, superres, and frames other than intra frames. A stream that
+breaks the syntax raises ``ValueError``.
 
 The names follow the AV1 specification (AV1 Bitstream & Decoding Process
 Specification, sections 5-7); the tables are :mod:`.av1_tables`.
@@ -24,11 +29,13 @@ Specification, sections 5-7); the tables are :mod:`.av1_tables`.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
+from . import av1_filters
 from . import av1_tables as T
-
-LOSSY = "lossy AV1 (base_q_idx > 0 or a lossy segment): next AVIF PR"
+from . import av1_transforms as X
 
 # The OBU types read; the others (temporal delimiter, metadata, padding,
 # ...) are skipped.
@@ -257,7 +264,9 @@ def _cdfs(table):
     return [_cdfs(row) for row in table]
 
 
-def default_cdfs() -> dict:
+def default_cdfs(q_ctx: int = 0) -> dict:
+    """The CDFs a tile starts from; the coefficients' by the frame's q
+    context (base_q_idx up to 20, 60, 120, or above)."""
     return {
         "kf_y_mode": _cdfs(T.KF_Y_MODE_CDF),
         "uv_mode": _cdfs(T.UV_MODE_CDF),
@@ -275,13 +284,18 @@ def default_cdfs() -> dict:
         "palette_y_size": _cdfs(T.PALETTE_Y_SIZE_CDF),
         "palette_uv_size": _cdfs(T.PALETTE_UV_SIZE_CDF),
         "palette_color": [_cdfs(T.PALETTE_Y_COLOR_CDF), _cdfs(T.PALETTE_UV_COLOR_CDF)],
-        "txb_skip": _cdfs(T.TXB_SKIP_CDF),
-        "eob_pt_16": _cdfs(T.EOB_PT_16_CDF),
-        "eob_extra": _cdfs(T.EOB_EXTRA_CDF),
-        "coeff_base_eob": _cdfs(T.COEFF_BASE_EOB_CDF),
-        "coeff_base": _cdfs(T.COEFF_BASE_CDF),
-        "coeff_br": _cdfs(T.COEFF_BR_CDF),
-        "dc_sign": _cdfs(T.DC_SIGN_CDF),
+        "tx_depth": _cdfs(T.TX_DEPTH_CDF),
+        "intra_tx_type": [None, _cdfs(T.INTRA_TX_TYPE_SET1_CDF),
+                          _cdfs(T.INTRA_TX_TYPE_SET2_CDF)],
+        "txb_skip": _cdfs(T.TXB_SKIP_CDF[q_ctx]),
+        "eob_pt": [_cdfs(table[q_ctx]) for table in (
+            T.EOB_PT_16_CDF, T.EOB_PT_32_CDF, T.EOB_PT_64_CDF, T.EOB_PT_128_CDF,
+            T.EOB_PT_256_CDF, T.EOB_PT_512_CDF, T.EOB_PT_1024_CDF)],
+        "eob_extra": _cdfs(T.EOB_EXTRA_CDF[q_ctx]),
+        "coeff_base_eob": _cdfs(T.COEFF_BASE_EOB_CDF[q_ctx]),
+        "coeff_base": _cdfs(T.COEFF_BASE_CDF[q_ctx]),
+        "coeff_br": _cdfs(T.COEFF_BR_CDF[q_ctx]),
+        "dc_sign": _cdfs(T.DC_SIGN_CDF[q_ctx]),
     }
 
 
@@ -487,22 +501,90 @@ class Frame:
         self._tile_info(r)
         self._quantization_params(r)
         self._segmentation_params(r)
-        # delta_q_params / delta_lf_params: read only when base_q_idx > 0.
-        if self.base_q_idx > 0:
-            raise NotImplementedError(LOSSY)
-        for segment in range(8):
-            qindex = self.base_q_idx
-            if self.feature_enabled[segment][0]:
-                qindex = min(255, max(0, qindex + self.feature_data[segment][0]))
-            if qindex or any(self.delta_q):
-                raise NotImplementedError(LOSSY)
-        # CodedLossless: loop_filter_params, cdef_params, lr_params and
-        # read_tx_mode (ONLY_4X4) read nothing; an intra frame reads no
-        # reference mode, skip mode or warped motion.
-        r.f(1)  # reduced_tx_set
+        # delta_q_params (delta_lf_params reads only after a delta_q_present).
+        if self.base_q_idx > 0 and r.f(1):
+            raise NotImplementedError("AV1 delta_q_present (delta q / delta lf): next AVIF PR")
+        self.qindex = [self._qidx(segment) for segment in range(8)]
+        self.lossless = [q == 0 and not any(self.delta_q) for q in self.qindex]
+        self.coded_lossless = all(self.lossless)
+        if self.using_qmatrix and not self.coded_lossless:
+            raise NotImplementedError("AV1 using_qmatrix (quantiser matrices): next AVIF PR")
+        # (dc, ac) quantiser of each plane of each segment; Y's AC has no delta.
+        dq = self.delta_q + [0] * (5 - len(self.delta_q))
+        self.quantisers = [[(T.DC_QLOOKUP[min(255, max(0, q + dc))],
+                             T.AC_QLOOKUP[min(255, max(0, q + ac))])
+                            for dc, ac in ((dq[0], 0), (dq[1], dq[2]), (dq[3], dq[4]))]
+                           for q in self.qindex]
+        self._loop_filter_params(r)
+        self._cdef_params(r)
+        self._lr_params(r)
+        # read_tx_mode; an intra frame reads no reference mode, skip mode or
+        # warped motion.
+        self.tx_mode_select = 0 if self.coded_lossless else r.f(1)
+        self.reduced_tx_set = r.f(1)
         if seq.film_grain_params_present and (show_frame or showable):
             if r.f(1):  # apply_grain
                 raise NotImplementedError("AV1 film grain")
+
+    def _qidx(self, segment: int) -> int:
+        """get_qidx(1, segment)."""
+        if self.feature_enabled[segment][0]:
+            return min(255, max(0, self.base_q_idx + self.feature_data[segment][0]))
+        return self.base_q_idx
+
+    def _loop_filter_params(self, r: BitReader) -> None:
+        # setup_past_independence's deltas: INTRA_FRAME 1, LAST 0, ... ; an
+        # intra frame's blocks read only the first.
+        self.lf_levels = [0, 0, 0, 0]
+        self.lf_sharpness = 0
+        self.lf_ref_delta = 1
+        self.lf_delta_enabled = 0
+        if self.coded_lossless:
+            return
+        self.lf_levels[0] = r.f(6)
+        self.lf_levels[1] = r.f(6)
+        if self.seq.num_planes > 1 and (self.lf_levels[0] or self.lf_levels[1]):
+            self.lf_levels[2] = r.f(6)
+            self.lf_levels[3] = r.f(6)
+        self.lf_sharpness = r.f(3)
+        self.lf_delta_enabled = r.f(1)
+        if self.lf_delta_enabled and r.f(1):  # loop_filter_delta_update
+            for ref in range(8):
+                if r.f(1):
+                    delta = r.su(7)
+                    if ref == 0:
+                        self.lf_ref_delta = delta
+            for _ in range(2):
+                if r.f(1):
+                    r.su(7)  # loop_filter_mode_deltas: inter blocks only
+
+    def _cdef_params(self, r: BitReader) -> None:
+        self.cdef_on = bool(self.seq.enable_cdef and not self.coded_lossless)
+        self.cdef_damping, self.cdef_bits = 3, 0
+        self.cdef_strengths = [(0, 0, 0, 0)]
+        if not self.cdef_on:
+            return
+        self.cdef_damping = r.f(2) + 3
+        self.cdef_bits = r.f(2)
+        self.cdef_strengths = []
+        for _ in range(1 << self.cdef_bits):
+            y_pri, y_sec = r.f(4), r.f(2)
+            uv_pri = uv_sec = 0
+            if self.seq.num_planes > 1:
+                uv_pri, uv_sec = r.f(4), r.f(2)
+            # A secondary strength of 3 means 4.
+            self.cdef_strengths.append((y_pri, y_sec + (y_sec == 3), uv_pri,
+                                        uv_sec + (uv_sec == 3)))
+
+    def _lr_params(self, r: BitReader) -> None:
+        if self.coded_lossless or not self.seq.enable_restoration:
+            return
+        for plane in range(self.seq.num_planes):
+            if r.f(2):  # lr_type: RESTORE_NONE is 0
+                raise NotImplementedError(
+                    f"AV1 loop restoration (Wiener / self-guided filter on plane {plane}): "
+                    "next AVIF PR")
+        self.seen.add("restoration enabled, used by no plane")
 
     def _tile_info(self, r: BitReader) -> None:
         seq = self.seq
@@ -574,7 +656,8 @@ class Frame:
             u_dc, u_ac = delta_q(), delta_q()
             deltas += [u_dc, u_ac] + ([delta_q(), delta_q()] if diff_uv else [u_dc, u_ac])
         self.delta_q = deltas
-        if r.f(1):  # using_qmatrix
+        self.using_qmatrix = r.f(1)
+        if self.using_qmatrix:
             r.f(4)
             r.f(4)
             if seq.separate_uv_delta_q:
@@ -642,7 +725,9 @@ class Frame:
         for plane in range(seq.num_planes):
             subx = seq.subx if plane else 0
             suby = seq.suby if plane else 0
-            h, w = (self.mi_rows * 4) >> suby, (self.mi_cols * 4) >> subx
+            # The decoded area, and 64 more rows and columns that transforms
+            # reaching past it write to.
+            h, w = ((self.mi_rows * 4) >> suby) + 64, ((self.mi_cols * 4) >> subx) + 64
             self.planes.append([[0] * w for _ in range(h)])
         rows, cols = self.mi_rows, self.mi_cols
         self.y_modes = [[DC_PRED] * cols for _ in range(rows)]
@@ -652,17 +737,40 @@ class Frame:
         self.segment_ids = [[0] * cols for _ in range(rows)]
         self.palette_sizes = [[[0] * cols for _ in range(rows)] for _ in range(2)]
         self.palette_colors = [[[()] * cols for _ in range(rows)] for _ in range(2)]
+        # The luma transform size (w, h) of each 4x4 (InterTxSizes); the
+        # transform width and height at each 4x4 of each plane
+        # (LoopfilterTxSizes), with room for transforms past the frame's
+        # edge; the CDEF strength index of each 64x64.
+        self.tx_sizes = [[(4, 4)] * cols for _ in range(rows)]
+        self.lf_tx = []
+        for plane in range(seq.num_planes):
+            subx = seq.subx if plane else 0
+            suby = seq.suby if plane else 0
+            shape = ((rows >> suby) + 32, (cols >> subx) + 32)
+            self.lf_tx.append((np.full(shape, 4, np.int32), np.full(shape, 4, np.int32)))
+        self.cdef_idx = [[-1] * ((cols >> 4) + 2) for _ in range((rows >> 4) + 2)]
 
     def output(self) -> list:
-        """The planes as uint8 arrays, cropped to the frame's size."""
+        """The planes as uint8 arrays, deblocked and CDEF-filtered where
+        the frame says so, cropped to the frame's size."""
         seq = self.seq
-        out = []
+        planes = []
         for plane, rows in enumerate(self.planes):
+            subx = seq.subx if plane else 0
+            suby = seq.suby if plane else 0
+            h, w = (self.mi_rows * 4) >> suby, (self.mi_cols * 4) >> subx
+            planes.append(np.array([row[:w] for row in rows[:h]], dtype=np.int32))
+        if not self.coded_lossless:
+            planes = av1_filters.deblock(self, planes)
+            if self.cdef_on:
+                planes = av1_filters.cdef(self, planes)
+        out = []
+        for plane, pixels in enumerate(planes):
             subx = seq.subx if plane else 0
             suby = seq.suby if plane else 0
             h = (self.height + suby) >> suby
             w = (self.width + subx) >> subx
-            out.append(np.array(rows, dtype=np.uint8)[:h, :w])
+            out.append(pixels[:h, :w].astype(np.uint8))
         return out
 
 
@@ -674,7 +782,11 @@ class _TileDecoder:
         self.seq = frame.seq
         self.seen = frame.seen
         self.sd = sd
-        self.cdf = default_cdfs()
+        q = frame.base_q_idx
+        q_ctx = 0 if q <= 20 else 1 if q <= 60 else 2 if q <= 120 else 3
+        self.cdf = default_cdfs(q_ctx)
+        if not frame.coded_lossless:
+            self.seen.add(f"q_ctx {q_ctx}")
         self.row_start, self.row_end = row_start, row_end
         self.col_start, self.col_end = col_start, col_end
         seq = frame.seq
@@ -698,6 +810,11 @@ class _TileDecoder:
                 self.left_level[plane] = [0] * len(self.left_level[plane])
                 self.left_dc[plane] = [0] * len(self.left_dc[plane])
             for c in range(self.col_start, self.col_end, sb4):
+                # clear_cdef
+                cdef_idx = self.f.cdef_idx
+                for y in range(r >> 4, (r + sb4) >> 4):
+                    for x in range(c >> 4, (c + sb4) >> 4):
+                        cdef_idx[y][x] = -1
                 self._clear_block_decoded(r, c)
                 self._partition(r, c, bsize)
 
@@ -851,8 +968,18 @@ class _TileDecoder:
                                            + (f.skips[r][c - 1] if avail_l else 0)])
         if not f.seg_id_pre_skip:
             self._segment_id(b, b.skip)
-        # read_cdef, read_delta_qindex and read_delta_lf read nothing in a
-        # coded-lossless frame.
+        b.lossless = f.lossless[b.segment_id]
+        if b.lossless and not f.coded_lossless:
+            self.seen.add("lossless segment")
+        # read_cdef, per 64x64; read_delta_qindex and read_delta_lf read
+        # nothing without delta_q_present.
+        if f.cdef_on and not b.skip:
+            r16, c16 = r >> 4, c >> 4
+            if f.cdef_idx[r16][c16] == -1:
+                value = sd.literal(f.cdef_bits)
+                for y in range(r16, r16 + max(1, bh4 >> 4)):
+                    for x in range(c16, c16 + max(1, bw4 >> 4)):
+                        f.cdef_idx[y][x] = value
         above_mode = f.y_modes[r - 1][c] if avail_u else DC_PRED
         left_mode = f.y_modes[r][c - 1] if avail_l else DC_PRED
         b.y_mode = sd.symbol(cdf["kf_y_mode"][INTRA_MODE_CONTEXT[above_mode]]
@@ -863,7 +990,10 @@ class _TileDecoder:
         b.uv_mode = DC_PRED
         b.angle_uv = 0
         if has_chroma:
-            cfl_allowed = _residual_size(bsize, subx, suby) == BLOCK_4X4
+            if b.lossless:
+                cfl_allowed = _residual_size(bsize, subx, suby) == BLOCK_4X4
+            else:
+                cfl_allowed = max(bw, bh) <= 32
             if cfl_allowed:
                 b.uv_mode = sd.symbol(cdf["uv_mode"][1][b.y_mode])
             else:
@@ -883,8 +1013,22 @@ class _TileDecoder:
                 b.filter_intra = sd.symbol(cdf["filter_intra_mode"])
                 self.seen.add(f"filter_intra {b.filter_intra}")
         self._palette_tokens(b)
+        # read_block_tx_size: Max_Tx_Size_Rect, split tx_depth times.
+        tx = (min(bw, 64), min(bh, 64))
+        if b.lossless:
+            tx = (4, 4)
+        elif bsize != BLOCK_4X4 and f.tx_mode_select:
+            max_w, max_h = tx
+            above = f.tx_sizes[r - 1][c][0] if avail_u else 0
+            left = f.tx_sizes[r][c - 1][1] if avail_l else 0
+            depth = sd.symbol(cdf["tx_depth"][LOG2[max(tx)] - 3][(above >= max_w)
+                                                                 + (left >= max_h)])
+            for _ in range(depth):
+                tx = _split_tx(tx)
+            self.seen.add(f"tx_depth {depth}")
+        b.tx = tx
         self.seen.update((f"y_mode {b.y_mode}", f"uv_mode {b.uv_mode}" if has_chroma else "mono",
-                     f"block {bw}x{bh}"))
+                          f"block {bw}x{bh}"))
         if b.skip:
             self.seen.add("skip")
             self._reset_block_context(b)
@@ -893,10 +1037,12 @@ class _TileDecoder:
             sid = f.segment_ids[y]
             ps0, ps1 = f.palette_sizes[0][y], f.palette_sizes[1][y]
             pc0, pc1 = f.palette_colors[0][y], f.palette_colors[1][y]
+            txs = f.tx_sizes[y]
             for x in range(c, min(c + bw4, f.mi_cols)):
                 ym[x] = b.y_mode
                 sk[x] = b.skip
                 ms[x] = bsize
+                txs[x] = tx
                 sid[x] = b.segment_id
                 ps0[x] = len(b.palette_y)
                 ps1[x] = len(b.palette_u)
@@ -1132,8 +1278,8 @@ class _TileDecoder:
     # -- residual and reconstruction -----------------------------------------
 
     def _residual(self, b) -> None:
-        """residual(): the 4x4 transform blocks of each plane, 64x64 at a
-        time."""
+        """residual(): the transform blocks of each plane at the block's
+        transform size, 64x64 at a time."""
         bw, bh = BLOCK_DIMS[b.bsize]
         width_chunks = max(1, bw >> 6)
         height_chunks = max(1, bh >> 6)
@@ -1149,18 +1295,26 @@ class _TileDecoder:
                             raise ValueError("AV1 block has an invalid chroma size")
                     else:
                         plane_size = size_chunk
+                    if b.lossless:
+                        tx = (4, 4)
+                    elif plane:
+                        tx = _uv_tx(b.bsize, subx, suby)
+                    else:
+                        tx = b.tx
                     num4w = BLOCK_DIMS[plane_size][0] >> 2
                     num4h = BLOCK_DIMS[plane_size][1] >> 2
                     base_x = (b.c >> subx) * 4
                     base_y = (b.r >> suby) * 4
-                    for y in range(num4h):
-                        for x in range(num4w):
-                            self._transform_block(b, plane, base_x, base_y,
+                    for y in range(0, num4h, tx[1] >> 2):
+                        for x in range(0, num4w, tx[0] >> 2):
+                            self._transform_block(b, plane, base_x, base_y, tx,
                                                   x + ((chunk_x << 4) >> subx),
                                                   y + ((chunk_y << 4) >> suby))
 
-    def _transform_block(self, b, plane: int, base_x: int, base_y: int, x: int, y: int) -> None:
+    def _transform_block(self, b, plane: int, base_x: int, base_y: int, tx: tuple, x: int,
+                         y: int) -> None:
         f = self.f
+        w, h = tx
         start_x = base_x + 4 * x
         start_y = base_y + 4 * y
         subx = self.subx if plane else 0
@@ -1169,6 +1323,7 @@ class _TileDecoder:
         col = (start_x << subx) >> 2
         sub_row = row & self.sb_mask
         sub_col = col & self.sb_mask
+        step_x, step_y = w >> 2, h >> 2
         max_x = f.mi_cols * 4 - 1
         max_y = f.mi_rows * 4 - 1
         if start_x >= (max_x >> subx) or start_y >= (max_y >> suby):
@@ -1179,10 +1334,10 @@ class _TileDecoder:
         if b.palette_uv if plane else b.palette_y:
             colors = b.palette_uv[plane - 1] if plane else b.palette_y
             cmap = b.map_uv if plane else b.map_y
-            for i in range(4):
+            for i in range(h):
                 src = cmap[y * 4 + i]
-                frame[start_y + i][start_x:start_x + 4] = [colors[src[x * 4 + j]]
-                                                            for j in range(4)]
+                frame[start_y + i][start_x:start_x + w] = [colors[src[x * 4 + j]]
+                                                            for j in range(w)]
         else:
             cfl = plane > 0 and b.uv_mode == UV_CFL_PRED
             if plane == 0:
@@ -1192,17 +1347,29 @@ class _TileDecoder:
             have_left = (b.avail_l if plane == 0 else b.avail_lc) or x > 0
             have_above = (b.avail_u if plane == 0 else b.avail_uc) or y > 0
             self._predict_intra(b, plane, start_x, start_y, have_left, have_above,
-                                decoded[dy - 1][dx + 1], decoded[dy + 1][dx - 1], mode)
+                                decoded[dy - 1][dx + step_x], decoded[dy + step_y][dx - 1], mode,
+                                w, h)
             if cfl:
-                self._predict_cfl(b, plane, start_x, start_y)
+                self._predict_cfl(b, plane, start_x, start_y, w, h)
         if plane == 0:
-            b.max_luma_w = start_x + 4
-            b.max_luma_h = start_y + 4
+            b.max_luma_w = start_x + w
+            b.max_luma_h = start_y + h
         if not b.skip:
-            coeffs = self._coeffs(b, plane, start_x, start_y)
+            coeffs = self._coeffs(b, plane, start_x, start_y, tx)
             if coeffs is not None:
-                self._reconstruct(frame, start_x, start_y, coeffs)
-        decoded[dy][dx] = 1
+                if b.lossless:
+                    self._reconstruct_wht(frame, start_x, start_y, coeffs[0])
+                else:
+                    self._reconstruct(b, plane, start_x, start_y, tx, *coeffs)
+        if not f.coded_lossless:  # deblocking's transform sizes
+            lf_w, lf_h = f.lf_tx[plane]
+            y4, x4 = start_y >> 2, start_x >> 2
+            lf_w[y4:y4 + step_y, x4:x4 + step_x] = w
+            lf_h[y4:y4 + step_y, x4:x4 + step_x] = h
+        for i in range(step_y):
+            marks = decoded[dy + i]
+            for j in range(step_x):
+                marks[dx + j] = 1
 
     # -- prediction ----------------------------------------------------------
 
@@ -1228,9 +1395,8 @@ class _TileDecoder:
         return 1 if above_smooth or left_smooth else 0
 
     def _predict_intra(self, b, plane, x, y, have_left, have_above, have_above_right,
-                       have_below_left, mode) -> None:
+                       have_below_left, mode, w, h) -> None:
         f = self.f
-        w = h = 4
         frame = f.planes[plane]
         subx = self.subx if plane else 0
         suby = self.suby if plane else 0
@@ -1240,8 +1406,8 @@ class _TileDecoder:
         n = w + h
         # AboveRow[-1..n-1] and LeftCol[-1..n-1] at offset 16, room for
         # upsampling on both sides.
-        above = [0] * 48
-        left = [0] * 48
+        above = [0] * (2 * n + 32)
+        left = [0] * (2 * n + 32)
         if not have_above and have_left:
             value = frame[y][x - 1]
             above[16:16 + n] = [value] * n
@@ -1272,37 +1438,37 @@ class _TileDecoder:
         above[15] = left[15] = corner
 
         if plane == 0 and b.filter_intra >= 0:
-            pred = self._filter_intra(b.filter_intra, above, left)
+            pred = self._filter_intra(b.filter_intra, above, left, w, h)
         elif V_PRED <= mode <= D67_PRED:
             angle = T.MODE_TO_ANGLE[mode] + 3 * (b.angle_y if plane == 0 else b.angle_uv)
             if angle % 45 and angle not in (113, 157, 203, 67):
                 self.seen.add("angle_delta")
             pred = self._directional(b, plane, x, y, have_left, have_above, angle, above, left,
-                                     max_x, max_y)
+                                     max_x, max_y, w, h)
         elif mode == SMOOTH_PRED:
-            wts = T.SM_WEIGHTS[4]
+            wx, wy = T.SM_WEIGHTS[w], T.SM_WEIGHTS[h]
             bottom, right = left[16 + h - 1], above[16 + w - 1]
-            pred = [[(wts[i] * above[16 + j] + (256 - wts[i]) * bottom
-                      + wts[j] * left[16 + i] + (256 - wts[j]) * right + 256) >> 9
+            pred = [[(wy[i] * above[16 + j] + (256 - wy[i]) * bottom
+                      + wx[j] * left[16 + i] + (256 - wx[j]) * right + 256) >> 9
                      for j in range(w)] for i in range(h)]
         elif mode == SMOOTH_V_PRED:
-            wts = T.SM_WEIGHTS[4]
+            wy = T.SM_WEIGHTS[h]
             bottom = left[16 + h - 1]
-            pred = [[(wts[i] * above[16 + j] + (256 - wts[i]) * bottom + 128) >> 8
+            pred = [[(wy[i] * above[16 + j] + (256 - wy[i]) * bottom + 128) >> 8
                      for j in range(w)] for i in range(h)]
         elif mode == SMOOTH_H_PRED:
-            wts = T.SM_WEIGHTS[4]
+            wx = T.SM_WEIGHTS[w]
             right = above[16 + w - 1]
-            pred = [[(wts[j] * left[16 + i] + (256 - wts[j]) * right + 128) >> 8
+            pred = [[(wx[j] * left[16 + i] + (256 - wx[j]) * right + 128) >> 8
                      for j in range(w)] for i in range(h)]
         elif mode == DC_PRED:
             if have_left and have_above:
                 total = sum(above[16:16 + w]) + sum(left[16:16 + h])
                 avg = (total + ((w + h) >> 1)) // (w + h)
             elif have_left:
-                avg = (sum(left[16:16 + h]) + (h >> 1)) >> 2
+                avg = (sum(left[16:16 + h]) + (h >> 1)) >> LOG2[h]
             elif have_above:
-                avg = (sum(above[16:16 + w]) + (w >> 1)) >> 2
+                avg = (sum(above[16:16 + w]) + (w >> 1)) >> LOG2[w]
             else:
                 avg = base
             pred = [[avg] * w for _ in range(h)]
@@ -1325,9 +1491,8 @@ class _TileDecoder:
         for i in range(h):
             frame[y + i][x:x + w] = pred[i]
 
-    def _filter_intra(self, mode: int, above: list, left: list) -> list:
+    def _filter_intra(self, mode: int, above: list, left: list, w: int, h: int) -> list:
         taps = T.INTRA_FILTER_TAPS[mode]
-        w = h = 4
         pred = [[0] * w for _ in range(h)]
         top = (1 << self.seq.bit_depth) - 1
         for i2 in range(h >> 1):
@@ -1380,8 +1545,7 @@ class _TileDecoder:
             buf[16 + 2 * i] = dup[i + 2]
 
     def _directional(self, b, plane, x, y, have_left, have_above, angle, above, left,
-                     max_x, max_y) -> list:
-        w = h = 4
+                     max_x, max_y, w, h) -> list:
         upsample_above = upsample_left = 0
         if self.seq.enable_intra_edge_filter:
             if angle != 90 and angle != 180:
@@ -1454,17 +1618,17 @@ class _TileDecoder:
                     row[j] = left[16 + i]
         return pred
 
-    def _predict_cfl(self, b, plane: int, start_x: int, start_y: int) -> None:
+    def _predict_cfl(self, b, plane: int, start_x: int, start_y: int, w: int, h: int) -> None:
         f = self.f
         subx, suby = self.subx, self.suby
         alpha = b.cfl_u if plane == 1 else b.cfl_v
         luma = f.planes[0]
         frame = f.planes[plane]
         values = []
-        for i in range(4):
+        for i in range(h):
             luma_y = min(b.max_luma_h - (1 << suby), (start_y + i) << suby)
             row = []
-            for j in range(4):
+            for j in range(w):
                 luma_x = min(b.max_luma_w - (1 << subx), (start_x + j) << subx)
                 t = 0
                 for ddy in range(suby + 1):
@@ -1473,35 +1637,65 @@ class _TileDecoder:
                         t += src[luma_x + ddx]
                 row.append(t << (3 - subx - suby))
             values.append(row)
-        avg = (sum(sum(row) for row in values) + 8) >> 4
+        shift = LOG2[w] + LOG2[h]
+        avg = (sum(sum(row) for row in values) + (1 << (shift - 1))) >> shift
         top = (1 << self.seq.bit_depth) - 1
-        for i in range(4):
+        for i in range(h):
             out = frame[start_y + i]
-            for j in range(4):
+            for j in range(w):
                 scaled = alpha * (values[i][j] - avg)
                 scaled = (scaled + 32) >> 6 if scaled >= 0 else -((-scaled + 32) >> 6)
                 out[start_x + j] = min(top, max(0, out[start_x + j] + scaled))
 
     # -- coefficients --------------------------------------------------------
 
-    def _coeffs(self, b, plane: int, start_x: int, start_y: int):
-        """coeffs() for a 4x4 transform block; the levels with their signs
-        in raster order, or None where the block has none."""
+    def _tx_set(self, tx: tuple) -> int:
+        """get_tx_set for an intra block: 0 (DCT only), 1 or 2."""
+        if max(tx) >= 32:
+            return 0
+        if self.f.reduced_tx_set or min(tx) == 16:
+            return 2
+        return 1
+
+    def _tx_type(self, b, plane: int, tx: tuple) -> int:
+        """The luma block's intra_tx_type, read here, or compute_tx_type
+        for chroma."""
+        if b.lossless:
+            return 0
+        tx_set = self._tx_set(tx)
+        if not tx_set:
+            return 0
+        if plane:
+            return T.MODE_TO_TXFM[b.uv_mode]
+        if not self.f.qindex[b.segment_id]:
+            return 0
+        mode = T.FILTER_INTRA_MODE_TO_INTRA_DIR[b.filter_intra] if b.filter_intra >= 0 else \
+            b.y_mode
+        symbol = self.sd.symbol(self.cdf["intra_tx_type"][tx_set][LOG2[min(tx)] - 2][mode])
+        return (T.TX_TYPE_INTRA_INV_SET1 if tx_set == 1 else T.TX_TYPE_INTRA_INV_SET2)[symbol]
+
+    def _coeffs(self, b, plane: int, start_x: int, start_y: int, tx: tuple):
+        """coeffs() for one transform block: (the levels with their signs
+        in raster order of the coded min(w, 32) x min(h, 32), the transform
+        type), or None where the block has none."""
         f, sd, cdf = self.f, self.sd, self.cdf
+        w, h = tx
         x4, y4 = start_x >> 2, start_y >> 2
         subx = self.subx if plane else 0
         suby = self.suby if plane else 0
-        max_x4 = f.mi_cols >> subx
-        max_y4 = f.mi_rows >> suby
+        # The 4x4 columns and rows of the block inside the frame.
+        x_end = min(x4 + (w >> 2), f.mi_cols >> subx)
+        y_end = min(y4 + (h >> 2), f.mi_rows >> suby)
         ptype = 1 if plane else 0
         above_level, above_dc = self.above_level[plane], self.above_dc[plane]
         left_level, left_dc = self.left_level[plane], self.left_dc[plane]
-        top = above_level[x4] if x4 < max_x4 else 0
-        lft = left_level[y4] if y4 < max_y4 else 0
         plane_size = b.bsize if plane == 0 else _residual_size(b.bsize, subx, suby)
-        big = BLOCK_DIMS[plane_size] != (4, 4)
+        pw, ph = BLOCK_DIMS[plane_size]
+        tx_ctx = _TX_SIZE_CTX[tx]
         if plane == 0:
-            if not big:
+            top = max(above_level[x4:x_end], default=0)
+            lft = max(left_level[y4:y_end], default=0)
+            if pw == w and ph == h:
                 ctx = 0
             elif top == 0 and lft == 0:
                 ctx = 1
@@ -1514,29 +1708,31 @@ class _TileDecoder:
             else:
                 ctx = 6
         else:
-            above = (top | above_dc[x4]) if x4 < max_x4 else 0
-            left = (lft | left_dc[y4]) if y4 < max_y4 else 0
-            ctx = 7 + (above != 0) + (left != 0) + (3 if big else 0)
-        if sd.symbol(cdf["txb_skip"][ctx]):
-            if x4 < len(above_level):
-                above_level[x4] = 0
-                above_dc[x4] = 0
-            left_level[y4] = 0
-            left_dc[y4] = 0
+            above = any(above_level[x4:x_end]) or any(above_dc[x4:x_end])
+            left = any(left_level[y4:y_end]) or any(left_dc[y4:y_end])
+            ctx = 7 + above + left + (3 if pw * ph > w * h else 0)
+        if sd.symbol(cdf["txb_skip"][tx_ctx][ctx]):
+            above_level[x4:x_end] = above_dc[x4:x_end] = [0] * (x_end - x4)
+            left_level[y4:y_end] = left_dc[y4:y_end] = [0] * (y_end - y4)
             return None
-        eob_pt = sd.symbol(cdf["eob_pt_16"][ptype][0]) + 1
+        tx_type = self._tx_type(b, plane, tx)
+        tx_class = _TX_CLASS.get(tx_type, 0)
+        scan, base_nb, base_off, br_nb, br_off, eob_8, eob_4, size_ctx, name = \
+            _contexts(w, h, tx_class)
+        if not b.lossless:
+            self.seen.update((name, _TX_TYPE_NAMES[tx_type]))
+        eob_pt = sd.symbol(cdf["eob_pt"][size_ctx][ptype][1 if tx_class else 0]) + 1
         eob = eob_pt if eob_pt < 2 else (1 << (eob_pt - 2)) + 1
         if eob_pt >= 3:
-            if sd.symbol(cdf["eob_extra"][ptype][eob_pt - 3]):
+            if sd.symbol(cdf["eob_extra"][tx_ctx][ptype][eob_pt - 3]):
                 eob += 1 << (eob_pt - 3)
             for i in range(1, eob_pt - 2):
                 if sd.literal(1):
                     eob += 1 << (eob_pt - 3 - i)
-        scan = T.DEFAULT_SCAN_4X4
-        quant = [0] * 16
-        base_cdf = cdf["coeff_base"][ptype]
-        br_cdf = cdf["coeff_br"][ptype]
-        eob_cdf = cdf["coeff_base_eob"][ptype]
+        quant = [0] * (min(w, 32) * min(h, 32))
+        base_cdf = cdf["coeff_base"][tx_ctx][ptype]
+        br_cdf = cdf["coeff_br"][min(tx_ctx, 3)][ptype]
+        eob_cdf = cdf["coeff_base_eob"][tx_ctx][ptype]
         # The level and sign loops run the symbol decoder inline (as
         # SymbolDecoder.symbol and .literal do) on local copies of its state.
         rng, window, ahead, nxt = sd.rng, sd.window, sd.ahead, sd.next
@@ -1544,15 +1740,18 @@ class _TileDecoder:
         for c in range(eob - 1, -1, -1):
             pos = scan[c]
             if c == eob - 1:
-                row = eob_cdf[0 if c == 0 else 1 if c <= 2 else 2 if c <= 4 else 3]
+                row = eob_cdf[0 if c == 0 else 1 if c <= eob_8 else 2 if c <= eob_4 else 3]
                 level = 1
             else:
-                mag = 0
-                for k in _BASE_NEIGHBOURS[pos]:
-                    q = quant[k]
-                    mag += q if q < 3 else 3
-                row = base_cdf[0 if pos == 0 else (4 if mag > 6 else (mag + 1) >> 1)
-                               + _BASE_OFFSET[pos]]
+                offset = base_off[pos]
+                if offset < 0:
+                    row = base_cdf[0]
+                else:
+                    mag = 0
+                    for k in base_nb[pos]:
+                        q = quant[k]
+                        mag += q if q < 3 else 3
+                    row = base_cdf[(4 if mag > 6 else (mag + 1) >> 1) + offset]
                 level = 0
             steps = 1
             while steps:
@@ -1591,10 +1790,10 @@ class _TileDecoder:
                     if level <= 2:
                         break
                     mag = 0
-                    for k in _BR_NEIGHBOURS[pos]:
+                    for k in br_nb[pos]:
                         q = quant[k]
                         mag += q if q < 15 else 15
-                    row = br_cdf[(6 if mag > 10 else (mag + 1) >> 1) + _BR_OFFSET[pos]]
+                    row = br_cdf[(6 if mag > 10 else (mag + 1) >> 1) + br_off[pos]]
                     steps = 2
                 elif sym < 3 or steps == 5:
                     break
@@ -1610,11 +1809,7 @@ class _TileDecoder:
                 continue
             if c == 0:
                 dc_sign = 0
-                if x4 < max_x4:
-                    s = above_dc[x4]
-                    dc_sign += -1 if s == 1 else 1 if s == 2 else 0
-                if y4 < max_y4:
-                    s = left_dc[y4]
+                for s in above_dc[x4:x_end] + left_dc[y4:y_end]:
                     dc_sign += -1 if s == 1 else 1 if s == 2 else 0
                 sd.rng, sd.window, sd.ahead, sd.next, sd.inv = rng, window, ahead, nxt, inv
                 sign = sd.symbol(cdf["dc_sign"][ptype][1 if dc_sign < 0 else 2 if dc_sign > 0
@@ -1657,15 +1852,30 @@ class _TileDecoder:
             quant[pos] = -level if sign else level
         sd.rng, sd.window, sd.ahead, sd.next, sd.inv = rng, window, ahead, nxt, inv
         cul_level = min(63, cul_level)
-        above_level[x4] = cul_level
-        above_dc[x4] = dc_category
-        left_level[y4] = cul_level
-        left_dc[y4] = dc_category
-        return quant
+        above_level[x4:x_end] = [cul_level] * (x_end - x4)
+        above_dc[x4:x_end] = [dc_category] * (x_end - x4)
+        left_level[y4:y_end] = [cul_level] * (y_end - y4)
+        left_dc[y4:y_end] = [dc_category] * (y_end - y4)
+        return quant, tx_type
 
-    def _reconstruct(self, frame, x: int, y: int, quant: list) -> None:
-        """Dequantisation at qindex 0 (a factor of 4), the inverse WHT and
-        the sum with the prediction, clipped to the bit depth."""
+    def _reconstruct(self, b, plane: int, x: int, y: int, tx: tuple, quant: list,
+                     tx_type: int) -> None:
+        """Dequantisation, the inverse transform and the sum with the
+        prediction, clipped to 8 bits."""
+        w, h = tx
+        dc_q, ac_q = self.f.quantisers[b.segment_id][plane]
+        frame = self.f.planes[plane]
+        coef = np.array(quant, np.int64).reshape(min(h, 32), min(w, 32))
+        residual = X.inverse_transform_2d(X.dequantise(coef, dc_q, ac_q, w, h), w, h, tx_type)
+        pred = np.array([frame[y + i][x:x + w] for i in range(h)], np.int64)
+        out = np.clip(pred + residual, 0, 255).tolist()
+        for i in range(h):
+            frame[y + i][x:x + w] = out[i]
+
+    def _reconstruct_wht(self, frame, x: int, y: int, quant: list) -> None:
+        """A lossless block's 4x4: dequantisation at qindex 0 (a factor of
+        4), the inverse WHT and the sum with the prediction, clipped to the
+        bit depth."""
         if max(quant) >= 8192 or min(quant) <= -8192:
             # The factor of 4 meets the 24-bit mask and the clamp to
             # +-2^(7 + BitDepth); the row pass's shift of 2 takes it back.
@@ -1696,19 +1906,66 @@ class _TileDecoder:
                 row[x + j] = v if 0 <= v <= top else (0 if v < 0 else top)
 
 
-def _neighbours(offsets):
-    return [[((pos >> 2) + dr) * 4 + (pos & 3) + dc for dr, dc in offsets
-             if (pos >> 2) + dr < 4 and (pos & 3) + dc < 4] for pos in range(16)]
+def _split_tx(tx: tuple) -> tuple:
+    """Split_Tx_Size: a square transform halves both sides, a rectangle its
+    longer one; 4x4 stays."""
+    w, h = tx
+    if w == h:
+        return (max(4, w >> 1), max(4, h >> 1))
+    return (w >> 1, h) if w > h else (w, h >> 1)
 
 
-# The coefficient contexts of a 4x4 block by raster position: the
-# neighbours that get_coeff_base_ctx and the coeff_br context sum, and the
-# offsets they add.
-_BASE_NEIGHBOURS = _neighbours(T.SIG_REF_DIFF_OFFSET_2D)
-_BR_NEIGHBOURS = _neighbours(T.MAG_REF_OFFSET_2D)
-_BASE_OFFSET = [T.COEFF_BASE_CTX_OFFSET_4X4[pos >> 2][pos & 3] for pos in range(16)]
-_BR_OFFSET = [0 if pos == 0 else 7 if (pos >> 2) < 2 and (pos & 3) < 2 else 14
-              for pos in range(16)]
+# TxType -> tx class: V_DCT vertical (2), H_DCT horizontal (1), the others 2-D.
+_TX_CLASS = {10: 2, 11: 1}
+_TX_TYPE_NAMES = [f"tx_type {t}" for t in range(16)]
+# The transform size context of the coefficient CDFs: the mean of the
+# square sizes below and above, rounded up (4x4 0 .. 64x64 4).
+_TX_SIZE_CTX = {(w, h): (LOG2[min(w, h)] + LOG2[max(w, h)] - 3) >> 1
+                for w in (4, 8, 16, 32, 64) for h in (4, 8, 16, 32, 64)}
+
+
+@functools.lru_cache(maxsize=None)
+def _contexts(w: int, h: int, tx_class: int) -> tuple:
+    """The scan and coefficient contexts of a w x h transform of one tx
+    class, over the coded min(w, 32) x min(h, 32) in raster order: each
+    position's neighbours that get_coeff_base_ctx sums and its offset (-1
+    for the 2-D DC, whose context is 0), the coeff_br neighbours and
+    offset, the eob positions up to which coeff_base_eob takes contexts 1
+    and 2, the eob_pt CDF's size (16 to 1024 coefficients as 0 to 6), and
+    the name ``seen`` takes."""
+    cw, ch = min(w, 32), min(h, 32)
+    kind = ("default", "col", "row")[tx_class]
+    scan = T.SCANS[f"{cw}x{ch} {kind}"]
+    shape = 0 if w == h else 1 if w > h else 2
+    base_nb, base_off, br_nb, br_off = [], [], [], []
+    for pos in range(cw * ch):
+        row, col = divmod(pos, cw)
+        base_nb.append([(row + dr) * cw + col + dc for dr, dc in T.SIG_REF_DIFF_OFFSET[tx_class]
+                        if row + dr < ch and col + dc < cw])
+        br_nb.append([(row + dr) * cw + col + dc for dr, dc in T.MAG_REF_OFFSET[tx_class]
+                      if row + dr < ch and col + dc < cw])
+        if tx_class == 0:
+            base_off.append(-1 if pos == 0 else
+                            T.COEFF_BASE_CTX_OFFSET[shape][min(row, 4)][min(col, 4)])
+            near = row < 2 and col < 2
+        else:
+            along = col if tx_class == 1 else row
+            base_off.append(T.COEFF_BASE_POS_CTX_OFFSET[min(along, 2)])
+            near = along == 0
+        br_off.append(0 if pos == 0 else 7 if near else 14)
+    size_ctx = LOG2[cw] + LOG2[ch] - 4
+    return (scan, base_nb, base_off, br_nb, br_off, cw * ch // 8, cw * ch // 4, size_ctx,
+            f"tx {w}x{h}")
+
+
+def _uv_tx(bsize: int, subx: int, suby: int) -> tuple:
+    """get_tx_size for chroma: the largest transform of the chroma block,
+    with 64 taken down to 32."""
+    w, h = BLOCK_DIMS[_residual_size(bsize, subx, suby)]
+    w, h = min(w, 64), min(h, 64)
+    if w == 64 or h == 64:
+        return (16, 32) if w == 16 else (32, 16) if h == 16 else (32, 32)
+    return (w, h)
 
 
 def _edge_strength(w: int, h: int, filter_type: int, delta: int) -> int:
@@ -1744,7 +2001,7 @@ class _Block:
     __slots__ = ("r", "c", "bsize", "has_chroma", "avail_u", "avail_l", "avail_uc", "avail_lc",
                  "skip", "segment_id", "y_mode", "uv_mode", "angle_y", "angle_uv", "cfl_u",
                  "cfl_v", "palette_y", "palette_uv", "palette_u", "map_y", "map_uv",
-                 "filter_intra", "max_luma_w", "max_luma_h")
+                 "filter_intra", "max_luma_w", "max_luma_h", "lossless", "tx")
 
     def __init__(self, r, c, bsize, has_chroma, avail_u, avail_l, avail_uc, avail_lc):
         self.r, self.c, self.bsize, self.has_chroma = r, c, bsize, has_chroma

@@ -21,8 +21,9 @@ libyuv (8-bit, BT.601 / BT.709 / BT.2020 matrices, either range, 4:2:0 and
 conversion otherwise (4:0:0, the identity matrix).
 
 What this cannot read raises ``NotImplementedError`` naming it: ``grid``
-items, other matrices, and what :mod:`.av1` refuses
-(lossy AV1 among them). What libavif fails on raises ``ValueError``.
+items, other matrices, and what :mod:`.av1` refuses (loop restoration,
+quantiser matrices, delta q / lf among them). What libavif fails on raises
+``ValueError``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Write the AVIF fixtures that ``tests/test_torch_avif.py`` and
-``chip_smoke.py`` read, with the sha256 of PIL's decodes as their hashes.
+"""Write the AVIF fixtures that ``tests/test_torch_avif.py``,
+``tests/test_torch_avif_lossy.py`` and ``chip_smoke.py`` read, with the
+sha256 of PIL's decodes as their hashes.
 
     python scripts/make_avif_fixtures.py [--out tests/fixtures/avif]
 
@@ -17,10 +18,26 @@ construction method 1 (``idat``), several extents, ``infe`` version 3,
 no ``colr`` box, and a ``grid`` item. Each file is decoded by PIL as it is
 written, so a file PIL cannot read stops the script.
 
+The lossy files (``lossy_*``, PIL's writer below ``quality=100``, 64x64 or
+smaller unless named) cover qualities 97 to 5 (every coefficient q
+context, and the last base_q_idx of each of the first three), 4:0:0 / 4:2:2 / 4:4:4, aom's speeds 5, 8 and 10 on a photo and on
+text and speed 2 on a text image whose frame uses no loop restoration, a
+37x63 image, a 64x64 ramp at quality 20 (64-point transforms), the
+rectangular transforms aom writes only at its slowest speed (with loop
+restoration turned off; some 128x128), 128x128 superblocks, 2x2 tiles
+(128x128), CDEF (aom's ``enable-cdef``) at qualities 50 and 20 on 4:2:0
+and 4:4:4 photo and text and with two strength sets (128x128), chroma
+delta q, deblocking sharpness 4 and 7, RGBA, screen content with palette, and
+scene 3 at 4:2:0 and 4:4:4. For ``chip_smoke.py`` only:
+the 12 golden scenes at PIL's default quality (``scene_NN_q75.avif``) and
+``tests/fixtures/test_image.jpg`` as ``photo_640x480_q75.avif``.
+
 ``hashes.json`` holds each file's shape and the sha256 of
-``np.array(PIL.Image.open(f).convert("RGB"))``, and for the files the
-port refuses, ``refused``: the words its ``NotImplementedError`` names (a
-lossy file at ``quality=75``, film grain, a grid).
+``np.array(PIL.Image.open(f).convert("RGB"))``; ``lossy`` marks the lossy
+files and ``chip`` the ones only ``chip_smoke.py`` reads; for the files the
+port refuses, ``refused`` holds the words its ``NotImplementedError`` names
+(film grain, a grid, loop restoration at aom's speed 0, quantiser
+matrices).
 Scene 3 is also written at 4:4:4, for the timings. The script needs PIL;
 the files do not.
 """
@@ -294,7 +311,6 @@ def small_fixtures() -> dict:
         source420, extra=[clap, box(b"pasp", struct.pack(">II", 1, 1)), box(b"irot", b"\x01"),
                           box(b"imir", b"\x00")])
     refused = {
-        "refused_lossy_q75.avif": (pil_avif(photo48, quality=75), "lossy AV1"),
         "refused_film_grain.avif": (pil_avif(text48, subsampling="4:4:4",
                                              advanced={"film-grain-test": "1"}), "film grain"),
         # libavif takes grid cells of 64x64 and up only.
@@ -302,6 +318,93 @@ def small_fixtures() -> dict:
 
     }
     return {**{name: (blob, None) for name, blob in out.items()}, **refused}
+
+
+def lossy_fixtures() -> dict:
+    """name -> (bytes, refused kind or None): PIL's lossy files."""
+    from PIL import Image
+
+    photo48 = scene(48, 64, seed=5)
+    text48 = text_image(48, 64, seed=1)
+    out = {}
+    # Qualities 92, 76 and 53 give base_q_idx 20, 60 and 120: the last of
+    # q contexts 0, 1 and 2.
+    for quality in (97, 92, 90, 76, 75, 53, 50, 20, 5):
+        out[f"lossy_photo48_q{quality}.avif"] = pil_avif(photo48, quality=quality)
+    out["lossy_sub400_q75.avif"] = pil_avif(Image.fromarray(photo48[:, :, 1], "L"), quality=75)
+    for sub in ("4:2:2", "4:4:4"):
+        out[f"lossy_sub{sub.replace(':', '')}_q75.avif"] = pil_avif(photo48, quality=75,
+                                                                    subsampling=sub)
+    for speed in (5, 8, 10):
+        out[f"lossy_speed{speed}_photo420.avif"] = pil_avif(photo48, quality=75, speed=speed)
+        out[f"lossy_speed{speed}_text444.avif"] = pil_avif(text48, quality=75, speed=speed,
+                                                           subsampling="4:4:4")
+    # aom sets enable_restoration in the sequence header, and no plane of
+    # this frame uses it.
+    out["lossy_speed2_text420.avif"] = pil_avif(text_image(48, 64, seed=3), quality=75, speed=2)
+    out["lossy_shape37x63_q75.avif"] = pil_avif(scene(37, 63, seed=3), quality=75)
+    ramp = np.tile(np.linspace(0, 255, 64).astype(np.uint8)[None, :, None], (64, 1, 3))
+    out["lossy_ramp64_q20.avif"] = pil_avif(ramp, quality=20, speed=4)
+    out["lossy_sb128_q75.avif"] = pil_avif(scene(64, 64, seed=7), quality=75,
+                                           advanced={"sb-size": "128"})
+    out["lossy_tiles2x2_128x128.avif"] = pil_avif(scene(128, 128, seed=7), quality=75,
+                                                  tile_rows=1, tile_cols=1)
+    for quality in (50, 20):
+        for sub in ("4:2:0", "4:4:4"):
+            label = sub.replace(":", "")
+            out[f"lossy_cdef_photo{label}_q{quality}.avif"] = pil_avif(
+                photo48, quality=quality, subsampling=sub, advanced={"enable-cdef": "1"})
+            out[f"lossy_cdef_text{label}_q{quality}.avif"] = pil_avif(
+                text48, quality=quality, subsampling=sub, advanced={"enable-cdef": "1"})
+    photo = np.array(Image.open(os.path.join(HERE, "..", "tests", "fixtures", "test_image.jpg"))
+                     .convert("RGB"))
+    # aom's slower speeds, with loop restoration off, reach the transform
+    # sizes the default speed does not: 4x16 / 16x4 and a tx_depth of 2,
+    # 32x64, 64x32, 8x32, 16x64, 64x16, and 32x8 with two CDEF strength sets.
+    slow = {"enable-restoration": "0", "enable-cdef": "1"}
+    crop64, crop128 = photo[150:214, 250:314], photo[100:228, 200:328]
+    out["lossy_tx4x16_speed0.avif"] = pil_avif(scene(64, 64, seed=5), quality=75, speed=0,
+                                               advanced=slow)
+    out["lossy_tx32x64_speed0.avif"] = pil_avif(crop64, quality=20, speed=0, advanced=slow)
+    out["lossy_tx64x32_speed0.avif"] = pil_avif(crop64.transpose(1, 0, 2).copy(), quality=20,
+                                                speed=0, advanced=slow)
+    out["lossy_tx8x32_speed0_128x128.avif"] = pil_avif(crop128, quality=20, speed=0,
+                                                       advanced=slow)
+    stripes = np.tile((np.arange(128)[None, :, None] // 16 % 2 * 120 + 60).astype(np.uint8),
+                      (128, 1, 3))
+    out["lossy_tx16x64_stripes_128x128.avif"] = pil_avif(stripes, quality=20, speed=0,
+                                                         advanced=slow)
+    out["lossy_tx64x16_stripes_128x128.avif"] = pil_avif(stripes.transpose(1, 0, 2).copy(),
+                                                         quality=20, speed=0, advanced=slow)
+    out["lossy_cdef_strengths_128x128.avif"] = pil_avif(crop128, quality=50, speed=2,
+                                                        advanced=slow)
+    out["lossy_chroma_deltaq_q75.avif"] = pil_avif(photo48, quality=75,
+                                                   advanced={"enable-chroma-deltaq": "1"})
+    for sharpness, quality in ((4, 75), (4, 20), (7, 20)):
+        out[f"lossy_sharpness{sharpness}_q{quality}.avif"] = pil_avif(
+            photo48, quality=quality, advanced={"sharpness": str(sharpness)})
+    rgba = np.dstack([photo48, (np.arange(64)[None, :] * 4 + np.zeros((48, 1))).astype(np.uint8)])
+    out["lossy_rgba_q75.avif"] = pil_avif(Image.fromarray(rgba, "RGBA"), quality=75)
+    out["lossy_screen_palette_q75.avif"] = pil_avif(text_image(64, 64, seed=2), quality=75,
+                                                    subsampling="4:4:4",
+                                                    advanced={"tune-content": "screen"})
+    with open(os.path.join(GOLDEN, "expected.json"), encoding="utf8") as f:
+        names = [entry["image"] for entry in json.load(f)["scenes"]]
+    scene3 = np.array(Image.open(os.path.join(GOLDEN, "scene_03.png")).convert("RGB"))
+    out["lossy_scene_03_q75_444.avif"] = pil_avif(scene3, quality=75, subsampling="4:4:4")
+    refused = {
+        "refused_lossy_speed0_restoration.avif": (pil_avif(photo48, quality=75, speed=0),
+                                                  "loop restoration"),
+        "refused_lossy_qm.avif": (pil_avif(photo48, quality=75, advanced={"enable-qm": "1"}),
+                                  "using_qmatrix"),
+    }
+    chip = {}
+    for name in names:
+        rgb = np.array(Image.open(os.path.join(GOLDEN, name)).convert("RGB"))
+        chip[name.replace(".png", "_q75.avif")] = pil_avif(rgb, quality=75)
+    chip["photo_640x480_q75.avif"] = pil_avif(photo, quality=75)
+    return {**{name: (blob, None) for name, blob in out.items()}, **refused,
+            **{name: (blob, "chip") for name, blob in chip.items()}}
 
 
 def _save_all(frames, **options) -> bytes:
@@ -341,11 +444,16 @@ def main():
     sys.path.insert(0, os.path.join(HERE, ".."))
     os.makedirs(args.out, exist_ok=True)
     hashes = {}
-    for name, (blob, refused) in {**small_fixtures(), **golden_fixtures()}.items():
+    lossy = lossy_fixtures()
+    for name, (blob, refused) in {**small_fixtures(), **golden_fixtures(), **lossy}.items():
         rgb = pil_decode(blob)
         hashes[name] = {"shape": list(rgb.shape),
                         "decoded_sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
-        if refused:
+        if name in lossy:
+            hashes[name]["lossy"] = True
+        if refused == "chip":
+            hashes[name]["chip"] = True
+        elif refused:
             hashes[name]["refused"] = refused
         with open(os.path.join(args.out, name), "wb") as f:
             f.write(blob)

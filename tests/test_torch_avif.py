@@ -5,13 +5,14 @@ JAX's ``tools.read`` is PIL's ``Image.open(f).convert("RGB")``, which
 decodes AVIF with libavif over dav1d and converts with libyuv; the port's
 decode must equal it bit for bit:
 
-* every fixture of ``tests/fixtures/avif`` (written by
+* every lossless fixture of ``tests/fixtures/avif`` (written by
   ``scripts/make_avif_fixtures.py`` with PIL's lossless writer and the
   script's container rewrites), and golden scene 3 in 2x2 tiles, by path,
   as a file object and as bytes, against JAX's ``read`` and the sha256 of
-  PIL's decode in ``hashes.json``;
-* what PIL reads and the port does not (lossy AV1, film grain, grids, and
-  streams made here with a bit depth above 8, superres, intra block copy
+  PIL's decode in ``hashes.json`` (the lossy fixtures are
+  ``tests/test_torch_avif_lossy.py``'s);
+* what PIL reads and the port does not (film grain, grids, and streams
+  made here with a bit depth above 8, superres, intra block copy, delta q
   or an inter frame) raises ``NotImplementedError`` naming the kind; what
   PIL refuses, files cut short among them, raises ``ValueError``;
 * the symbol decoder against an AV1 symbol encoder written here, with CDF
@@ -41,8 +42,10 @@ AVIF = os.path.join(HERE, "fixtures", "avif")
 with open(os.path.join(AVIF, "hashes.json"), encoding="utf8") as _f:
     HASHES = json.load(_f)
 GOLDEN = {f"scene_{k:02d}.avif" for k in range(12)} | {"scene_03_444.avif"}
-REFUSED = sorted(name for name, entry in HASHES.items() if entry.get("refused"))
-SMALL = sorted(set(HASHES) - GOLDEN - set(REFUSED))
+LOSSY = {name for name, entry in HASHES.items() if entry.get("lossy")}
+REFUSED = sorted(name for name, entry in HASHES.items()
+                 if entry.get("refused") and name not in LOSSY)
+SMALL = sorted(set(HASHES) - GOLDEN - set(REFUSED) - LOSSY)
 
 
 def _read(name):
@@ -218,9 +221,10 @@ def _sequence_header(reduced=True, high_bitdepth=0, superres=0):
     return _obu(av1.OBU_SEQUENCE_HEADER, w.bytes())
 
 
-def _frame_header(screen=0, intrabc=0, superres=0, q=0):
+def _frame_header(screen=0, intrabc=0, superres=0, q=0, delta_q_present=0):
     """A reduced still picture's frame header, up to what is asked; a
-    superres frame needs a sequence header that enables superres."""
+    superres frame needs a sequence header that enables superres; a lossy
+    one (``q`` > 0) ends at delta_q_present."""
     w = BitWriter().f(1, 0).f(1, screen)
     if screen:
         w.f(1, 0)  # force_integer_mv
@@ -230,8 +234,10 @@ def _frame_header(screen=0, intrabc=0, superres=0, q=0):
     if screen:
         w.f(1, intrabc)
     # Uniform tiles, base_q_idx, three delta_coded, using_qmatrix,
-    # segmentation_enabled, reduced_tx_set.
-    w.f(1, 1).f(8, q).f(1, 0).f(1, 0).f(1, 0).f(1, 0).f(1, 0).f(1, 0)
+    # segmentation_enabled, then delta_q_present for a lossy frame, or
+    # reduced_tx_set for a lossless one.
+    w.f(1, 1).f(8, q).f(1, 0).f(1, 0).f(1, 0).f(1, 0).f(1, 0)
+    w.f(1, delta_q_present if q else 0)
     return _obu(av1.OBU_FRAME_HEADER, w.bytes())
 
 
@@ -239,7 +245,7 @@ def _frame_header(screen=0, intrabc=0, superres=0, q=0):
     (lambda: _sequence_header(high_bitdepth=1), "bit depth 10"),
     (lambda: _sequence_header(superres=1) + _frame_header(superres=1), "superres"),
     (lambda: _sequence_header() + _frame_header(screen=1, intrabc=1), "allow_intrabc"),
-    (lambda: _sequence_header() + _frame_header(q=40), "lossy AV1"),
+    (lambda: _sequence_header() + _frame_header(q=40, delta_q_present=1), "delta_q_present"),
     (lambda: _sequence_header(reduced=False) + _obu(av1.OBU_FRAME_HEADER,
                                                      BitWriter().f(1, 0).f(2, 1).bytes()),
      "inter frames"),
@@ -311,7 +317,8 @@ class SymbolEncoder:
 def test_symbol_decoder_round_trip(seed):
     rng = np.random.default_rng(seed)
     tables = [av1._cdfs(av1_tables.KF_Y_MODE_CDF[0][0]), av1._cdfs(av1_tables.SKIP_CDF[1]),
-              av1._cdfs(av1_tables.COEFF_BASE_CDF[0][5]), av1._cdfs(av1_tables.CFL_ALPHA_CDF[2]),
+              av1._cdfs(av1_tables.COEFF_BASE_CDF[0][0][0][5]),
+              av1._cdfs(av1_tables.CFL_ALPHA_CDF[2]),
               av1._cdfs(av1_tables.PALETTE_Y_COLOR_CDF[6][1])]
     script = []
     for _ in range(600):
@@ -348,7 +355,10 @@ SYMBOLS = {"KF_Y_MODE_CDF": 13, "ANGLE_DELTA_CDF": 7, "CFL_ALPHA_CDF": 16, "CFL_
            "SEGMENT_ID_CDF": 8, "DELTA_CDF": 4, "PALETTE_Y_MODE_CDF": 2,
            "PALETTE_UV_MODE_CDF": 2, "PALETTE_Y_SIZE_CDF": 7, "PALETTE_UV_SIZE_CDF": 7,
            "TXB_SKIP_CDF": 2, "EOB_EXTRA_CDF": 2, "DC_SIGN_CDF": 2, "EOB_PT_16_CDF": 5,
-           "COEFF_BASE_EOB_CDF": 3, "COEFF_BASE_CDF": 4, "COEFF_BR_CDF": 4}
+           "EOB_PT_32_CDF": 6, "EOB_PT_64_CDF": 7, "EOB_PT_128_CDF": 8, "EOB_PT_256_CDF": 9,
+           "EOB_PT_512_CDF": 10, "EOB_PT_1024_CDF": 11, "INTRA_TX_TYPE_SET1_CDF": 7,
+           "INTRA_TX_TYPE_SET2_CDF": 5, "COEFF_BASE_EOB_CDF": 3, "COEFF_BASE_CDF": 4,
+           "COEFF_BR_CDF": 4}
 
 
 def _rows(table, path=()):
@@ -368,6 +378,8 @@ def test_cdf_rows_have_av1_shape(name):
             count = 4 if path[0] < 4 else 8 if path[0] >= 16 else 10
         elif name.startswith("PALETTE_") and name.endswith("_COLOR_CDF"):
             count = 2 + path[0]
+        elif name == "TX_DEPTH_CDF":
+            count = 2 if path[0] == 0 else 3
         else:
             count = SYMBOLS[name]
         assert len(row) == count and row[-1] == 32768
@@ -396,15 +408,19 @@ def test_avif_is_first_and_takes_only_its_brands():
 
 
 def test_modules_import_only_numpy_and_the_standard_library():
-    """``avif``, ``av1`` and ``av1_tables`` import numpy, the standard
-    library and each other, nothing else (no torch, PIL, ctypes or JAX);
-    ``tools.read`` decodes AVIF with PIL and JAX unimportable, as on the
-    card's machine."""
+    """``avif``, ``av1``, ``av1_tables``, ``av1_transforms`` and
+    ``av1_filters`` import numpy, the standard library and each other,
+    nothing else (no torch, PIL, ctypes or JAX); ``tools.read`` decodes
+    lossless and lossy AVIF with PIL and JAX unimportable, as on the card's
+    machine."""
     import ast
     import subprocess
 
     root = os.path.dirname(HERE)
-    for module in ("avif", "av1", "av1_tables"):
+    modules = sorted(name[:-3] for name in os.listdir(os.path.join(root, "keras_ocr_tpu_torch"))
+                     if name.startswith(("av1", "avif")) and name.endswith(".py"))
+    assert modules == ["av1", "av1_filters", "av1_tables", "av1_transforms", "avif"]
+    for module in modules:
         with open(os.path.join(root, "keras_ocr_tpu_torch", f"{module}.py"), encoding="utf8") as f:
             tree = ast.parse(f.read())
         for node in ast.walk(tree):
@@ -414,7 +430,7 @@ def test_modules_import_only_numpy_and_the_standard_library():
                 names = [("." * node.level) + (node.module or "")]
             else:
                 continue
-            allowed = {"__future__", "struct", "numpy"}
+            allowed = {"__future__", "struct", "numpy", "functools"}
             if module != "av1_tables":
                 allowed.add(".")
             for name in names:
@@ -425,7 +441,8 @@ def test_modules_import_only_numpy_and_the_standard_library():
         "    sys.modules[name] = None\n"
         "from keras_ocr_tpu_torch import tools\n"
         f"hashes = json.load(open({os.path.join(AVIF, 'hashes.json')!r}))\n"
-        "for name in ('speed0_text444.avif', 'rgba_premultiplied.avif', 'sub400_full.avif'):\n"
+        "for name in ('speed0_text444.avif', 'rgba_premultiplied.avif', 'sub400_full.avif',\n"
+        "             'lossy_cdef_photo444_q20.avif', 'lossy_sub422_q75.avif'):\n"
         f"    out = tools.read(os.path.join({AVIF!r}, name))\n"
         "    assert hashlib.sha256(out.tobytes()).hexdigest() == hashes[name]['decoded_sha256']\n"
         "print('avif ok')\n")
